@@ -1,0 +1,166 @@
+"""Double-single (hi, lo) compensated prefix sums: the CUDA kernel and its
+plain PyTorch version.
+
+Counterpart of ``raht3dgs_tpu/ops/pallas_scan.py`` (``ds_cumsum_pallas``
+and ``ds_cumsum_pallas_t``). The kernel is ``csrc/ds_scan.cu``, built with
+nvcc for ``sm_90a`` into ``_build/`` at first use and called through
+ctypes on PyTorch's current stream. The wrappers take the plain version
+only for a tensor that lies on the CPU; for a CUDA tensor they launch the
+kernel or raise.
+
+Both the kernel and :func:`ds_cumsum_reference` keep ~48 mantissa bits
+(error-free two-sum) and give exact results for integer-valued lanes whose
+partial sums stay below 2^24 — under their own association, which differs
+between the two, so float lanes agree to ~1e-12 relative, not bitwise.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+from typing import Tuple
+
+import torch
+
+from raht3dgs_tpu_torch.codec._native import NativeLib, nvcc_command
+
+MAX_K = 8  # widest row the kernel takes (the switch in ds_cumsum_f32)
+
+_SRC = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    "csrc", "ds_scan.cu",
+)
+
+
+def _configure(lib: ctypes.CDLL) -> None:
+    vp, ll = ctypes.c_void_p, ctypes.c_longlong
+    lib.ds_cumsum_f32.argtypes = [vp, ll, ctypes.c_int, ll, ll, vp, vp, vp, vp]
+    lib.ds_cumsum_f32.restype = ctypes.c_int
+    lib.ds_scan_scratch_floats.argtypes = [ll, ctypes.c_int]
+    lib.ds_scan_scratch_floats.restype = ll
+
+
+KERNEL = NativeLib(_SRC, "libds_scan.so", _configure, nvcc_command)
+
+# Kernel launches per entry point. Each wrapper adds one where it launches
+# the kernel and nowhere else; callers reset and read them.
+LAUNCHES = {"ds_cumsum": 0, "ds_cumsum_t": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+# -- plain version ------------------------------------------------------------
+
+
+def _ds_add(h1, l1, h2, l2):
+    """(h1, l1) + (h2, l2) in double-single, one IEEE op per line."""
+    s = h1 + h2
+    bv = s - h1
+    err = (h1 - (s - bv)) + (h2 - bv)
+    e = err + (l1 + l2)
+    hi = s + e
+    lo = e - (hi - s)
+    return hi, lo
+
+
+def _ds_scan_plain(hi, lo, block: int = 256):
+    """Inclusive ds scan along dim 0 of an (N, K) (hi, lo) pair: a sequential
+    scan inside ``block``-row blocks (vectorized over blocks), the same scan
+    applied to the block totals, and one combine."""
+    N, K = hi.shape
+    if N <= block:
+        out_h = torch.empty_like(hi)
+        out_l = torch.empty_like(lo)
+        rh = torch.zeros(K, dtype=hi.dtype, device=hi.device)
+        rl = torch.zeros_like(rh)
+        for i in range(N):
+            rh, rl = _ds_add(rh, rl, hi[i], lo[i])
+            out_h[i] = rh
+            out_l[i] = rl
+        return out_h, out_l
+    nb = -(-N // block)
+    pad = torch.zeros(nb * block - N, K, dtype=hi.dtype, device=hi.device)
+    vh = torch.cat([hi, pad]).reshape(nb, block, K)
+    vl = torch.cat([lo, pad]).reshape(nb, block, K)
+    oh = torch.empty_like(vh)
+    ol = torch.empty_like(vl)
+    rh = torch.zeros(nb, K, dtype=hi.dtype, device=hi.device)
+    rl = torch.zeros_like(rh)
+    for j in range(block):
+        rh, rl = _ds_add(rh, rl, vh[:, j], vl[:, j])
+        oh[:, j] = rh
+        ol[:, j] = rl
+    ch, cl = _ds_scan_plain(oh[:, -1], ol[:, -1], block)
+    zrow = torch.zeros(1, K, dtype=hi.dtype, device=hi.device)
+    ch = torch.cat([zrow, ch[:-1]])[:, None]
+    cl = torch.cat([zrow, cl[:-1]])[:, None]
+    oh, ol = _ds_add(ch, cl, oh, ol)
+    return oh.reshape(nb * block, K)[:N], ol.reshape(nb * block, K)[:N]
+
+
+def ds_cumsum_reference(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`ds_cumsum` on any device."""
+    _check(x)
+    return _ds_scan_plain(x, torch.zeros_like(x))
+
+
+# -- kernel wrappers ------------------------------------------------------------
+
+
+def _check(x: torch.Tensor) -> None:
+    if x.dtype != torch.float32:
+        raise TypeError(f"ds scan takes float32, got {x.dtype}")
+    if x.dim() != 2:
+        raise ValueError(f"ds scan takes a 2-D tensor, got shape {tuple(x.shape)}")
+
+
+def _launch(x: torch.Tensor, n: int, k: int, rs: int, cs: int, entry: str):
+    if x.device.type != "cuda":
+        raise ValueError(f"ds scan kernel needs a CUDA tensor, got {x.device}")
+    if not x.is_contiguous():
+        raise ValueError("ds scan kernel takes a contiguous tensor")
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"ds scan kernel takes 1..{MAX_K} columns, got {k}")
+    lib = KERNEL.load()
+    hi = torch.empty_like(x)
+    lo = torch.empty_like(x)
+    if n == 0:
+        return hi, lo
+    scratch = torch.empty(max(int(lib.ds_scan_scratch_floats(n, k)), 1),
+                          dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = lib.ds_cumsum_f32(x.data_ptr(), n, k, rs, cs, hi.data_ptr(),
+                           lo.data_ptr(), scratch.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"ds_cumsum_f32 launch failed (CUDA error {rc})")
+    LAUNCHES[entry] += 1
+    return hi, lo
+
+
+def ds_cumsum(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Compensated inclusive prefix sums along dim 0 of ``x (N, K)`` f32.
+
+    Returns ``(hi, lo)`` float32 (N, K). A single column is the same memory
+    as the transposed layout and goes through :func:`ds_cumsum_t`."""
+    _check(x)
+    if x.device.type == "cpu":
+        return ds_cumsum_reference(x)
+    N, K = x.shape
+    if K == 1:
+        hi, lo = ds_cumsum_t(x.reshape(1, N))
+        return hi.reshape(N, 1), lo.reshape(N, 1)
+    return _launch(x, N, K, K, 1, "ds_cumsum")
+
+
+def ds_cumsum_t(xt: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Transposed entry: ``xt (K, N)`` f32, scanned along the last axis;
+    returns ``(hi, lo)`` in the same (K, N) layout."""
+    _check(xt)
+    if xt.device.type == "cpu":
+        hi, lo = ds_cumsum_reference(xt.T)
+        return hi.T.contiguous(), lo.T.contiguous()
+    K, N = xt.shape
+    return _launch(xt, N, K, 1, N, "ds_cumsum_t")
