@@ -3,40 +3,49 @@
 // Replaces the TPU kernels of raht3dgs_tpu/ops/pallas_scan.py: _scan_kernel
 // (entry ds_cumsum_pallas, the (N, K) row layout) and _scan_kernel_t (entry
 // ds_cumsum_pallas_t, the transposed (K, N) layout). Both layouts are one
-// kernel here: element (row, col) lives at x[row * rs + col * cs], so the
-// row entry passes (rs, cs) = (K, 1) and the transposed entry (1, N).
+// kernel here: element (row, col) of the input lives at x[row * rs + col * cs],
+// so the row entry passes (K, 1) and the transposed entry (1, N); hi and lo
+// come out in the input's layout, one after the other. With `pack` (row
+// layout only) the kernel writes instead the codec's (N + 1, 2K) prefix
+// pack: a zero row, then rows [hi | lo].
 //
 // Numerics are the TPU kernel's error-free two-sum and ds combine
 // (pallas_scan.py:_two_sum/_ds_add), ~48 mantissa bits. Every add and
 // subtract is an explicit round-to-nearest intrinsic, so nvcc can neither
 // contract nor reorder them; the library is built without fast math. The
 // association depends on the row count alone (never on K, the layout or
-// the strides), so one column scanned alone or inside a wider pack gives
-// the same bits, and integer-valued lanes whose partial sums stay below
-// 2^24 come out exact under it.
+// the strides): the tile size, the rows per thread and the order in which
+// tile totals combine are constants, nothing is atomic and no block waits
+// on a timing-dependent set of predecessors. So one column scanned alone or
+// inside a wider pack gives the same bits, every run gives the same bits,
+// and integer-valued lanes whose partial sums stay below 2^24 are exact.
 //
-// Design. The TPU kernel walks row chunks on a sequential grid with a carry
-// in VMEM; blocks on Hopper run in parallel and carry nothing, so the scan
-// takes three launches:
-//   1. tile_reduce: each block reduces its 2048-row tile to per-column
+// Bound on the card: bytes. The function reads 4NK bytes and writes 8NK;
+// at the codec's fused pack (2^19, 4) that is 24 MiB, ~7.5 us at 3.35 TB/s.
+// Design, two launches for up to 2048 tiles (4M rows):
+//   1. ds_tile_total: each block reduces its 2048-row tile to per-column
 //      (hi, lo) totals;
-//   2. the tile totals are scanned by the same procedure (one block while
-//      there are at most 2048 tiles, i.e. N <= 4M rows; deeper otherwise);
-//   3. tile_scan: each block scans its tile and adds the carry in front.
-// Inside a block, each thread owns 8 consecutive rows and reduces them
-// sequentially; a warp scan with __shfl_up_sync on hi and lo and a pass
-// over the 8 warp totals in shared memory give each thread its exclusive
-// prefix, and the thread re-reads its rows (from L1/L2) to write them.
-//
-// Bound on the card: bytes. At the codec's fused pack (2^19, 4) the
-// function reads 8 MiB and writes 16 MiB, about 7.5 us at 3.35 TB/s, so
-// launch latency of the passes weighs as much as the traffic. The design
-// keeps three launches with no host synchronisation between them and a
-// single-block middle pass. What it leaves on the table (PERF.md has the
-// measured time): a thread's 8-row block makes a warp's loads strided
-// rather than coalesced, and the input is read three times (once to
-// reduce, twice in the scan pass). Coalesced warp-striped loads and a
-// decoupled look-back single pass are the next steps for speed.
+//   2. ds_tile_scan: each block first combines the totals of the tiles
+//      before it (a fixed block-wide reduction over at most 2048 totals,
+//      read from L2), then scans its own tile with that carry in front.
+// Beyond 2048 tiles the tile totals are scanned by the same procedure
+// (recursively) between the two passes. A block stages its tile in shared
+// memory with coalesced 16-byte loads (neighbouring threads on neighbouring
+// addresses; the row layout's tile is one contiguous run, the transposed
+// layout's K runs), one pad word per 32 floats keeping each thread's 8-row
+// run off its neighbours' banks. Each thread then reads its 8 rows, a
+// __shfl_up_sync warp scan on hi and lo, and warp 0's scan of the 8 warp
+// totals give it its exclusive prefix, and the results go back through the
+// same shared buffer (hi, then lo) to coalesced stores. The second read of
+// the input comes from L2 (8 MiB at the pack, far below the 50 MB L2).
+// What it leaves: at the pack's 256 tiles the grid is one wave of two
+// blocks per SM, so the scan pass's compensated adds (9 float adds each)
+// and its stores run one after the other rather than overlapped; the input
+// is read twice (once from device memory, once from L2); the pass boundary
+// costs a launch (a single pass would need a look-back whose
+// timing-dependent order this association rules out, or a cooperative
+// grid barrier). The pack's [hi | lo] rows are staged whole, half a tile
+// at a time, and stored as one contiguous run.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -47,7 +56,10 @@ constexpr int kThreads = 256;
 constexpr int kItems = 8;
 constexpr int kTile = kThreads * kItems;  // rows per block
 constexpr int kWarps = kThreads / 32;
+constexpr int kMaxCarryTiles = kTile;     // tile totals one block combines
 constexpr unsigned kFull = 0xffffffffu;
+
+enum Carry { kCarryNone = 0, kCarryTotals = 1, kCarryScanned = 2 };
 
 // (hi, lo) <- (hi, lo) + (hi2, lo2), compensated. Commutative bitwise:
 // the two-sum error term is exact whatever the operand order.
@@ -63,42 +75,145 @@ __device__ __forceinline__ void ds_add(float& hi, float& lo, float hi2,
   hi = h;
 }
 
+// Shared-memory word of the q-th staged float: one pad word per 32.
+__device__ __forceinline__ int pad(int q) { return q + (q >> 5); }
+
+// Floats of the staged tile for K columns, pad words included.
+__host__ __device__ constexpr int stage_floats(int k) {
+  return k * kTile + k * kTile / 32;
+}
+
+// Staged position q of element (r, c) of a tile: row-major when the matrix
+// is row-contiguous (cs == 1), column-major otherwise, so the staged order
+// follows the contiguous runs in device memory. For K == 1 both are q = r.
 template <int K>
-__device__ __forceinline__ void thread_reduce(const float* __restrict__ in_hi,
-                                              const float* __restrict__ in_lo,
-                                              long long n, long long rs,
-                                              long long cs, long long row0,
-                                              float (&hi)[K], float (&lo)[K]) {
+__device__ __forceinline__ int staged(bool row_major, int r, int c) {
+  return row_major ? r * K + c : c * kTile + r;
+}
+
+__device__ __forceinline__ bool aligned16(const float* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// Brings rows [row0, row0 + R) of x into the staged tile s: staged slot u
+// holds positions 4u..4u+3, one 16-byte load where the four are valid and
+// aligned, element loads otherwise. Positions past the tile's end hold 0.
+template <int K>
+__device__ __forceinline__ void stage_in(const float* __restrict__ x,
+                                         bool row_major, long long cs,
+                                         long long row0, int R, float* s) {
+  constexpr int kSlots = K * kTile / 4 / kThreads;
+  float4 v[kSlots];
 #pragma unroll
-  for (int k = 0; k < K; ++k) {
-    hi[k] = 0.f;
-    lo[k] = 0.f;
+  for (int j = 0; j < kSlots; ++j) {
+    const int q = 4 * (threadIdx.x + j * kThreads);
+    const float* g;
+    int valid;
+    if (row_major) {  // the tile is one run of R * K floats
+      g = x + row0 * K + q;
+      valid = R * K - q;
+    } else {          // column q / kTile, rows q % kTile ..
+      const int c = q / kTile, r = q % kTile;
+      g = x + c * cs + row0 + r;
+      valid = R - r;
+    }
+    if (valid >= 4 && aligned16(g)) {
+      v[j] = __ldg(reinterpret_cast<const float4*>(g));
+    } else {
+      v[j].x = valid > 0 ? __ldg(g) : 0.f;
+      v[j].y = valid > 1 ? __ldg(g + 1) : 0.f;
+      v[j].z = valid > 2 ? __ldg(g + 2) : 0.f;
+      v[j].w = valid > 3 ? __ldg(g + 3) : 0.f;
+    }
   }
 #pragma unroll
-  for (int j = 0; j < kItems; ++j) {
-    const long long r = row0 + j;
-    if (r < n) {
+  for (int j = 0; j < kSlots; ++j) {
+    const int q = 4 * (threadIdx.x + j * kThreads);
+    s[pad(q)] = v[j].x;
+    s[pad(q + 1)] = v[j].y;
+    s[pad(q + 2)] = v[j].z;
+    s[pad(q + 3)] = v[j].w;
+  }
+}
+
+// Stores staged positions q..q+3 of s at g[0..3]: one 16-byte store where
+// all four are valid and g is aligned, element stores of the valid ones
+// otherwise.
+__device__ __forceinline__ void put_slot(const float* s, int q,
+                                         float* __restrict__ g, int valid) {
+  const float a = s[pad(q)], b = s[pad(q + 1)], d = s[pad(q + 2)],
+              e = s[pad(q + 3)];
+  if (valid >= 4 && aligned16(g)) {
+    *reinterpret_cast<float4*>(g) = make_float4(a, b, d, e);
+  } else {
+    if (valid > 0) g[0] = a;
+    if (valid > 1) g[1] = b;
+    if (valid > 2) g[2] = d;
+    if (valid > 3) g[3] = e;
+  }
+}
+
+// Writes the staged tile s to rows [row0, row0 + R) of out, laid out as the
+// input (stage_in's mirror): consecutive threads store consecutive slots.
+template <int K>
+__device__ __forceinline__ void stage_out(const float* s, bool row_major,
+                                          long long cs,
+                                          float* __restrict__ out,
+                                          long long row0, int R) {
+  constexpr int kSlots = K * kTile / 4 / kThreads;
 #pragma unroll
-      for (int k = 0; k < K; ++k) {
-        const long long off = r * rs + k * cs;
-        ds_add(hi[k], lo[k], in_hi[off], in_lo ? in_lo[off] : 0.f);
-      }
+  for (int j = 0; j < kSlots; ++j) {
+    const int q = 4 * (threadIdx.x + j * kThreads);
+    if (row_major) {
+      put_slot(s, q, out + row0 * K + q, R * K - q);
+    } else {
+      const int c = q / kTile, r = q % kTile;
+      put_slot(s, q, out + c * cs + row0 + r, R - r);
     }
   }
 }
 
-// Exclusive block-wide prefix (ph, pl) of the per-thread totals (hi, lo),
-// and the block total (th, tl). Every thread of the block must call it.
+// Writes staged positions [0, len) to the contiguous run g[0, len).
 template <int K>
-__device__ __forceinline__ void block_scan(float (&hi)[K], float (&lo)[K],
-                                           float (&ph)[K], float (&pl)[K],
-                                           float (&th)[K], float (&tl)[K]) {
-  __shared__ float s_hi[kWarps][K];
-  __shared__ float s_lo[kWarps][K];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+__device__ __forceinline__ void store_run(const float* s,
+                                          float* __restrict__ g, int len) {
+  constexpr int kSlots = K * kTile / 4 / kThreads;
 #pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
+  for (int j = 0; j < kSlots; ++j) {
+    const int q = 4 * (threadIdx.x + j * kThreads);
+    put_slot(s, q, g + q, len - q);
+  }
+}
+
+// Thread t's rows t*8 .. t*8+7 of the staged tile, in registers.
+template <int K>
+__device__ __forceinline__ void read_rows(const float* s, bool row_major,
+                                          float (&x)[kItems][K]) {
+#pragma unroll
+  for (int j = 0; j < kItems; ++j)
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      x[j][k] = s[pad(staged<K>(row_major, threadIdx.x * kItems + j, k))];
+}
+
+template <int K>
+__device__ __forceinline__ void write_rows(float* s, bool row_major,
+                                           const float (&x)[kItems][K]) {
+#pragma unroll
+  for (int j = 0; j < kItems; ++j)
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      s[pad(staged<K>(row_major, threadIdx.x * kItems + j, k))] = x[j][k];
+}
+
+// Shuffle scan: lanes [0, width) end with the inclusive prefix of (hi, lo)
+// over lanes 0..lane (width a power of two up to 32; the whole warp calls
+// it, and lanes past width end with partial sums that nobody reads).
+template <int K>
+__device__ __forceinline__ void warp_scan(float (&hi)[K], float (&lo)[K],
+                                          int lane, int width) {
+#pragma unroll
+  for (int off = 1; off < width; off <<= 1) {
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       const float oh = __shfl_up_sync(kFull, hi[k], off);
@@ -106,11 +221,51 @@ __device__ __forceinline__ void block_scan(float (&hi)[K], float (&lo)[K],
       if (lane >= off) ds_add(hi[k], lo[k], oh, ol);
     }
   }
+}
+
+// Exclusive block-wide prefix (ph, pl) of the per-thread totals (hi, lo),
+// and the block total (th, tl). Every thread of the block must call it.
+// An inclusive shuffle scan in each warp; warp 0 scans the 8 warp totals
+// the same way; each thread adds its warp's exclusive prefix in front.
+template <int K>
+__device__ __forceinline__ void block_scan(float (&hi)[K], float (&lo)[K],
+                                           float (&ph)[K], float (&pl)[K],
+                                           float (&th)[K], float (&tl)[K]) {
+  // rows 0..kWarps-1: warp totals, then their exclusive prefixes; row
+  // kWarps: the block total
+  __shared__ float s_hi[kWarps + 1][K];
+  __shared__ float s_lo[kWarps + 1][K];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  warp_scan<K>(hi, lo, lane, 32);
   if (lane == 31) {
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       s_hi[warp][k] = hi[k];
       s_lo[warp][k] = lo[k];
+    }
+  }
+  __syncthreads();
+  if (warp == 0) {
+    float wh[K], wl[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      wh[k] = lane < kWarps ? s_hi[lane][k] : 0.f;
+      wl[k] = lane < kWarps ? s_lo[lane][k] : 0.f;
+    }
+    warp_scan<K>(wh, wl, lane, kWarps);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const float eh = __shfl_up_sync(kFull, wh[k], 1);
+      const float el = __shfl_up_sync(kFull, wl[k], 1);
+      if (lane < kWarps) {
+        s_hi[lane][k] = lane == 0 ? 0.f : eh;
+        s_lo[lane][k] = lane == 0 ? 0.f : el;
+      }
+      if (lane == kWarps - 1) {
+        s_hi[kWarps][k] = wh[k];
+        s_lo[kWarps][k] = wl[k];
+      }
     }
   }
   __syncthreads();
@@ -122,29 +277,60 @@ __device__ __forceinline__ void block_scan(float (&hi)[K], float (&lo)[K],
       eh = 0.f;
       el = 0.f;
     }
-    float wh = 0.f, wl = 0.f;
-    th[k] = 0.f;
-    tl[k] = 0.f;
-    for (int w = 0; w < kWarps; ++w) {
-      if (w < warp) ds_add(wh, wl, s_hi[w][k], s_lo[w][k]);
-      ds_add(th[k], tl[k], s_hi[w][k], s_lo[w][k]);
-    }
-    ds_add(wh, wl, eh, el);
-    ph[k] = wh;
-    pl[k] = wl;
+    ph[k] = s_hi[warp][k];
+    pl[k] = s_lo[warp][k];
+    ds_add(ph[k], pl[k], eh, el);
+    th[k] = s_hi[kWarps][k];
+    tl[k] = s_lo[kWarps][k];
   }
+  __syncthreads();  // s_hi/s_lo free for the next call
 }
 
-template <int K>
+// Loads the block's tile (hi, and lo for a ds-pair input) into registers
+// through the staged buffer, and reduces each thread's rows.
+template <int K, bool kPair>
+__device__ __forceinline__ void load_tile(
+    const float* __restrict__ in_hi, const float* __restrict__ in_lo,
+    bool row_major, long long cs, long long row0, int R, float* s,
+    float (&xh)[kItems][K], float (&xl)[kItems][K], float (&hi)[K],
+    float (&lo)[K]) {
+  stage_in<K>(in_hi, row_major, cs, row0, R, s);
+  __syncthreads();
+  read_rows<K>(s, row_major, xh);
+  if (kPair) {
+    __syncthreads();
+    stage_in<K>(in_lo, row_major, cs, row0, R, s);
+    __syncthreads();
+    read_rows<K>(s, row_major, xl);
+  } else {
+#pragma unroll
+    for (int j = 0; j < kItems; ++j)
+#pragma unroll
+      for (int k = 0; k < K; ++k) xl[j][k] = 0.f;
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    hi[k] = 0.f;
+    lo[k] = 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < kItems; ++j)
+#pragma unroll
+    for (int k = 0; k < K; ++k) ds_add(hi[k], lo[k], xh[j][k], xl[j][k]);
+}
+
+template <int K, bool kPair>
 __global__ void __launch_bounds__(kThreads)
-    tile_reduce(const float* __restrict__ in_hi,
-                const float* __restrict__ in_lo, long long n, long long rs,
-                long long cs, float* __restrict__ tot_hi,
-                float* __restrict__ tot_lo) {
-  const long long row0 =
-      (long long)blockIdx.x * kTile + (long long)threadIdx.x * kItems;
-  float hi[K], lo[K], ph[K], pl[K], th[K], tl[K];
-  thread_reduce<K>(in_hi, in_lo, n, rs, cs, row0, hi, lo);
+    ds_tile_total(const float* __restrict__ in_hi,
+                  const float* __restrict__ in_lo, long long n, long long cs,
+                  float* __restrict__ tot_hi, float* __restrict__ tot_lo) {
+  extern __shared__ float s_tile[];
+  const long long row0 = (long long)blockIdx.x * kTile;
+  const int R = (int)min((long long)kTile, n - row0);
+  float xh[kItems][K], xl[kItems][K], hi[K], lo[K], ph[K], pl[K], th[K],
+      tl[K];
+  load_tile<K, kPair>(in_hi, in_lo, cs == 1, cs, row0, R, s_tile, xh, xl, hi,
+                      lo);
   block_scan<K>(hi, lo, ph, pl, th, tl);
   if (threadIdx.x == 0) {
 #pragma unroll
@@ -155,102 +341,203 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// carry_hi/carry_lo: inclusive scan of the tile totals, row-major (T, K);
-// block b adds row b - 1 in front. nullptr: a single tile, no carry.
-template <int K>
-__global__ void __launch_bounds__(kThreads)
-    tile_scan(const float* __restrict__ in_hi, const float* __restrict__ in_lo,
-              long long n, long long rs, long long cs,
-              const float* __restrict__ carry_hi,
-              const float* __restrict__ carry_lo, float* __restrict__ out_hi,
-              float* __restrict__ out_lo) {
-  const long long row0 =
-      (long long)blockIdx.x * kTile + (long long)threadIdx.x * kItems;
-  float hi[K], lo[K], ph[K], pl[K], th[K], tl[K];
-  thread_reduce<K>(in_hi, in_lo, n, rs, cs, row0, hi, lo);
+// carry: kCarryTotals: carry_hi/lo are the (T, K) tile totals, block b
+// combines rows [0, b); kCarryScanned: their inclusive scan, block b takes
+// row b - 1; kCarryNone: a single tile. out: hi in the input's layout, lo
+// n * K floats after it; with pack (row layout), the (n + 1, 2K) prefix
+// pack [0; hi | lo].
+// Two blocks per SM (<= 128 registers a thread) up to K = 4: the codec's
+// 256-tile pack is then one wave on 132 SMs.
+template <int K, bool kPair>
+__global__ void __launch_bounds__(kThreads, K <= 4 ? 2 : 1)
+    ds_tile_scan(const float* __restrict__ in_hi,
+                 const float* __restrict__ in_lo, long long n, long long cs,
+                 const float* __restrict__ carry_hi,
+                 const float* __restrict__ carry_lo, int carry,
+                 float* __restrict__ out, bool pack) {
+  extern __shared__ float s_tile[];
+  const bool row_major = cs == 1;
+  const long long row0 = (long long)blockIdx.x * kTile;
+  const int R = (int)min((long long)kTile, n - row0);
+  float xh[kItems][K], xl[kItems][K], hi[K], lo[K], ph[K], pl[K], th[K],
+      tl[K];
+  load_tile<K, kPair>(in_hi, in_lo, row_major, cs, row0, R, s_tile, xh, xl,
+                      hi, lo);
   block_scan<K>(hi, lo, ph, pl, th, tl);
+
   float run_h[K], run_l[K];
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     run_h[k] = 0.f;
     run_l[k] = 0.f;
-    if (carry_hi != nullptr && blockIdx.x > 0) {
-      const long long c = ((long long)blockIdx.x - 1) * K + k;
-      run_h[k] = carry_hi[c];
-      run_l[k] = carry_lo[c];
-    }
-    ds_add(run_h[k], run_l[k], ph[k], pl[k]);
   }
+  const int b = blockIdx.x;
+  if (carry == kCarryTotals && b > 0) {
+    // the same reduction in every block: thread t adds totals t*8..t*8+7
+    // (those before b), then the block combines the thread sums
+    float ch[K], cl[K];
 #pragma unroll
-  for (int j = 0; j < kItems; ++j) {
-    const long long r = row0 + j;
-    if (r < n) {
+    for (int k = 0; k < K; ++k) {
+      ch[k] = 0.f;
+      cl[k] = 0.f;
+    }
 #pragma unroll
-      for (int k = 0; k < K; ++k) {
-        const long long off = r * rs + k * cs;
-        ds_add(run_h[k], run_l[k], in_hi[off], in_lo ? in_lo[off] : 0.f);
-        out_hi[off] = run_h[k];
-        out_lo[off] = run_l[k];
+    for (int j = 0; j < kItems; ++j) {
+      const int t = threadIdx.x * kItems + j;
+      if (t < b) {
+#pragma unroll
+        for (int k = 0; k < K; ++k)
+          ds_add(ch[k], cl[k], carry_hi[(long long)t * K + k],
+                 carry_lo[(long long)t * K + k]);
       }
     }
+    float eh[K], el[K];
+    block_scan<K>(ch, cl, eh, el, run_h, run_l);
+  } else if (carry == kCarryScanned && b > 0) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      run_h[k] = carry_hi[((long long)b - 1) * K + k];
+      run_l[k] = carry_lo[((long long)b - 1) * K + k];
+    }
   }
+#pragma unroll
+  for (int k = 0; k < K; ++k) ds_add(run_h[k], run_l[k], ph[k], pl[k]);
+#pragma unroll
+  for (int j = 0; j < kItems; ++j)
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      ds_add(run_h[k], run_l[k], xh[j][k], xl[j][k]);
+      xh[j][k] = run_h[k];
+      xl[j][k] = run_l[k];
+    }
+
+  // every thread read its rows before block_scan's barriers, so the staged
+  // buffer is free for the outputs
+  if (pack) {
+    if (b == 0 && threadIdx.x < 2 * K) out[threadIdx.x] = 0.f;
+    // [hi | lo] rows, 2K floats apart: half a tile of whole rows at a time
+    // is one contiguous run
+    constexpr int kHalf = kTile / 2;
+    for (int h = 0; h < 2; ++h) {
+      if (threadIdx.x / (kThreads / 2) == h) {
+#pragma unroll
+        for (int j = 0; j < kItems; ++j) {
+          const int r = (threadIdx.x % (kThreads / 2)) * kItems + j;
+#pragma unroll
+          for (int k = 0; k < K; ++k) {
+            s_tile[pad(r * 2 * K + k)] = xh[j][k];
+            s_tile[pad(r * 2 * K + K + k)] = xl[j][k];
+          }
+        }
+      }
+      __syncthreads();
+      store_run<K>(s_tile, out + (1 + row0 + h * kHalf) * 2 * K,
+                   max(0, min(kHalf, R - h * kHalf)) * 2 * K);
+      __syncthreads();
+    }
+    return;
+  }
+  // hi, then lo, through the staged buffer to coalesced stores
+  write_rows<K>(s_tile, row_major, xh);
+  __syncthreads();
+  stage_out<K>(s_tile, row_major, cs, out, row0, R);
+  __syncthreads();
+  write_rows<K>(s_tile, row_major, xl);
+  __syncthreads();
+  stage_out<K>(s_tile, row_major, cs, out + n * K, row0, R);
 }
 
-template <int K>
+template <int K, bool kPair>
+size_t stage_bytes() {
+  const size_t bytes = sizeof(float) * stage_floats(K);
+  static bool raised = false;  // above 48 KB needs the opt-in, once
+  if (bytes > 48 * 1024 && !raised) {
+    cudaFuncSetAttribute(ds_tile_total<K, kPair>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)bytes);
+    cudaFuncSetAttribute(ds_tile_scan<K, kPair>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)bytes);
+    raised = true;
+  }
+  return bytes;
+}
+
+// Floats of scratch that scan_level needs for n rows of k columns.
+long long scratch_need(long long n, int k) {
+  const long long t = (n + kTile - 1) / kTile;
+  if (t <= 1) return 0;
+  if (t <= kMaxCarryTiles) return 2 * t * k;
+  return 4 * t * k + scratch_need(t, k);
+}
+
+// cs: the input's column stride (1: row layout, rows K floats apart;
+// otherwise rows are 1 apart). Scratch layout per level: tile totals hi,
+// lo (T * K each), and beyond kMaxCarryTiles their scan hi, lo and the
+// next level's scratch.
+template <int K, bool kPair>
 void scan_level(const float* in_hi, const float* in_lo, long long n,
-                long long rs, long long cs, float* out_hi, float* out_lo,
-                float* scratch, cudaStream_t st) {
+                long long cs, float* out, bool pack, float* scratch,
+                cudaStream_t st) {
+  const size_t smem = stage_bytes<K, kPair>();
   const long long t = (n + kTile - 1) / kTile;
   if (t <= 1) {
-    tile_scan<K><<<1, kThreads, 0, st>>>(in_hi, in_lo, n, rs, cs, nullptr,
-                                         nullptr, out_hi, out_lo);
+    ds_tile_scan<K, kPair><<<1, kThreads, smem, st>>>(
+        in_hi, in_lo, n, cs, nullptr, nullptr, kCarryNone, out, pack);
     return;
   }
   float* tot_hi = scratch;
   float* tot_lo = tot_hi + t * K;
-  float* inc_hi = tot_lo + t * K;
-  float* inc_lo = inc_hi + t * K;
-  tile_reduce<K><<<(unsigned)t, kThreads, 0, st>>>(in_hi, in_lo, n, rs, cs,
-                                                   tot_hi, tot_lo);
-  scan_level<K>(tot_hi, tot_lo, t, K, 1, inc_hi, inc_lo, inc_lo + t * K, st);
-  tile_scan<K><<<(unsigned)t, kThreads, 0, st>>>(
-      in_hi, in_lo, n, rs, cs, inc_hi, inc_lo, out_hi, out_lo);
+  ds_tile_total<K, kPair><<<(unsigned)t, kThreads, smem, st>>>(
+      in_hi, in_lo, n, cs, tot_hi, tot_lo);
+  if (t <= kMaxCarryTiles) {
+    ds_tile_scan<K, kPair><<<(unsigned)t, kThreads, smem, st>>>(
+        in_hi, in_lo, n, cs, tot_hi, tot_lo, kCarryTotals, out, pack);
+    return;
+  }
+  // the totals' inclusive scan: hi, then lo, then the next level's scratch
+  float* inc = tot_lo + t * K;
+  scan_level<K, true>(tot_hi, tot_lo, t, 1, inc, false, inc + 2 * t * K, st);
+  ds_tile_scan<K, kPair><<<(unsigned)t, kThreads, smem, st>>>(
+      in_hi, in_lo, n, cs, inc, inc + t * K, kCarryScanned, out, pack);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Floats of scratch that ds_cumsum_f32 needs for n rows of k columns.
-long long ds_scan_scratch_floats(long long n, int k) {
-  long long total = 0;
-  while (n > kTile) {
-    const long long t = (n + kTile - 1) / kTile;
-    total += 4 * t * k;
-    n = t;
-  }
-  return total;
-}
-
-// Inclusive compensated prefix sums along the rows of x (n rows, k <= 8
-// columns, element (r, c) at x[r * rs + c * cs]) into out_hi/out_lo of the
-// same layout. Launches on `stream`, does not synchronise, and returns
-// cudaGetLastError() after the launches (-1 for an unsupported k).
+// Inclusive compensated prefix sums along the rows of x (n rows, 1 <= k <= 8
+// columns, element (r, c) at x[r * rs + c * cs]: the row layout rs == k,
+// cs == 1 or the column layout rs == 1, cs == n). Without pack, out gets hi
+// in x's layout and lo n * k floats after it; with pack (row layout only),
+// the (n + 1, 2k) matrix of a zero row, then rows [hi | lo]. scratch holds
+// scratch_floats floats. Launches on `stream`, does not synchronise, and
+// returns cudaGetLastError() after the launches, or without launching -1
+// for an unsupported k, -2 for an unsupported layout, -3 for too little
+// scratch.
 int ds_cumsum_f32(const float* x, long long n, int k, long long rs,
-                  long long cs, float* out_hi, float* out_lo, float* scratch,
-                  void* stream) {
+                  long long cs, int pack, float* out, float* scratch,
+                  long long scratch_floats, void* stream) {
+  if (k < 1 || k > 8) return -1;
+  const bool row = rs == k && cs == 1;
+  if (!(row || (rs == 1 && cs == n)) || (pack && !row)) return -2;
+  if (scratch_floats < scratch_need(n, k)) return -3;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define DS_SCAN_CASE(K)                                                  \
+  case K:                                                                \
+    scan_level<K, false>(x, nullptr, n, cs, out, pack != 0, scratch, st); \
+    break;
   switch (k) {
-    case 1: scan_level<1>(x, nullptr, n, rs, cs, out_hi, out_lo, scratch, st); break;
-    case 2: scan_level<2>(x, nullptr, n, rs, cs, out_hi, out_lo, scratch, st); break;
-    case 3: scan_level<3>(x, nullptr, n, rs, cs, out_hi, out_lo, scratch, st); break;
-    case 4: scan_level<4>(x, nullptr, n, rs, cs, out_hi, out_lo, scratch, st); break;
-    case 5: scan_level<5>(x, nullptr, n, rs, cs, out_hi, out_lo, scratch, st); break;
-    case 6: scan_level<6>(x, nullptr, n, rs, cs, out_hi, out_lo, scratch, st); break;
-    case 7: scan_level<7>(x, nullptr, n, rs, cs, out_hi, out_lo, scratch, st); break;
-    case 8: scan_level<8>(x, nullptr, n, rs, cs, out_hi, out_lo, scratch, st); break;
-    default: return -1;
+    DS_SCAN_CASE(1)
+    DS_SCAN_CASE(2)
+    DS_SCAN_CASE(3)
+    DS_SCAN_CASE(4)
+    DS_SCAN_CASE(5)
+    DS_SCAN_CASE(6)
+    DS_SCAN_CASE(7)
+    DS_SCAN_CASE(8)
   }
+#undef DS_SCAN_CASE
   return static_cast<int>(cudaGetLastError());
 }
 

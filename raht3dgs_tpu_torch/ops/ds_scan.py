@@ -6,7 +6,8 @@ and ``ds_cumsum_pallas_t``). The kernel is ``csrc/ds_scan.cu``, built with
 nvcc for ``sm_90a`` into ``_build/`` at first use and called through
 ctypes on PyTorch's current stream. The wrappers take the plain version
 only for a tensor that lies on the CPU; for a CUDA tensor they launch the
-kernel or raise.
+kernel or raise. :func:`ds_prefix_pack` gives the codec's prefix pack (a
+zero row, then ``[hi | lo]``), which on the card the kernel writes itself.
 
 Both the kernel and :func:`ds_cumsum_reference` keep ~48 mantissa bits
 (error-free two-sum) and give exact results for integer-valued lanes whose
@@ -33,14 +34,29 @@ _SRC = os.path.join(
 
 
 def _configure(lib: ctypes.CDLL) -> None:
-    vp, ll = ctypes.c_void_p, ctypes.c_longlong
-    lib.ds_cumsum_f32.argtypes = [vp, ll, ctypes.c_int, ll, ll, vp, vp, vp, vp]
-    lib.ds_cumsum_f32.restype = ctypes.c_int
-    lib.ds_scan_scratch_floats.argtypes = [ll, ctypes.c_int]
-    lib.ds_scan_scratch_floats.restype = ll
+    vp, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.ds_cumsum_f32.argtypes = [vp, ll, i32, ll, ll, i32, vp, vp, ll, vp]
+    lib.ds_cumsum_f32.restype = i32
 
 
 KERNEL = NativeLib(_SRC, "libds_scan.so", _configure, nvcc_command)
+
+TILE = 2048             # rows per block (kTile in csrc/ds_scan.cu)
+MAX_CARRY_TILES = 2048  # tile totals one block combines (kMaxCarryTiles)
+
+
+def scratch_floats(n: int, k: int) -> int:
+    """Floats of scratch the kernel needs for ``n`` rows of ``k`` columns:
+    the tile totals (hi, lo), and beyond ``MAX_CARRY_TILES`` tiles also
+    their scan and the next level's scratch. The kernel counts the same
+    (``scratch_need``) and refuses to launch with less."""
+    t = -(-n // TILE)
+    if t <= 1:
+        return 0
+    if t <= MAX_CARRY_TILES:
+        return 2 * t * k
+    return 4 * t * k + scratch_floats(t, k)
+
 
 # Kernel launches per entry point. Each wrapper adds one where it launches
 # the kernel and nowhere else; callers reset and read them.
@@ -107,6 +123,13 @@ def ds_cumsum_reference(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return _ds_scan_plain(x, torch.zeros_like(x))
 
 
+def ds_prefix_pack_reference(x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`ds_prefix_pack` on any device."""
+    hi, lo = ds_cumsum_reference(x)
+    P = torch.cat([hi, lo], dim=1)
+    return torch.cat([P.new_zeros((1, P.shape[1])), P])
+
+
 # -- kernel wrappers ------------------------------------------------------------
 
 
@@ -117,42 +140,58 @@ def _check(x: torch.Tensor) -> None:
         raise ValueError(f"ds scan takes a 2-D tensor, got shape {tuple(x.shape)}")
 
 
-def _launch(x: torch.Tensor, n: int, k: int, rs: int, cs: int, entry: str):
-    if x.device.type != "cuda":
-        raise ValueError(f"ds scan kernel needs a CUDA tensor, got {x.device}")
-    if not x.is_contiguous():
-        raise ValueError("ds scan kernel takes a contiguous tensor")
+def _launch(x: torch.Tensor, n: int, k: int, rs: int, cs: int, entry: str,
+            pack: bool = False):
+    """Launch the kernel on ``x`` (element (r, c) at ``x[r*rs + c*cs]``).
+
+    Returns ``(hi, lo)`` in ``x``'s layout, or with ``pack`` the
+    ``(n+1, 2k)`` matrix ``[0; hi | lo]`` written by the kernel itself. One
+    allocation holds the outputs and the kernel's scratch."""
     if not 1 <= k <= MAX_K:
         raise ValueError(f"ds scan kernel takes 1..{MAX_K} columns, got {k}")
+    if not x.is_contiguous():
+        raise ValueError("ds scan kernel takes a contiguous tensor")
+    if x.device.type != "cuda":
+        raise ValueError(f"ds scan kernel needs a CUDA tensor, got {x.device}")
     lib = KERNEL.load()
-    hi = torch.empty_like(x)
-    lo = torch.empty_like(x)
     if n == 0:
-        return hi, lo
-    scratch = torch.empty(max(int(lib.ds_scan_scratch_floats(n, k)), 1),
-                          dtype=torch.float32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = lib.ds_cumsum_f32(x.data_ptr(), n, k, rs, cs, hi.data_ptr(),
-                           lo.data_ptr(), scratch.data_ptr(), stream)
+        if pack:
+            return x.new_zeros((1, 2 * k))
+        return x.new_empty(x.shape), x.new_empty(x.shape)
+    # one allocation: the outputs' rows, then rows enough for the scratch
+    rows, width = (n + 1, 2 * k) if pack else (2 * x.shape[0], x.shape[1])
+    buf = x.new_empty((rows + -(-scratch_floats(n, k) // width), width))
+    out = buf.data_ptr()
+    # the raw handle of PyTorch's current stream (torch.cuda.current_stream
+    # builds a Stream object first, ~5 us a call)
+    stream = torch._C._cuda_getCurrentRawStream(x.get_device())
+    rc = lib.ds_cumsum_f32(x.data_ptr(), n, k, rs, cs, int(pack), out,
+                           out + 4 * rows * width, buf.numel() - rows * width,
+                           stream)
     if rc != 0:
-        raise RuntimeError(f"ds_cumsum_f32 launch failed (CUDA error {rc})")
+        raise RuntimeError(f"ds_cumsum_f32 launch failed (code {rc})")
     LAUNCHES[entry] += 1
+    if pack:
+        return buf[:rows]
+    hi, lo, *_ = buf.split(x.shape[0])
     return hi, lo
+
+
+def _row_entry(k: int) -> str:
+    # a single column is the same memory in both layouts and counts as the
+    # transposed entry, which the decoder's one-column scans are
+    return "ds_cumsum_t" if k == 1 else "ds_cumsum"
 
 
 def ds_cumsum(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Compensated inclusive prefix sums along dim 0 of ``x (N, K)`` f32.
 
-    Returns ``(hi, lo)`` float32 (N, K). A single column is the same memory
-    as the transposed layout and goes through :func:`ds_cumsum_t`."""
+    Returns ``(hi, lo)`` float32 (N, K)."""
     _check(x)
     if x.device.type == "cpu":
         return ds_cumsum_reference(x)
     N, K = x.shape
-    if K == 1:
-        hi, lo = ds_cumsum_t(x.reshape(1, N))
-        return hi.reshape(N, 1), lo.reshape(N, 1)
-    return _launch(x, N, K, K, 1, "ds_cumsum")
+    return _launch(x, N, K, K, 1, _row_entry(K))
 
 
 def ds_cumsum_t(xt: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -164,3 +203,13 @@ def ds_cumsum_t(xt: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         return hi.T.contiguous(), lo.T.contiguous()
     K, N = xt.shape
     return _launch(xt, N, K, 1, N, "ds_cumsum_t")
+
+
+def ds_prefix_pack(x: torch.Tensor) -> torch.Tensor:
+    """``x (N, K)`` f32 -> ``(N+1, 2K)``: a zero row, then :func:`ds_cumsum`'s
+    ``[hi | lo]``. On a CUDA tensor the kernel writes the pack itself."""
+    _check(x)
+    if x.device.type == "cpu":
+        return ds_prefix_pack_reference(x)
+    N, K = x.shape
+    return _launch(x, N, K, K, 1, _row_entry(K), pack=True)

@@ -23,7 +23,7 @@ import math
 
 import torch
 
-from raht3dgs_tpu_torch.ops.ds_scan import ds_cumsum
+from raht3dgs_tpu_torch.ops.ds_scan import ds_cumsum, ds_prefix_pack
 from raht3dgs_tpu_torch.ops.raht import (
     RahtForwardResult,
     RahtStructure,
@@ -145,12 +145,11 @@ def _weight_prefix(weights: torch.Tensor, fdtype):
 
 def _prefix_pack(body: torch.Tensor, use_ds: bool) -> torch.Tensor:
     """Exclusive prefix sums of ``body (N, K)`` with a leading zero row:
-    (N+1, K) float64, or (N+1, 2K) float32 with [hi | lo] columns."""
-    if not use_ds:
-        P = torch.cumsum(body.to(torch.float64), dim=0)
-    else:
-        hi, lo = _ds_cumsum(body.to(torch.float32))
-        P = torch.cat([hi, lo], dim=1)
+    (N+1, K) float64, or (N+1, 2K) float32 with [hi | lo] columns (on the
+    card written by the scan kernel in place, with no copies)."""
+    if use_ds:
+        return ds_prefix_pack(body.to(torch.float32).contiguous())
+    P = torch.cumsum(body.to(torch.float64), dim=0)
     return torch.cat([torch.zeros((1, P.shape[1]), dtype=P.dtype, device=P.device), P])
 
 

@@ -2,12 +2,27 @@
 """Profile one encode + decode of the PyTorch port's main path on a CUDA card.
 
     python3 scripts/profile_torch_port.py [--depth 10] [--n 500000] [--seed 0]
+    python3 scripts/profile_torch_port.py --scan [--reps 5] [--against ROOT]
 
 Same frame as ``chip_smoke.py`` phase 3 (unique voxels, D=3, bucket 2^19,
 float32, step 16). After a warm-up frame, one encode + decode runs under
 ``torch.profiler``; prints one JSON line with the wall time, the device's
 busy share of it (union of CUDA kernel and copy intervals), and the CUDA
 time by kernel name, largest first. Needs a CUDA card.
+
+``--scan`` times the double-single scan's entry points alone at the main
+path's shapes: ``ds_prefix_pack`` (the forward's pack) and ``ds_cumsum``
+at (2^19, 4), ``ds_cumsum_t`` at (1, 2^19). For each: the wrapper's time
+(CUDA events around one call; 10 x ``--reps`` rounds of 20 calls, each
+round's median and their median, taken before any profiler session) and
+the device's own time and kernel launches per call (profiler, 50
+back-to-back calls, ``--reps`` rounds), with the device time per call
+split by kernel name (mean over the rounds). ``--against ROOT`` loads
+the ``ops/ds_scan.py`` of another checkout (for example the parent
+commit, unpacked with ``git archive``) beside this one and times, in
+turns in one process, every entry point that both have, so that the
+host's own drift between processes does not enter the comparison.
+Timing helpers are ``chip_smoke.py``'s.
 """
 
 from __future__ import annotations
@@ -15,6 +30,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -38,12 +54,86 @@ def _busy_us(events) -> float:
     return busy
 
 
+def _device_events(torch, prof):
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def load_scan_module(root: str):
+    """The ``ops/ds_scan.py`` of the checkout at ``root`` as a module of its
+    own, its kernel built from that checkout's source into its ``_build/``."""
+    import importlib.util
+
+    pkg = os.path.join(os.path.abspath(root), "raht3dgs_tpu_torch")
+    spec = importlib.util.spec_from_file_location(
+        "against_ds_scan", os.path.join(pkg, "ops", "ds_scan.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    os.makedirs(os.path.join(pkg, "_build"), exist_ok=True)
+    mod.KERNEL.lib_path = os.path.join(pkg, "_build",
+                                       os.path.basename(mod.KERNEL.lib_path))
+    return mod
+
+
+ENTRIES = ("ds_prefix_pack", "ds_cumsum", "ds_cumsum_t")
+
+
+def scan_times(torch, modules: dict, reps: int) -> dict:
+    """Wrapper and device time of the scan's entry points in each module of
+    ``modules`` ({label: ds_scan module}) that has them, rounds taken in
+    turns (a b, b a, ...). Every wrapper time comes before any profiler
+    session: the host stays busy for a while after a session ends."""
+    from chip_smoke import cuda_ms, device_ms
+
+    g = torch.Generator(device="cpu").manual_seed(0)
+    n = 1 << 19
+    x4 = torch.rand(n, 4, generator=g).cuda()
+    inputs = {"ds_prefix_pack": x4, "ds_cumsum": x4,
+              "ds_cumsum_t": torch.rand(1, n, generator=g).cuda()}
+    cases = {label: {name: getattr(ds, name) for name in ENTRIES if hasattr(ds, name)}
+             for label, ds in modules.items()}
+    out = {label: {name: {"shape": list(inputs[name].shape), "wrapper_ms": [],
+                          "device_ms": [], "launches_per_call": [],
+                          "by_kernel_us": {}} for name in cases[label]}
+           for label in modules}
+    labels = list(modules)
+
+    def turns(rounds):
+        return [lab for r in range(rounds) for lab in (labels if r % 2 == 0 else labels[::-1])]
+
+    # short wrapper rounds, many of them in turns: the host's slow spells
+    # (tens of us a call, lasting seconds) then fall on both sides alike
+    for label in turns(10 * reps):
+        for name, fn in cases[label].items():
+            x = inputs[name]
+            out[label][name]["wrapper_ms"].append(
+                cuda_ms(torch, lambda: fn(x), reps=20, warm=1))
+    for row in (r for lab in out.values() for r in lab.values()):
+        row["wrapper_ms_median"] = statistics.median(row["wrapper_ms"])
+    for label in turns(reps):
+        for name, fn in cases[label].items():
+            x = inputs[name]
+            ms, launches, split = device_ms(torch, lambda: fn(x))
+            row = out[label][name]
+            row["device_ms"].append(ms)
+            row["launches_per_call"].append(launches)
+            for k, us in split.items():
+                row["by_kernel_us"][k] = row["by_kernel_us"].get(k, 0.0) + us / reps
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--depth", type=int, default=10)
     ap.add_argument("--n", type=int, default=500_000)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--scan", action="store_true",
+                    help="time the scan kernel's entry points alone")
+    ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--against", metavar="ROOT",
+                    help="with --scan: also time the scan of the checkout at "
+                         "ROOT, in turns with this one, in the same process")
     args = ap.parse_args()
 
     import torch
@@ -52,6 +142,17 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch_port: no CUDA device", file=sys.stderr)
         return 2
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    if args.scan:
+        from raht3dgs_tpu_torch.ops import ds_scan
+
+        modules = {"this": ds_scan}
+        if args.against:
+            modules["against"] = load_scan_module(args.against)
+        print(json.dumps({"card": card, "scan": scan_times(torch, modules, args.reps)}))
+        return 0
     from raht3dgs_tpu_torch.codec.bitstream import FrameStream
     from raht3dgs_tpu_torch.models import pipeline as tp
     from raht3dgs_tpu_torch.utils.synth import synthetic_positions
@@ -74,16 +175,12 @@ def main() -> int:
         stages = one_frame()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-    dev_events = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_events = _device_events(torch, prof)
     busy_s = _busy_us(dev_events) / 1e6
     by_name = {}
     for e in dev_events:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:args.top]
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60).stdout.strip()
     print(json.dumps({
         "card": card, "depth": args.depth, "n": frame.n_voxels,
         "wall_ms": wall_s * 1e3, "device_busy_ms": busy_s * 1e3,

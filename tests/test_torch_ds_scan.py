@@ -10,9 +10,13 @@ from raht3dgs_tpu.ops.pallas_scan import ds_cumsum_pallas, ds_cumsum_pallas_t
 from raht3dgs_tpu_torch.ops import ds_scan
 from raht3dgs_tpu_torch.ops.ds_scan import (
     LAUNCHES,
+    MAX_CARRY_TILES,
+    TILE,
     ds_cumsum,
     ds_cumsum_reference,
     ds_cumsum_t,
+    ds_prefix_pack,
+    scratch_floats,
 )
 
 
@@ -123,3 +127,99 @@ def test_cuda_tensor_launches_kernel(rng, monkeypatch):
     assert LAUNCHES["ds_cumsum"] == before + 1
     ref = np.cumsum(x.astype(np.float64), axis=0)
     assert _rel_err(_total(hi.cpu(), lo.cpu()), ref) < 1e-12
+
+
+def _recount_scratch(n, k):
+    # walk the kernel's launch plan level by level, adding up the floats
+    # each level's scratch pointers span
+    total = 0
+    while True:
+        tiles = -(-n // TILE)
+        if tiles <= 1:
+            return total
+        total += 2 * tiles * k              # tile totals, hi and lo
+        if tiles <= MAX_CARRY_TILES:
+            return total
+        total += 2 * tiles * k              # their inclusive scan, hi and lo
+        n = tiles
+
+
+@pytest.mark.parametrize("k", [1, 4, 8])
+@pytest.mark.parametrize("n", [0, 1, 2047, 2048, 2049, 1 << 19, 2048 * 2048,
+                               2048 * 2048 + 1, (1 << 23) + 3, 2048 ** 3 + 5])
+def test_scratch_floats_matches_recount(n, k):
+    assert scratch_floats(n, k) == _recount_scratch(n, k)
+
+
+def test_scratch_floats_known_sizes():
+    assert scratch_floats(1 << 19, 4) == 2 * 256 * 4     # the forward's pack
+    assert scratch_floats(2048, 1) == 0                  # one tile, one launch
+    assert scratch_floats((1 << 23) + 3, 1) == 4 * 4097 + 2 * 3
+
+
+@pytest.mark.parametrize("n,k", [(1, 1), (7, 1), (300, 4), (2049, 3), (5000, 4)])
+def test_prefix_pack_matches_pallas_pack(rng, n, k):
+    # the JAX package's f32 prefix pack from its Pallas kernel: a zero row,
+    # then [hi | lo]; integer lanes bit for bit, float lanes to 1e-12
+    x = rng.normal(scale=10, size=(n, k)).astype(np.float32)
+    x[:, -1] = rng.integers(0, 4, size=n)
+    P = ds_prefix_pack(torch.from_numpy(x)).numpy()
+    ph, pl = (np.asarray(a) for a in ds_cumsum_pallas(jnp.asarray(x), interpret=True))
+    want = np.concatenate([np.zeros((1, 2 * k), np.float32),
+                           np.concatenate([ph, pl], axis=1)])
+    assert P.shape == want.shape and P.dtype == np.float32
+    assert not P[0].any()
+    assert np.array_equal(P[:, [k - 1, 2 * k - 1]], want[:, [k - 1, 2 * k - 1]])
+    assert _rel_err(_total(P[:, :k], P[:, k:]), _total(want[:, :k], want[:, k:])) < 1e-12
+
+
+def test_cpu_prefix_pack_takes_plain_path(rng, monkeypatch):
+    def no_kernel():
+        raise AssertionError("the kernel must not be built for a CPU tensor")
+
+    monkeypatch.setattr(ds_scan.KERNEL, "load", no_kernel)
+    before = dict(LAUNCHES)
+    P = ds_prefix_pack(torch.zeros(0, 4))
+    assert P.shape == (1, 8) and not P.any()
+    x = torch.from_numpy(rng.uniform(0.5, 3.0, size=(500, 1)).astype(np.float32))
+    P = ds_prefix_pack(x)
+    hi, lo = ds_cumsum_reference(x)
+    assert torch.equal(P[1:, :1], hi) and torch.equal(P[1:, 1:], lo)
+    assert LAUNCHES == before
+
+
+def test_wrapper_checks_pack_and_launch_arguments():
+    with pytest.raises(TypeError):
+        ds_prefix_pack(torch.zeros(4, 2, dtype=torch.float64))
+    with pytest.raises(ValueError):
+        ds_prefix_pack(torch.zeros(4))
+    with pytest.raises(ValueError, match="columns"):
+        ds_scan._launch(torch.zeros(4, 9), 4, 9, 9, 1, "ds_cumsum", pack=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        ds_scan._launch(torch.zeros(4, 6)[:, :2], 4, 2, 2, 1, "ds_cumsum")
+    with pytest.raises(ValueError, match="CUDA"):
+        ds_scan._launch(torch.zeros(4, 2), 4, 2, 2, 1, "ds_cumsum", pack=True)
+
+
+@pytest.mark.cuda
+def test_cuda_bitwise_invariants_fractional(rng):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from raht3dgs_tpu_torch.ops.raht_span import _prefix_pack
+
+    x = torch.from_numpy(rng.uniform(0, 3, size=(70000, 4)).astype(np.float32)).cuda()
+    hi, lo = ds_cumsum(x)
+    h2, l2 = ds_cumsum(x)
+    assert torch.equal(hi, h2) and torch.equal(lo, l2)            # run to run
+    for k in range(4):                                            # K-independent
+        h1, l1 = ds_cumsum(x[:, k:k + 1].contiguous())
+        assert torch.equal(hi[:, k:k + 1], h1) and torch.equal(lo[:, k:k + 1], l1)
+    ht, lt = ds_cumsum_t(x.T.contiguous())                        # layout-independent
+    assert torch.equal(ht.T, hi) and torch.equal(lt.T, lo)
+    want = torch.cat([torch.zeros(1, 8, device="cuda"), torch.cat([hi, lo], dim=1)])
+    assert torch.equal(_prefix_pack(x, True), want)               # kernel-written pack
+    # the kernel refuses, without launching, scratch one float short
+    lib = ds_scan.KERNEL.load()
+    for n in (2049, 1 << 19, (1 << 23) + 3):
+        assert lib.ds_cumsum_f32(None, n, 4, 4, 1, 1, None, None,
+                                 scratch_floats(n, 4) - 1, None) == -3

@@ -116,3 +116,29 @@ def test_fractional_weights_structure_bitwise():
     fwd = ts.raht_forward_span(tf.codes, tf.attributes, tf.weights, 8)
     st = ts.raht_structure_span(tf.codes, tf.weights, 8)
     assert torch.equal(st.node_weights, fwd.weights)
+
+
+@pytest.mark.parametrize("k", [1, 4])
+def test_prefix_pack_f32_equals_cat_construction(rng, k):
+    body = torch.from_numpy(rng.uniform(0, 50, size=(3000, k)).astype(np.float32))
+    hi, lo = ts._ds_cumsum(body)
+    want = torch.cat([torch.zeros(1, 2 * k), torch.cat([hi, lo], dim=1)])
+    assert torch.equal(ts._prefix_pack(body, True), want)
+    P64 = ts._prefix_pack(body, False)
+    assert P64.dtype == torch.float64 and not P64[0].any()
+    assert torch.equal(P64[1:], torch.cumsum(body.double(), dim=0))
+
+
+@pytest.mark.parametrize("k", [1, 4])
+def test_prefix_pack_f32_matches_jax_transform(rng, k):
+    # the transform's own f32 pack in both packages: a zero row, [hi | lo];
+    # the integer (weight-like) lane bit for bit, the others to 1e-12
+    body = rng.uniform(0, 50, size=(3000, k)).astype(np.float32)
+    body[:, -1] = rng.integers(0, 4, size=3000)
+    P = ts._prefix_pack(torch.from_numpy(body), True).numpy()
+    J = np.asarray(js._prefix_pack(jnp.asarray(body), True))
+    assert P.shape == J.shape == (3001, 2 * k) and not P[0].any()
+    assert np.array_equal(P[:, [k - 1, 2 * k - 1]], J[:, [k - 1, 2 * k - 1]])
+    got = P[:, :k].astype(np.float64) + P[:, k:]
+    want = J[:, :k].astype(np.float64) + J[:, k:]
+    assert np.abs(got - want).max() / np.abs(want).max() < 1e-12
