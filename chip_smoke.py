@@ -25,7 +25,24 @@ Phases, each printed on its own line, any failure exits nonzero:
    kernels' launch counts read around one encode + decode; then a J=18
    frame (int64 codes) through the same path;
 4. the golden fixture encoded at float64 on the card must reproduce the
-   port's CPU stream hash.
+   port's CPU stream hash;
+5. the voxelizer: a seeded raw cloud of 2 000 000 float32 points on
+   jittered sphere shells (``utils/synth.py:raw_surface_cloud``) voxelized
+   at J=10 on the card, held against the same call on the CPU (integer
+   outputs and attributes exact, ``delta_pos`` within eps * width); both
+   segment-sum methods (``sorted_segment_sums``) on the voxelizer's own
+   (2e6, 4) inputs against the CPU and against the voxelizer's outputs; the
+   prefix method's ``ds_prefix_pack`` call against its plain version;
+   ``voxelize`` and each method timed with CUDA events (median of 5). It
+   runs first, so its host-bound times precede every profiler session;
+6. the CLIs: that cloud as a binary PLY in a temporary directory through
+   ``cli.encode_ply.main`` (``--voxelize``, float32, bucket 2^19, the
+   reference's 11-step grid, streams and CSV saved) and one stream through
+   ``cli.decode.main``; the CSV, the PSNR order and the decoded colours
+   checked, with the kernels' launch counts read around the run. Between
+   the two, ``AttributeCodec.encode_sweep`` on the card over the same grid
+   must give, step by step, the bytes of one ``encode`` per step and of the
+   streams the CLI saved.
 
 Needs one CUDA card; imports nothing of JAX or of the JAX package.
 """
@@ -50,6 +67,8 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 DS_OPS_PER_ELEM = 11        # adds/subtracts of one ds_add per scanned element
 
+N_RAW = 2_000_000          # phase 5/6 raw points
+NVOX_RANGE = (400_000, 520_000)
 N_VOX = 500_000
 DEPTH = 10
 D_ATTR = 3
@@ -444,6 +463,265 @@ def phase_golden(torch):
     check(f64_ok, "float64 golden stream on the card differs from the CPU hash")
 
 
+def write_binary_ply(path, pts, rgb=None) -> None:
+    """A binary-little-endian PLY: x y z float[, red green blue uchar]."""
+    import numpy as np
+
+    names = [("x", "<f4"), ("y", "<f4"), ("z", "<f4")]
+    if rgb is not None:
+        names += [("red", "u1"), ("green", "u1"), ("blue", "u1")]
+    rec = np.zeros(len(pts), dtype=names)
+    for i, c in enumerate("xyz"):
+        rec[c] = pts[:, i]
+    head = f"ply\nformat binary_little_endian 1.0\nelement vertex {len(pts)}\n"
+    head += "".join(f"property {'float' if t == '<f4' else 'uchar'} {n}\n" for n, t in names)
+    if rgb is not None:
+        for i, c in enumerate(("red", "green", "blue")):
+            rec[c] = rgb[:, i]
+    with open(path, "wb") as f:
+        f.write((head + "end_header\n").encode())
+        rec.tofile(f)
+
+
+def segment_inputs(torch, PC, res):
+    """The (values, first, extra) that ``voxelize`` hands its segment sums,
+    rebuilt from its result (every input row valid): (N, D+1) sorted
+    attributes and the valid lane, run starts, code lanes and coordinates."""
+    from raht3dgs_tpu_torch.ops.raht import _code_lanes
+
+    pv = res.point_voxel.long()
+    ones = torch.ones(len(pv), 1, dtype=PC.dtype, device=PC.device)
+    vals = torch.cat([PC[res.sort_idx.long(), 3:], ones], dim=1)
+    first = torch.cat([torch.ones(1, dtype=torch.bool, device=pv.device), pv[1:] != pv[:-1]])
+    extra = torch.cat([_code_lanes(res.codes[pv], PC.dtype), res.positions[pv].to(PC.dtype)],
+                      dim=1)
+    return vals, first, extra
+
+
+def phase_voxelize(torch, ds):
+    """Phase 5: the raw J10 cloud voxelized on the card against the CPU;
+    both segment-sum methods on the voxelizer's own inputs against the CPU
+    and the voxelizer; the prefix method's scan against its plain version."""
+    import numpy as np
+
+    from raht3dgs_tpu_torch.ops.segment import METHODS, sorted_segment_sums
+    from raht3dgs_tpu_torch.ops.voxelize import voxelize
+    from raht3dgs_tpu_torch.utils.synth import raw_surface_cloud
+
+    pts, rgb = raw_surface_cloud(N_RAW, seed=0)
+    PC = torch.from_numpy(np.concatenate([pts, rgb.astype(np.float32)], axis=1))
+    PCg = PC.cuda()
+    eps32 = float(np.finfo(np.float32).eps)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ds.reset_launches()
+    g = voxelize(PCg, DEPTH)
+    torch.cuda.synchronize()
+    launches = dict(ds.LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    c = voxelize(PC, DEPTH, device="cpu")
+    for f in ("codes", "positions", "counts", "nvox", "sort_idx", "point_voxel"):
+        check(torch.equal(getattr(g, f).cpu(), getattr(c, f)),
+              f"voxelize: {f} differs between the card and the CPU")
+    nvox = int(g.nvox)
+    check(NVOX_RANGE[0] <= nvox <= NVOX_RANGE[1], f"raw cloud gave {nvox} voxels")
+    # the shift method: the same adds in the same order on both devices
+    attr_err = float((g.attributes.cpu() - c.attributes).abs().max())
+    dattr_err = float((g.delta_attr.cpu() - c.delta_attr).abs().max())
+    dpos_err = float((g.delta_pos.cpu() - c.delta_pos).abs().max())
+    check(attr_err == 0.0 and dattr_err == 0.0,
+          f"voxelize: attributes off by {attr_err}, delta_attr by {dattr_err}")
+    check(dpos_err <= eps32 * float(c.width), f"voxelize: delta_pos {dpos_err}")
+    check(sum(launches.values()) == 0, f"voxelize: scan launches {launches}")
+    max_run = int(c.counts.max())
+    ms = cuda_ms(torch, lambda: voxelize(PCg, DEPTH), reps=5, warm=1)
+    out = {"voxelize": {"ms": ms, "peak_mem_gib": peak_gib, "attr_err": attr_err,
+                        "delta_pos_err": dpos_err}}
+    say("voxelize", n_points=N_RAW, nvox=nvox, max_run=max_run,
+        shift_passes=(max_run - 1).bit_length(), **out["voxelize"])
+
+    on_card, on_cpu = segment_inputs(torch, PCg, g), segment_inputs(torch, PC, c)
+    D = on_card[0].shape[1] - 1
+    for method in METHODS:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ds.reset_launches()
+        sums, extra, _, n_seg = sorted_segment_sums(*on_card, method=method)
+        torch.cuda.synchronize()
+        launches = dict(ds.LAUNCHES)
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        sc, ec, _, _ = sorted_segment_sums(*on_cpu, method=method)
+        check(int(n_seg) == nvox, f"{method}: {int(n_seg)} runs")
+        check(torch.equal(sums[:, D].cpu(), c.counts) and torch.equal(extra.cpu(), ec),
+              f"{method}: counts or codes/coordinates differ from the CPU's")
+        # prefix: the kernel's association differs from the plain scan's
+        sum_err = float((sums.cpu() - sc).abs().max())
+        tol = 0.0 if method == "shift" else 1e-6 * float(sc.abs().max())
+        check(sum_err <= tol, f"{method}: sums off the CPU's by {sum_err} (tol {tol})")
+        means = sums[:, :D] / torch.clamp_min(sums[:, D], 1.0)[:, None]
+        mean_err = float((means - g.attributes).abs().max())
+        check(mean_err <= (0.0 if method == "shift" else 1e-6 * float(c.attributes.abs().max())),
+              f"{method}: means off the voxelizer's by {mean_err}")
+        check(launches["ds_cumsum"] == (method == "prefix") and launches["ds_cumsum_t"] == 0,
+              f"{method}: scan launches {launches}")
+        ms = cuda_ms(torch, lambda: sorted_segment_sums(*on_card, method=method), reps=5, warm=1)
+        out[method] = {"ms": ms, "scan_launches": launches["ds_cumsum"],
+                       "peak_mem_gib": peak_gib, "sum_err": sum_err, "mean_err": mean_err}
+        say("segment_sums", method=method, shape=tuple(on_card[0].shape), **out[method])
+
+    # the prefix method's scan: (N, D+1) sorted colours and the valid lane
+    vals = on_card[0]
+    P = ds.ds_prefix_pack(vals)
+    R = ds.ds_prefix_pack_reference(vals)
+    torch.cuda.synchronize()
+    K = vals.shape[1]
+    got = P[:, :K].double() + P[:, K:].double()
+    ref = torch.cumsum(torch.cat([vals.new_zeros(1, K), vals]).double(), 0)
+    max_abs = float((got - (R[:, :K].double() + R[:, K:].double())).abs().max())
+    rel = float((got - ref).abs().max()) / float(ref.abs().max())
+    check(rel < 1e-12, f"voxelize pack rel err {rel}")
+    check(torch.equal(P[:, K - 1], R[:, K - 1]) and not bool(P[:, 2 * K - 1].any())
+          and torch.equal(P[:, K - 1].double(), ref[:, K - 1]),
+          "voxelize pack: the integer lane is not exact")
+    pack_ms = cuda_ms(torch, lambda: ds.ds_prefix_pack(vals), reps=20)
+    plain_ms = cuda_ms(torch, lambda: ds.ds_prefix_pack_reference(vals), reps=5, warm=1)
+    lib_ms = cuda_ms(torch, lambda: torch.cumsum(vals, 0, dtype=torch.float64), reps=20)
+    bytes_ms = 4.0 * (N_RAW * K + (N_RAW + 1) * 2 * K) / HBM_BYTES_PER_S * 1e3
+    ops_ms = DS_OPS_PER_ELEM * N_RAW * K / F32_OPS_PER_S * 1e3
+    out["pack"] = {"call": "ds_prefix_pack", "shape": [N_RAW, K], "ms": pack_ms,
+                   "plain_ms": plain_ms, "library_ms": lib_ms, "max_abs_err": max_abs,
+                   "bound_ms": max(bytes_ms, ops_ms),
+                   "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    say("voxelize", rel_err=rel, **out["pack"])
+    return out
+
+
+def phase_cli(torch, ds):
+    """Phase 6: encode_ply --voxelize over the 11-step grid and decode, in
+    process, from a binary PLY in a temporary directory."""
+    import csv
+    import math
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from raht3dgs_tpu_torch.cli import decode, encode_ply
+    from raht3dgs_tpu_torch.cli._common import quant_kwargs
+    from raht3dgs_tpu_torch.codec.bitstream import FrameStream
+    from raht3dgs_tpu_torch.config import ColorCodecConfig
+    from raht3dgs_tpu_torch.io.ply import read_ply_8i, save_ply_ascii
+    from raht3dgs_tpu_torch.models import pipeline as tp
+    from raht3dgs_tpu_torch.models.color_codec import CSV_HEADER
+    from raht3dgs_tpu_torch.ops.color import rgb_to_yuv, yuv_to_rgb
+    from raht3dgs_tpu_torch.ops.voxelize import voxelize
+    from raht3dgs_tpu_torch.utils.synth import morton_codes_np, raw_surface_cloud
+
+    steps = list(ColorCodecConfig.steps)
+    pts, rgb = raw_surface_cloud(N_RAW, seed=0)
+    launches = {name: 0 for name in ds.LAUNCHES}
+    with tempfile.TemporaryDirectory() as tmp:
+        ply, csv_path = os.path.join(tmp, "raw.ply"), os.path.join(tmp, "rd.csv")
+        sdir = os.path.join(tmp, "streams")
+        write_binary_ply(ply, pts, rgb.astype(np.uint8))
+        argv = ["--input", ply, "--voxelize", "--depth", str(DEPTH), "--dtype", "float32",
+                "--bucket", str(BUCKET), "--save-streams", sdir, "--csv", csv_path,
+                "--steps", *[f"{s:g}" for s in steps]]
+        torch.cuda.synchronize()
+        ds.reset_launches()
+        t0 = time.perf_counter()
+        check(encode_ply.main(argv) == 0, "encode_ply failed")
+        torch.cuda.synchronize()
+        enc_s = time.perf_counter() - t0
+        for k, v in ds.LAUNCHES.items():
+            launches[k] += v
+
+        with open(csv_path) as f:
+            lines = f.read().splitlines()
+        check(len(lines) == 1 + len(steps) and lines[0] == CSV_HEADER,
+              f"CSV has {len(lines)} lines, header {lines[0]!r}")
+        rows = list(csv.DictReader(lines))
+        check(all(len(r) == 11 for r in rows), "CSV rows are not 11 columns")
+        psnr = [float(r["psnr"]) for r in rows]
+        check(all(math.isfinite(p) for p in psnr), f"PSNR {psnr}")
+        check(all(a >= b for a, b in zip(psnr, psnr[1:])), f"PSNR falls as step falls: {psnr}")
+        stage_s = {k: sum(float(r[k]) for r in rows) for k in lines[0].split(",")[3:10]}
+
+        # the CLI's frame, rebuilt as encode_color_frame builds it
+        V, C, _ = read_ply_8i(ply)
+        res = voxelize(torch.as_tensor(np.concatenate([V, C], 1), device="cuda").float(),
+                       DEPTH)
+        nvox = int(res.nvox)
+        pos = res.positions[:nvox].cpu().numpy()
+        yuv = rgb_to_yuv(res.attributes[:nvox], dtype=torch.float32)
+        vframe = tp.prepare_voxel_frame(pos.astype(np.int64), yuv.cpu().numpy(), DEPTH,
+                                        bucket=BUCKET, dtype=torch.float32)
+        # the sweep on the card (pinned buffers, fetch thread, buffer reuse)
+        # against one encode per step on the same coefficients, and against
+        # the streams the CLI saved, byte for byte
+        codec = tp.AttributeCodec(DEPTH, dtype=torch.float32,
+                                  **quant_kwargs(encode_ply.build_parser().parse_args(argv)))
+        coeffs, order, _, _ = codec.transform(vframe)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sweep = codec.encode_sweep(vframe, steps)
+        sweep_s = time.perf_counter() - t0
+        check(len(sweep) == len(steps), f"encode_sweep gave {len(sweep)} streams")
+        t0 = time.perf_counter()
+        per_step = [codec.encode(vframe, s, coeffs=coeffs, order=order) for s in steps]
+        per_step_s = time.perf_counter() - t0
+        for s, enc, one in zip(steps, sweep, per_step):
+            blob = enc.stream.to_bytes()
+            check(blob == one.stream.to_bytes(), f"encode_sweep step {s:g} != encode")
+            with open(os.path.join(sdir, f"frame0001_step{s:g}.r3tc"), "rb") as f:
+                check(blob == f.read(), f"the CLI's stream at step {s:g} != encode_sweep")
+        say("cli", sweep_bytes_equal_encode=len(steps), encode_sweep_s=sweep_s,
+            per_step_encode_s=per_step_s)
+
+        # the voxelized positions as an 8i PLY, then one stream through decode
+        pos_ply, out_ply = os.path.join(tmp, "pos.ply"), os.path.join(tmp, "rec.ply")
+        write_binary_ply(pos_ply, pos)
+        stream_path = os.path.join(sdir, "frame0001_step16.r3tc")
+        torch.cuda.synchronize()
+        ds.reset_launches()
+        t0 = time.perf_counter()
+        check(decode.main(["--stream", stream_path, "--positions", pos_ply, "--output",
+                           out_ply, "--dtype", "float32", "--bucket", str(BUCKET)]) == 0,
+              "decode failed")
+        torch.cuda.synchronize()
+        dec_s = time.perf_counter() - t0
+        for k, v in ds.LAUNCHES.items():
+            launches[k] += v
+
+        with open(stream_path, "rb") as f:
+            stream = FrameStream.from_bytes(f.read())
+        frame = tp.prepare_voxel_frame(pos, np.zeros((nvox, 3)), DEPTH, bucket=BUCKET,
+                                       dtype=torch.float32)
+        rec, _ = tp.AttributeCodec(DEPTH, dtype=torch.float32).decode(
+            stream, frame.codes, frame.weights)
+        out_attrs = np.empty_like(rec)
+        out_attrs[np.argsort(morton_codes_np(pos, DEPTH), kind="stable")] = rec
+        want = np.clip(yuv_to_rgb(torch.as_tensor(out_attrs, device="cuda")).cpu().numpy(),
+                       0, 255).astype(int)
+        V2, C2, _ = read_ply_8i(out_ply)
+        check(np.array_equal(V2, pos.astype(float)) and np.array_equal(C2, want),
+              "decoded PLY differs from the in-process decode")
+        # the decode CLI's last step alone: the ASCII PLY writer on this host
+        t0 = time.perf_counter()
+        save_ply_ascii(os.path.join(tmp, "again.ply"), V2, want)
+        write_s = time.perf_counter() - t0
+    for name, cnt in launches.items():
+        check(cnt >= 1, f"{name} not launched on the CLI path")
+    out = {"nvox": nvox, "steps": len(steps), "encode_ply_s": enc_s,
+           "sweep_mpts": nvox * len(steps) / enc_s / 1e6, "decode_cli_s": dec_s,
+           "ply_write_s": write_s,
+           "launches": launches, "stage_s": stage_s, "psnr": psnr,
+           "bpp": [float(r["Rate_bpp"]) for r in rows]}
+    say("cli", **{k: json.dumps(v) if isinstance(v, (dict, list)) else v
+                  for k, v in out.items()})
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -462,12 +740,22 @@ def main() -> int:
                     for k, v in libs.items()})
     say("build", ptxas=json.dumps(ptxas_summary(libs["nvcc ds_scan.cu"].build_log)))
 
+    vox = phase_voxelize(torch, ds)   # first: host-bound times before any profiler
     rows = phase_kernels(torch, ds)
     phase_invariants(torch, ds)
     results = phase_main(torch, ds)
-    for row in rows:
-        row["launches"] = results[DEPTH]["launches"][row["name"]]
     phase_golden(torch)
+    cli = phase_cli(torch, ds)
+    for row in rows:
+        # `launches`: the codec's main path (phase 3); each path's own count
+        # beside it, every one read around a run that began from zero
+        row["launches"] = results[DEPTH]["launches"][row["name"]]
+        row["launches_by_path"] = {
+            "codec_j10": row["launches"], "cli": cli["launches"][row["name"]],
+            "segment_sums_prefix": vox["prefix"]["scan_launches"] if row["name"] == "ds_cumsum"
+            else 0}
+        if row["name"] == "ds_cumsum":
+            row["voxelize_pack"] = vox["pack"]
     say("done", seconds=round(time.perf_counter() - t_start, 1))
 
     print(card)

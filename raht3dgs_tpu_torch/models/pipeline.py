@@ -8,7 +8,9 @@ back: RLGR -> upload -> structure pass and inverse order -> dequantize ->
 span inverse RAHT.
 
 Covered: ``impl="span"``, quantizers ``mid`` and ``deadzone``, orders
-``ragft``, ``weight_desc`` and ``morton``, float32 and float64. Options of
+``ragft``, ``weight_desc`` and ``morton``, float32 and float64, and the
+pipelined step sweep ``encode_sweep`` (pinned host buffers filled by a
+fetch thread while the host entropy-codes the step before). Options of
 the JAX package that later slices bring raise ``NotImplementedError``
 naming their ROADMAP item. The wire-narrowing tiers of the JAX package
 (built for a remote TPU link) are not ported: symbols cross as int32.
@@ -16,14 +18,23 @@ naming their ROADMAP item. The wire-narrowing tiers of the JAX package
 
 from __future__ import annotations
 
+import collections
+import contextlib
+import queue
+import threading
+import time
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from raht3dgs_tpu_torch.codec.bitstream import FrameStream
-from raht3dgs_tpu_torch.codec.rlgr import rlgr_decode_channels, rlgr_encode_channels
+from raht3dgs_tpu_torch.codec.rlgr import (
+    _parse_chunk_header,
+    rlgr_decode_channels,
+    rlgr_encode_channels,
+)
 from raht3dgs_tpu_torch.ops.morton import code_dtype, morton_encode, pad_code
 from raht3dgs_tpu_torch.ops.quantize import (
     dequantize,
@@ -154,15 +165,22 @@ def _pads_last(order: torch.Tensor, nvox: int) -> torch.Tensor:
     return order[torch.argsort((order >= nvox).to(torch.int8), stable=True)]
 
 
-def _quant_reorder_device(coeffs, steps, order, nvox: int, quant_mode: str = "mid",
-                          qf: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Quantize + apply the pads-last order; channel-major (D, N) int32, so
-    each channel's real stream is the contiguous prefix ``[:nvox]``."""
+def _reorder_T_device(coeffs, order, nvox: int) -> torch.Tensor:
+    """The pads-last stream permutation and the channel-major transpose:
+    (D, N), so each channel's real stream is the contiguous prefix
+    ``[:nvox]``. Quantization is elementwise and commutes with the
+    permutation bitwise, so a sweep reorders once for all its steps."""
+    return coeffs[_pads_last(order, nvox).long()].T.contiguous()
+
+
+def _quant_T_device(coeffs_T, steps, quant_mode: str = "mid",
+                    qf: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Quantize a reordered (D, N) coefficient matrix to int32 symbols
+    (per-channel steps broadcast along D)."""
+    st = steps[:, None] if steps.shape[0] > 1 else steps
     if quant_mode == "deadzone":
-        q = quantize_deadzone(coeffs, steps, qf)
-    else:
-        q = quantize(coeffs, steps)
-    return q[_pads_last(order, nvox).long()].T.contiguous()
+        return quantize_deadzone(coeffs_T, st, qf)
+    return quantize(coeffs_T, st)
 
 
 def _inverse_order_device(codes, weights, nvox: int, depth: int,
@@ -234,6 +252,71 @@ def build_entropy_stream(q_np: np.ndarray, frame: VoxelFrame, steps, *, depth: i
         entropy_map=emap,
     )
     return stream, enc_ns
+
+
+def _fetched_symbols(qs: List[torch.Tensor], window: int = 2):
+    """Yield each (D, N) int32 matrix of ``qs`` as a numpy view of a host
+    buffer, with the seconds waited for it, in order.
+
+    A fetch thread copies into ``window`` buffers, pinned for CUDA tensors
+    (``non_blocking`` copies on the stream that ran the quantizes, each
+    followed by an event the thread waits on); on the CPU the same loop
+    copies synchronously. A buffer is refilled only after the consumer has
+    asked for the next value, so it is never written while still read.
+    A failure in the thread is raised here, after the thread has ended."""
+    cuda = qs[0].device.type == "cuda"
+    stream = torch.cuda.current_stream(qs[0].device) if cuda else None
+    free: queue.Queue = queue.Queue()
+    for _ in range(min(window, len(qs))):
+        free.put(torch.empty(qs[0].shape, dtype=qs[0].dtype, pin_memory=cuda))
+    ready: queue.Queue = queue.Queue()
+    errs: list = []
+    STOP = object()
+
+    def fetcher():
+        try:
+            inflight: collections.deque = collections.deque()
+            j = 0
+            with torch.cuda.stream(stream) if cuda else contextlib.nullcontext():
+                for _ in range(len(qs)):
+                    # start copies while a buffer is free; wait for one only
+                    # when no copy is in flight
+                    while j < len(qs):
+                        try:
+                            buf = free.get(block=not inflight)
+                        except queue.Empty:
+                            break
+                        if buf is STOP:
+                            return
+                        buf.copy_(qs[j], non_blocking=cuda)
+                        ev = torch.cuda.Event() if cuda else None
+                        if cuda:
+                            ev.record(stream)
+                        inflight.append((buf, ev))
+                        j += 1
+                    buf, ev = inflight.popleft()
+                    if ev is not None:
+                        ev.synchronize()
+                    ready.put(buf)
+        except BaseException as e:  # noqa: BLE001 - re-raised by the consumer
+            errs.append(e)
+            ready.put(STOP)
+
+    th = threading.Thread(target=fetcher, daemon=True)
+    th.start()
+    try:
+        for _ in range(len(qs)):
+            t0 = time.perf_counter()
+            buf = ready.get()
+            if buf is STOP:
+                break
+            yield buf.numpy(), time.perf_counter() - t0
+            free.put(buf)
+    finally:
+        free.put(STOP)  # wakes a fetcher that waits for a buffer
+        th.join()
+    if errs:
+        raise errs[0]
 
 
 class AttributeCodec:
@@ -314,14 +397,45 @@ class AttributeCodec:
         timer = timer or StageTimer()
         if coeffs is None or order is None:
             coeffs, order, _, timer = self.transform(frame, timer)
+        q_np = timer.time("Quant_time", lambda: self._quantize(
+            _reorder_T_device(coeffs, order, frame.n_voxels), steps).cpu().numpy())
+        return self._entropy_frame(q_np, frame, steps, timer)
+
+    def encode_sweep(self, frame: VoxelFrame, steps_list, coeffs=None,
+                     order=None) -> List[EncodedFrame]:
+        """Pipelined quantization-step sweep, byte-identical to
+        ``[self.encode(frame, s, coeffs, order) for s in steps_list]``.
+
+        The transform (unless given) and the reorder run once; every step's
+        quantize is queued up front. A fetch thread copies the symbols of
+        each step into one of two host buffers (pinned on the card) and
+        hands them over in order; this thread runs RLGR on each, so step
+        k's entropy coding overlaps step k+1's copy. Per-step
+        ``Quant_time`` is the wait for that step's symbols (on the card the
+        quantize itself runs ahead of it)."""
+        steps_list = list(steps_list)
+        if not steps_list:
+            return []
+        if coeffs is None or order is None:
+            coeffs, order, _, _ = self.transform(frame)
+        coeffs_T = _reorder_T_device(coeffs, order, frame.n_voxels)
+        qs = [self._quantize(coeffs_T, s) for s in steps_list]
+        out: List[EncodedFrame] = []
+        with contextlib.closing(_fetched_symbols(qs)) as fetched:
+            for s, (q_np, wait_s) in zip(steps_list, fetched):
+                timer = StageTimer()
+                timer.add("Quant_time", wait_s)
+                out.append(self._entropy_frame(q_np, frame, s, timer))
+        return out
+
+    def _quantize(self, coeffs_T: torch.Tensor, steps) -> torch.Tensor:
         steps_t = torch.atleast_1d(self._scalar(np.asarray(steps, dtype=np.float64)))
+        return _quant_T_device(coeffs_T, steps_t, self.quant_mode,
+                               self._scalar(self.quant_f))
 
-        def _quant():
-            q_T = _quant_reorder_device(coeffs, steps_t, order, frame.n_voxels,
-                                        self.quant_mode, self._scalar(self.quant_f))
-            return q_T.cpu().numpy()
-
-        q_np = timer.time("Quant_time", _quant)
+    def _entropy_frame(self, q_np: np.ndarray, frame: VoxelFrame, steps,
+                       timer: StageTimer) -> EncodedFrame:
+        """RLGR-code one step's (D, N) symbols into its FrameStream."""
         stream, enc_ns = build_entropy_stream(
             q_np, frame, steps, depth=self.depth, order_mode=self.order_mode,
             chunk=self.chunk, quant_mode=self.quant_mode, quant_f=self.quant_f,
@@ -330,12 +444,6 @@ class AttributeCodec:
         )
         timer.add("Entropy_enc_time", enc_ns / 1e9)
         return EncodedFrame(stream=stream, timer=timer)
-
-    def encode_sweep(self, frame: VoxelFrame, steps_list, coeffs=None, order=None):
-        raise NotImplementedError(
-            "encode_sweep is not ported yet (ROADMAP queue A, item 6); call "
-            "encode once per step"
-        )
 
     # -- decoding ---------------------------------------------------------
 
@@ -385,3 +493,18 @@ class AttributeCodec:
         attrs = timer.time("iRAHT_time", _inverse_device, coeffs, codes, weights,
                            self.depth)
         return attrs.cpu().numpy()[:nvox], timer
+
+
+def progressive_prefix_bytes(stream: FrameStream, n_coeffs: int) -> int:
+    """Entropy bytes a receiver needs for ``decode_progressive(n_coeffs)``:
+    exact for chunked streams (the header plus every chunk overlapping
+    ``[0, n_coeffs)``); sequential streams report their full channels."""
+    k = int(min(max(n_coeffs, 1), stream.n_voxels))
+    total = 0
+    for s in stream.channels:
+        if stream.chunk > 0:
+            c, lens, off = _parse_chunk_header(s)
+            total += off + sum(lens[:-(-k // c)])
+        else:
+            total += len(s)
+    return total

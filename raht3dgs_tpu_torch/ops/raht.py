@@ -2,7 +2,7 @@
 
 Counterpart of the shared part of ``raht3dgs_tpu/ops/raht.py``
 (``num_levels``, ``RahtStructure``, ``RahtForwardResult``,
-``_butterfly_ab``). The dense level loop of that module is not ported yet
+``_butterfly_ab``, ``_code_lanes`` / ``_lanes_code``). The dense level loop of that module is not ported yet
 (ROADMAP queue A, item 17); the codec's transform is ``ops/raht_span.py``.
 """
 
@@ -50,6 +50,26 @@ def ieee_sqrt(x: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return torch.from_numpy(np.asarray(np.sqrt(x.numpy())))
     return torch.sqrt(x)
+
+
+# Codes ride a wide float row gather as value-exact digits: float32 holds
+# integers below 2^24 exactly, and three 22-bit digits cover every code.
+_DIGIT_BITS = 22
+_DIGIT_MASK = (1 << _DIGIT_BITS) - 1
+
+
+def _code_lanes(codes: torch.Tensor, fdtype) -> torch.Tensor:
+    """Split integer codes into (N, 3) exact float digits (low to high)."""
+    c = codes.to(torch.int64)
+    return torch.stack([(c & _DIGIT_MASK).to(fdtype),
+                        ((c >> _DIGIT_BITS) & _DIGIT_MASK).to(fdtype),
+                        ((c >> (2 * _DIGIT_BITS)) & _DIGIT_MASK).to(fdtype)], dim=1)
+
+
+def _lanes_code(lanes: torch.Tensor, code_dtype: torch.dtype) -> torch.Tensor:
+    """Inverse of :func:`_code_lanes`."""
+    lo, mid, hi = (lanes[:, i].to(torch.int64) for i in range(3))
+    return (lo | (mid << _DIGIT_BITS) | (hi << (2 * _DIGIT_BITS))).to(code_dtype)
 
 
 def _butterfly_ab(w0: torch.Tensor, w1: torch.Tensor):

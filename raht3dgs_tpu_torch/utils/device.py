@@ -35,6 +35,17 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
+def same_device(a: torch.device, b: torch.device) -> bool:
+    """Whether ``a`` and ``b`` name one device; a CUDA device without an
+    index is the current one."""
+    if a.type != b.type:
+        return False
+    if a.type == "cpu" or a.index == b.index:
+        return True
+    current = torch.cuda.current_device()
+    return (current if a.index is None else a.index) == (current if b.index is None else b.index)
+
+
 def device_of(x, device: DeviceLike = None) -> torch.device:
     """The device an op runs on: a tensor's own device unless the caller
     names one; non-tensor input follows :func:`resolve_device`."""

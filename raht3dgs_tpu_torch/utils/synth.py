@@ -70,3 +70,30 @@ def golden_fixture():
     """``(positions, integer colours)`` of the golden fixture."""
     pts, _, _ = unique_voxel_cloud(np.random.default_rng(42), 600, GOLDEN_DEPTH)
     return pts, (pts * 7 % 256).astype(np.float64)
+
+
+# The raw J10 cloud: three jittered sphere shells in the unit cube, spread
+# corner to corner, as a full-body scan sits in its grid. At 2 000 000
+# points and seed 0 it voxelizes at J=10 to 487 180 voxels (4.1 points a
+# voxel, longest run 21 points): a 2^19 bucket holds it.
+SURFACE_CENTERS = ((0.12, 0.12, 0.12), (0.88, 0.88, 0.88), (0.85, 0.2, 0.5))
+SURFACE_RADII = (0.11, 0.08, 0.06)
+SURFACE_JITTER = 0.002
+
+
+def raw_surface_cloud(n: int, seed: int = 0):
+    """``n`` raw float32 points on jittered sphere shells (each shell drawn
+    in proportion to its area) and integer RGB colours in [0, 255] that
+    vary smoothly over the surface: ``(points (n, 3) f32, rgb (n, 3) f64)``."""
+    rng = np.random.default_rng(seed)
+    centers = np.asarray(SURFACE_CENTERS)
+    radii = np.asarray(SURFACE_RADII)
+    area = radii ** 2
+    k = rng.choice(len(radii), size=n, p=area / area.sum())
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    r = radii[k] * (1.0 + SURFACE_JITTER * rng.standard_normal(n))
+    pts = (centers[k] + r[:, None] * d).astype(np.float32)
+    phase = np.array([0.0, 2.1, 4.2])
+    rgb = np.round(127.5 * (1.0 + np.sin(6.0 * np.pi * pts[:, [0]] + 4.0 * d + phase)))
+    return pts, np.clip(rgb, 0, 255)

@@ -182,5 +182,12 @@ def test_unported_options_raise():
     with pytest.raises(ValueError):
         tp.AttributeCodec(6, device="cpu", order_mode="bogus")
     codec = tp.AttributeCodec(6, device="cpu")
-    with pytest.raises(NotImplementedError):
-        codec.encode_sweep(None, [1.0])
+    frame = tp.prepare_voxel_frame(np.zeros((1, 3), np.int64), np.ones((1, 3)), 6,
+                                   device="cpu")
+    stream = codec.encode(frame, 1.0).stream
+    stream.predict = True  # a predicted-RAHT stream (item 13)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        codec.decode(stream, frame.codes, frame.weights)
+    with pytest.raises(NotImplementedError, match="item 2"):  # uint64 codes (J=21)
+        tp.voxel_frame_from_arrays(np.zeros(4, np.uint64), np.zeros((4, 3)), np.ones(4),
+                                   4, 21, np.zeros(3), 1.0, device="cpu")

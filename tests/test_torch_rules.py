@@ -91,6 +91,28 @@ def test_entry_points_refuse_silent_cpu(monkeypatch):
     with pytest.raises(RuntimeError):
         morton_encode(np.zeros((2, 3), np.int64), 6)
     assert morton_encode(torch.zeros(2, 3, dtype=torch.int64), 6).device.type == "cpu"
+    # the voxelizer, the segment sums, the colour codec and both CLIs' default
+    # --platform follow it too
+    from raht3dgs_tpu_torch.cli import decode, encode_ply
+    from raht3dgs_tpu_torch.models.color_codec import encode_color_frame
+    from raht3dgs_tpu_torch.ops.segment import sorted_segment_sums
+    from raht3dgs_tpu_torch.ops.voxelize import voxelize
+
+    PC = np.random.default_rng(0).uniform(0, 8, (16, 6))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        voxelize(PC, 3)
+    assert voxelize(torch.from_numpy(PC), 3).codes.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        encode_color_frame(np.zeros((1, 3)), np.zeros((1, 3)), depth=3, steps=(1,))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        sorted_segment_sums(np.zeros((4, 1), np.float32), np.ones(4, bool))
+    assert sorted_segment_sums(torch.zeros(4, 1), torch.ones(4, dtype=torch.bool))[0] \
+        .device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        encode_ply.main(["--input", "missing.ply"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        decode.main(["--stream", "missing.r3tc", "--positions", "p.ply",
+                     "--output", "o.ply"])
 
 
 def test_codec_refuses_frame_on_other_device():
@@ -100,3 +122,23 @@ def test_codec_refuses_frame_on_other_device():
     codec.device = torch.device("cuda")  # as a CUDA codec would see it
     with pytest.raises(ValueError):
         codec.transform(frame)
+
+
+@pytest.mark.parametrize("a, b, same", [
+    ("cuda", "cuda:0", True), ("cuda:0", "cuda", True), ("cuda", "cuda", True),
+    ("cuda", "cuda:1", False), ("cuda:1", "cuda:0", False), ("cpu", "cuda", False),
+    ("cpu", "cpu", True),
+])
+def test_same_device_reads_no_index_as_current(monkeypatch, a, b, same):
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    assert tdev.same_device(torch.device(a), torch.device(b)) is same
+
+
+def test_encode_color_frame_refuses_other_device():
+    from raht3dgs_tpu_torch.models.color_codec import encode_color_frame
+
+    codec = tp.AttributeCodec(3, device="cpu")
+    codec.device = torch.device("cuda")  # as a CUDA codec would see it
+    with pytest.raises(ValueError, match="codec runs on"):
+        encode_color_frame(np.zeros((1, 3)), np.zeros((1, 3)), depth=3, steps=(1,),
+                           codec=codec, device="cpu")
