@@ -34,7 +34,8 @@ Phases, each printed on its own line, any failure exits nonzero:
    (2e6, 4) inputs against the CPU and against the voxelizer's outputs; the
    prefix method's ``ds_prefix_pack`` call against its plain version;
    ``voxelize`` and each method timed with CUDA events (median of 5). It
-   runs first, so its host-bound times precede every profiler session;
+   runs first, so its host-bound times precede every profiler session
+   (the pack's device time is taken after phase 7);
 6. the CLIs: that cloud as a binary PLY in a temporary directory through
    ``cli.encode_ply.main`` (``--voxelize``, float32, bucket 2^19, the
    reference's 11-step grid, streams and CSV saved) and one stream through
@@ -42,7 +43,26 @@ Phases, each printed on its own line, any failure exits nonzero:
    checked, with the kernels' launch counts read around the run. Between
    the two, ``AttributeCodec.encode_sweep`` on the card over the same grid
    must give, step by step, the bytes of one ``encode`` per step and of the
-   streams the CLI saved.
+   streams the CLI saved;
+7. the 3DGS path: a seeded scene of 2 000 000 Gaussians on the phase 5
+   shells (``utils/synth.py:gaussian_scene``, 56 attribute channels)
+   voxelized and merged at J=10 on the card against the CPU (487 180
+   voxels; integer outputs exact, merged attributes to ``GS_MERGE_TOL``);
+   the CLI chain ``voxelize_3dgs --ply`` -> ``encode_3dgs`` (float32,
+   bucket 2^19, the reference's 9 steps, streams and CSV saved) ->
+   ``decode --color-space 3dgs`` of the finest stream, from PLYs in a
+   temporary directory, and ``voxelize_3dgs --ckpt`` on a 100 000-Gaussian
+   gsplat checkpoint, with the scan launches read around the chain; the
+   CSV (PSNR and rate ordered by step, group PSNRs finite),
+   ``encode_sweep`` against per-step ``encode`` and the saved streams,
+   and the decoded PLY against an in-process decode; the scan kernel's
+   wide path at its edges ((2049, 9), and (2^22 + 5, 12) past the
+   one-block carry), the merge's (2e6, 60) segment sums by the prefix
+   method against the shift method, and the packs of the transform
+   ((2^19, 57) as the path gives it, (487 180, 57)) and of the merge, each
+   against its plain version and a float64 cumsum, its last column
+   bitwise its K=1 scan, the row, transposed and pack entries equal, run
+   to run, then timed; the 3DGS golden fixture's float64 hash.
 
 Needs one CUDA card; imports nothing of JAX or of the JAX package.
 """
@@ -68,6 +88,11 @@ F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 DS_OPS_PER_ELEM = 11        # adds/subtracts of one ds_add per scanned element
 
 N_RAW = 2_000_000          # phase 5/6 raw points
+N_GS = 2_000_000           # phase 7 Gaussians (on the same shells as N_RAW)
+GS_NVOX = 487_180          # their voxels at J=10
+N_GS_CKPT = 100_000        # phase 7 checkpoint
+GS_MERGE_TOL = 1e-5        # merged f32 attributes, card against CPU, relative
+GS_SEG_TOL = 1e-5          # (N, 60) prefix segment sums against shift, per column
 NVOX_RANGE = (400_000, 520_000)
 N_VOX = 500_000
 DEPTH = 10
@@ -145,12 +170,15 @@ def device_ms(torch, fn, reps: int = 50, warm: int = 3):
 
 
 def ptxas_summary(log: str) -> dict:
-    """{kernel<K,pair>: [registers, spill bytes]} from nvcc -Xptxas=-v."""
+    """{kernel<K,pair>: [registers, spill bytes]} from nvcc -Xptxas=-v
+    (the wide path's kernels as kernel<pair>)."""
     out, name = {}, None
     for ln in log.splitlines():
-        m = re.search(r"Compiling entry function '\S*?(ds_tile_[a-z]+)ILi(\d+)ELb([01])E", ln)
+        m = re.search(r"Compiling entry function '\S*?(ds_(?:tile|wide)_[a-z]+)I(?:Li(\d+)E)?"
+                      r"Lb([01])E", ln)
         if m:
-            name = f"{m.group(1)}<{m.group(2)},{m.group(3)}>"
+            k = f"{m.group(2)}," if m.group(2) else ""
+            name = f"{m.group(1)}<{k}{m.group(3)}>"
             out[name] = [None, 0]
             continue
         m = re.search(r"(\d+) bytes spill stores", ln)
@@ -404,6 +432,9 @@ def phase_main(torch, ds):
         check(total >= 3, f"scan kernel launched {total} times in one encode+decode")
         for name, cnt in launches.items():
             check(cnt >= 1, f"{name} not launched on the main path")
+        # one forward pack, two one-column weight scans in the decode
+        check(launches == {"ds_cumsum": 1, "ds_cumsum_t": 2},
+              f"scan launches in one encode+decode {launches}")
 
         want = frame.attributes[:n].cpu().numpy()
         check(rec.shape == (n, D_ATTR) and np.isfinite(rec).all(), "decode output")
@@ -593,7 +624,7 @@ def phase_voxelize(torch, ds):
                    "bound_ms": max(bytes_ms, ops_ms),
                    "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
     say("voxelize", rel_err=rel, **out["pack"])
-    return out
+    return out, vals
 
 
 def phase_cli(torch, ds):
@@ -712,6 +743,9 @@ def phase_cli(torch, ds):
         write_s = time.perf_counter() - t0
     for name, cnt in launches.items():
         check(cnt >= 1, f"{name} not launched on the CLI path")
+    # one forward pack; two weight scans per decode (11 in the sweep, 1 in the CLI)
+    check(launches == {"ds_cumsum": 1, "ds_cumsum_t": 2 * (len(steps) + 1)},
+          f"scan launches on the CLI path {launches}")
     out = {"nvox": nvox, "steps": len(steps), "encode_ply_s": enc_s,
            "sweep_mpts": nvox * len(steps) / enc_s / 1e6, "decode_cli_s": dec_s,
            "ply_write_s": write_s,
@@ -719,6 +753,285 @@ def phase_cli(torch, ds):
            "bpp": [float(r["Rate_bpp"]) for r in rows]}
     say("cli", **{k: json.dumps(v) if isinstance(v, (dict, list)) else v
                   for k, v in out.items()})
+    return out
+
+
+def write_gsplat_ckpt(torch, path, scene) -> None:
+    """``scene`` as a gsplat checkpoint: float32 tensors in training space
+    (log scales, logit opacities, SH as sh0 (N, 1, 3) and shN (N, 15, 3))."""
+    import numpy as np
+
+    n = len(scene["means"])
+    sh = scene["colors"].reshape(n, 16, 3)
+    op = scene["opacities"]
+    splats = {"means": scene["means"], "quats": scene["quats"],
+              "scales": np.log(scene["scales"]), "opacities": np.log(op / (1.0 - op)),
+              "sh0": sh[:, :1], "shN": sh[:, 1:]}
+    torch.save({"splats": {k: torch.as_tensor(np.ascontiguousarray(v), dtype=torch.float32)
+                           for k, v in splats.items()}}, path)
+
+
+def check_pack(torch, ds, body):
+    """The kernel-written pack of ``body`` (N, K) against its plain version
+    and a float64 cumsum, its last column against that column's K=1 scan,
+    its (hi, lo) against ``ds_cumsum`` and the transposed entry, and a
+    second run. Returns (rel. error against f64, max abs error against
+    the plain version)."""
+    N, K = body.shape
+    P = ds.ds_prefix_pack(body)
+    R = ds.ds_prefix_pack_reference(body)
+    torch.cuda.synchronize()
+    got = P[1:, :K].double() + P[1:, K:].double()
+    ref = torch.cumsum(body.double(), 0)
+    rel = float((got - ref).abs().max()) / max(float(ref.abs().max()), 1.0)
+    max_abs = float((got - (R[1:, :K].double() + R[1:, K:].double())).abs().max())
+    check(P.shape == (N + 1, 2 * K) and not bool(P[0].any()), f"({N}, {K}) pack: zero row")
+    check(rel < 1e-12, f"({N}, {K}) pack: rel err {rel} against an f64 cumsum")
+    h1, l1 = ds.ds_cumsum(body[:, K - 1:].contiguous())
+    check(torch.equal(P[1:, K - 1], h1[:, 0]) and torch.equal(P[1:, 2 * K - 1], l1[:, 0]),
+          f"({N}, {K}) pack: the last column differs from its K=1 scan")
+    hi, lo = ds.ds_cumsum(body)
+    ht, lt = ds.ds_cumsum_t(body.T.contiguous())
+    check(torch.equal(P[1:, :K], hi) and torch.equal(P[1:, K:], lo)
+          and torch.equal(ht.T, hi) and torch.equal(lt.T, lo),
+          f"({N}, {K}): the pack, ds_cumsum and ds_cumsum_t differ")
+    check(torch.equal(P, ds.ds_prefix_pack(body)), f"({N}, {K}) pack: two runs differ")
+    return rel, max_abs
+
+
+def wide_pack_row(torch, ds, body, reps=100):
+    """:func:`check_pack`, then the times of the wrapper, the plain version
+    and ``torch.cumsum`` f64 on ``body``."""
+    N, K = body.shape
+    rel, max_abs = check_pack(torch, ds, body)
+    ms = cuda_ms(torch, lambda: ds.ds_prefix_pack(body), reps=reps)
+    plain_ms = cuda_ms(torch, lambda: ds.ds_prefix_pack_reference(body), reps=3, warm=1)
+    lib_ms = cuda_ms(torch, lambda: torch.cumsum(body, 0, dtype=torch.float64), reps=reps)
+    bytes_ms = 4.0 * (N * K + (N + 1) * 2 * K) / HBM_BYTES_PER_S * 1e3
+    ops_ms = DS_OPS_PER_ELEM * N * K / F32_OPS_PER_S * 1e3
+    return {"call": "ds_prefix_pack", "shape": [N, K], "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "max_abs_err": max_abs, "rel_err": rel,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def add_device_ms(torch, ds, row, x) -> None:
+    """The device's own time of ``ds_prefix_pack(x)`` into ``row``; run
+    after every host-bound timing (a profiler session leaves the host busy)."""
+    row["device_ms"], row["device_launches_per_call"], row["device_us_by_kernel"] = \
+        device_ms(torch, lambda: ds.ds_prefix_pack(x))
+
+
+def phase_gs(torch, ds):
+    """Phase 7: the 3DGS path at full width. A 2e6-Gaussian scene voxelized
+    and merged on the card against the CPU; the CLI chain voxelize_3dgs ->
+    encode_3dgs (9 steps, 56 channels) -> decode --color-space 3dgs from a
+    PLY in a temporary directory, with the scan launches read around it;
+    encode_sweep against per-step encode and the saved streams; a small
+    checkpoint through voxelize_3dgs --ckpt; the scan kernel's wide path
+    at the transform's pack and the merge's (N, 60) segment sums; the 3DGS
+    golden hashes."""
+    import csv
+    import hashlib
+    import math
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from raht3dgs_tpu_torch.cli import decode, encode_3dgs, voxelize_3dgs
+    from raht3dgs_tpu_torch.codec.bitstream import FrameStream
+    from raht3dgs_tpu_torch.config import GsCodecConfig
+    from raht3dgs_tpu_torch.io.ply import read_compressed_3dgs_ply, save_ply_3dgs
+    from raht3dgs_tpu_torch.models import pipeline as tp
+    from raht3dgs_tpu_torch.models.gs_codec import CSV_HEADER
+    from raht3dgs_tpu_torch.models.gs_voxelize import GS_KEYS, compress_to_nvox, merge_rows
+    from raht3dgs_tpu_torch.ops.segment import sorted_segment_sums
+    from raht3dgs_tpu_torch.utils import synth
+
+    out = {}
+    steps = list(GsCodecConfig.steps)
+    scene = synth.gaussian_scene(N_GS, seed=0)
+
+    # voxelize + merge on the card against the CPU
+    g = compress_to_nvox(scene, depth=DEPTH)
+    c = compress_to_nvox(scene, depth=DEPTH, device="cpu")
+    nvox = g.n_voxels
+    check(nvox == c.n_voxels == GS_NVOX, f"compress_to_nvox: {nvox} / {c.n_voxels} voxels")
+    for f in ("positions_int", "cluster_of_input"):
+        check(np.array_equal(getattr(g, f), getattr(c, f)), f"compress_to_nvox: {f} differs")
+    attr_err = {}
+    for f in ("quats", "scales", "opacities", "colors", "means_world"):
+        a, b = getattr(g, f)[:nvox], getattr(c, f)[:nvox]
+        attr_err[f] = float(np.abs(a - b).max()) / max(float(np.abs(b).max()), 1.0)
+        check(attr_err[f] <= GS_MERGE_TOL, f"compress_to_nvox: {f} off by {attr_err[f]}")
+    say("gs", n_gaussians=N_GS, nvox=nvox, merge_rel_err=json.dumps(attr_err),
+        merge_tol=GS_MERGE_TOL)
+
+    launches = {name: 0 for name in ds.LAUNCHES}
+
+    def run(cli, argv):
+        torch.cuda.synchronize()
+        ds.reset_launches()
+        t0 = time.perf_counter()
+        check(cli.main(argv) == 0, f"{cli.__name__} failed")
+        torch.cuda.synchronize()
+        for k, v in ds.LAUNCHES.items():
+            launches[k] += v
+        return time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        scene_ply = os.path.join(tmp, "scene.ply")
+        save_ply_3dgs(scene_ply, *(scene[k] for k in GS_KEYS))
+        odir, sdir = os.path.join(tmp, "vox"), os.path.join(tmp, "streams")
+        vcsv, ecsv = os.path.join(tmp, "vox.csv"), os.path.join(tmp, "gs.csv")
+        comp = os.path.join(odir, "compressed_Nvox_gaussians.ply")
+        torch.cuda.reset_peak_memory_stats()
+        vox_s = run(voxelize_3dgs, ["--ply", scene_ply, "--depth", str(DEPTH), "--render",
+                                    "none", "--output-dir", odir, "--csv", vcsv])
+        with open(vcsv) as f:
+            vrow = list(csv.DictReader(f))[0]
+        check(int(vrow["N_vox"]) == GS_NVOX, f"voxelize_3dgs: {vrow['N_vox']} voxels")
+        enc_s = run(encode_3dgs, ["--input", comp, "--depth", str(DEPTH), "--dtype", "float32",
+                                  "--bucket", str(BUCKET), "--render", "none",
+                                  "--save-streams", sdir, "--csv", ecsv,
+                                  "--steps", *[f"{s:g}" for s in steps]])
+        with open(ecsv) as f:
+            lines = f.read().splitlines()
+        check(len(lines) == 1 + len(steps) and lines[0] == CSV_HEADER,
+              f"encode_3dgs CSV has {len(lines)} lines")
+        rows = list(csv.DictReader(lines))
+        psnr = [float(r["PSNR_all"]) for r in rows]
+        bpp = [float(r["Rate_bpp"]) for r in rows]
+        groups = [float(r[k]) for r in rows for k in
+                  ("PSNR_quats", "PSNR_scales", "PSNR_opacity", "PSNR_colors")]
+        check(all(math.isfinite(p) for p in psnr + groups), f"PSNR {psnr}")
+        check(all(a > b for a, b in zip(psnr, psnr[1:])), f"PSNR not ordered by step: {psnr}")
+        check(all(a > b for a, b in zip(bpp, bpp[1:])), f"rate not ordered by step: {bpp}")
+        stage_s = {k: sum(float(r[k]) for r in rows) for k in lines[0].split(",")[3:12]}
+
+        # the sweep on the card against one encode per step and the saved
+        # streams, byte for byte
+        V, A, vsize, vmin = read_compressed_3dgs_ply(comp)
+        frame = tp.prepare_voxel_frame(V, A.astype(np.float64), DEPTH, bucket=BUCKET,
+                                       dtype=torch.float32, vmin=vmin,
+                                       width=vsize * (1 << DEPTH))
+        codec = tp.AttributeCodec(DEPTH, dtype=torch.float32)
+        coeffs, order, _, _ = codec.transform(frame)
+        sweep = codec.encode_sweep(frame, steps, coeffs=coeffs, order=order)
+        for s, enc in zip(steps, sweep):
+            blob = enc.stream.to_bytes()
+            check(blob == codec.encode(frame, s, coeffs=coeffs, order=order).stream.to_bytes(),
+                  f"encode_sweep step {s:g} != encode")
+            with open(os.path.join(sdir, f"gs_step{s:g}.r3tc"), "rb") as f:
+                check(blob == f.read(), f"the CLI's stream at step {s:g} != encode_sweep")
+
+        # the finest stream through the decode CLI, against an in-process decode
+        stream_path = os.path.join(sdir, f"gs_step{min(steps):g}.r3tc")
+        rec_ply = os.path.join(tmp, "rec.ply")
+        dec_s = run(decode, ["--stream", stream_path, "--positions", comp, "--output", rec_ply,
+                             "--color-space", "3dgs", "--dtype", "float32",
+                             "--bucket", str(BUCKET)])
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        with open(stream_path, "rb") as f:
+            rec, _ = codec.decode(FrameStream.from_bytes(f.read()), frame.codes, frame.weights)
+        want = np.empty_like(rec)
+        want[np.argsort(synth.morton_codes_np(V, DEPTH), kind="stable")] = rec
+        q = want[:, :4]
+        nq = np.linalg.norm(q, axis=1, keepdims=True)
+        want[:, :4] = np.where(nq > 1e-8, q / np.maximum(nq, 1e-8), np.array([[1.0, 0, 0, 0]]))
+        want[:, 4:7] = np.abs(want[:, 4:7])
+        want[:, 7] = np.clip(want[:, 7], 0.0, 1.0)
+        V2, A2, vsize2, _ = read_compressed_3dgs_ply(rec_ply)
+        check(np.array_equal(V2, V) and vsize2 == vsize
+              and np.array_equal(A2, want.astype(np.float32)),
+              "the decode CLI's 3DGS PLY differs from the in-process decode")
+
+        # a gsplat checkpoint through the loader and voxelize_3dgs --ckpt
+        ck = os.path.join(tmp, "ckpt.pt")
+        write_gsplat_ckpt(torch, ck, synth.gaussian_scene(N_GS_CKPT, seed=1))
+        ckpt_s = run(voxelize_3dgs, ["--ckpt", ck, "--depth", str(DEPTH), "--render", "none",
+                                     "--output-dir", os.path.join(tmp, "ck"),
+                                     "--csv", os.path.join(tmp, "ck.csv")])
+        with open(os.path.join(tmp, "ck.csv")) as f:
+            ck_vox = int(list(csv.DictReader(f))[0]["N_vox"])
+        check(0 < ck_vox < N_GS_CKPT, f"voxelize_3dgs --ckpt: {ck_vox} voxels")
+    for name, cnt in launches.items():
+        check(cnt >= 1, f"{name} not launched on the 3DGS path")
+    check(launches == {"ds_cumsum": 1, "ds_cumsum_t": 2 * (len(steps) + 1)},
+          f"scan launches on the 3DGS path {launches}")
+    out["cli"] = {"nvox": nvox, "steps": len(steps), "voxelize_3dgs_ms": float(vrow["Voxel_time_ms"]),
+                  "voxelize_3dgs_s": vox_s, "encode_3dgs_s": enc_s,
+                  "sweep_mvox": nvox * len(steps) / enc_s / 1e6, "decode_cli_s": dec_s,
+                  "ckpt_gaussians": N_GS_CKPT, "ckpt_voxels": ck_vox, "ckpt_cli_s": ckpt_s,
+                  "peak_mem_gib": peak_gib, "launches": launches, "stage_s": stage_s,
+                  "psnr_all": psnr, "bpp": bpp}
+    say("gs_cli", **{k: json.dumps(v) if isinstance(v, (dict, list)) else v
+                     for k, v in out["cli"].items()})
+
+    # the scan's wide path at its edges: one tile +1 row, and past the
+    # one-block carry
+    gen = torch.Generator(device="cpu").manual_seed(2)
+    for n, k in ((2049, 9), ((1 << 22) + 5, 12)):
+        x = torch.rand(n, k, generator=gen) * 3.0
+        x[:, -1] = (x[:, -1] > 1.5).float()   # an integer lane
+        rel, _ = check_pack(torch, ds, x.cuda())
+        say("gs_wide_edges", n=n, k=k, rel_err=rel)
+
+    # the merge's (N, 12+C) segment sums: the prefix method (the wide scan)
+    # against the shift method the merge runs
+    _, vals, first = merge_rows(*(torch.as_tensor(scene[k], device="cuda").float()
+                                  for k in GS_KEYS), DEPTH)
+    seg = {}
+    for method in ("shift", "prefix"):
+        torch.cuda.synchronize()
+        ds.reset_launches()
+        seg[method] = sorted_segment_sums(vals, first, method=method)
+        torch.cuda.synchronize()
+        n_scan = dict(ds.LAUNCHES)
+        check(n_scan == {"ds_cumsum": int(method == "prefix"), "ds_cumsum_t": 0},
+              f"{method}: scan launches {n_scan}")
+        seg[method + "_ms"] = cuda_ms(torch, lambda: sorted_segment_sums(
+            vals, first, method=method), reps=5, warm=1)
+    check(int(seg["shift"][3]) == int(seg["prefix"][3]) == nvox, "segment runs")
+    scale = seg["shift"][0].abs().amax(dim=0).clamp_min(1.0)
+    seg_err = float(((seg["prefix"][0] - seg["shift"][0]).abs() / scale).max())
+    check(seg_err <= GS_SEG_TOL, f"segment sums: prefix off the shift method by {seg_err}")
+    # the packs: the transform's (sqrt(w)-scaled attributes and the weight
+    # lane) as the path gives it (padded to the bucket) and at the real
+    # voxel count, and the prefix method's
+    from raht3dgs_tpu_torch.ops.raht import ieee_sqrt
+
+    w = frame.weights
+    body = torch.cat([ieee_sqrt(w)[:, None] * frame.attributes, w[:, None]], dim=1)
+    packs = {"pack": body.contiguous(), "pack_nvox": body[:nvox].contiguous(),
+             "pack_merge": vals}
+    for key, x in packs.items():
+        out[key] = wide_pack_row(torch, ds, x, reps=100 if key != "pack_merge" else 20)
+    out["segment"] = {"shape": list(vals.shape), "shift_ms": seg["shift_ms"],
+                      "prefix_ms": seg["prefix_ms"], "rel_err": seg_err, "tol": GS_SEG_TOL}
+    say("gs_segment_sums", **{k: json.dumps(v) if isinstance(v, list) else v
+                              for k, v in out["segment"].items()})
+    for key, x in packs.items():
+        add_device_ms(torch, ds, out[key], x)
+        say("gs_pack", **{k: json.dumps(v) if isinstance(v, dict) else v
+                          for k, v in out[key].items()})
+
+    # the 3DGS golden fixture: the card's float64 stream is the CPU's
+    pts, attrs = synth.gs_golden_fixture()
+    hashes = {}
+    for name, dt in (("float64", torch.float64), ("float32", torch.float32)):
+        gf = tp.prepare_voxel_frame(pts, attrs, synth.GS_GOLDEN_DEPTH,
+                                    bucket=synth.GS_GOLDEN_BUCKET, dtype=dt)
+        blob = tp.AttributeCodec(synth.GS_GOLDEN_DEPTH, dtype=dt).encode(
+            gf, synth.GS_GOLDEN_STEP).stream.to_bytes()
+        hashes[name] = hashlib.sha256(blob).hexdigest()
+    say("gs_golden", f64_sha256=hashes["float64"],
+        f64_matches_cpu=hashes["float64"] == synth.GS_GOLDEN_SHA256["float64"],
+        f32_sha256=hashes["float32"],
+        f32_matches_cpu=hashes["float32"] == synth.GS_GOLDEN_SHA256["float32"])
+    check(hashes["float64"] == synth.GS_GOLDEN_SHA256["float64"],
+          "3DGS float64 golden stream on the card differs from the CPU hash")
     return out
 
 
@@ -740,12 +1053,16 @@ def main() -> int:
                     for k, v in libs.items()})
     say("build", ptxas=json.dumps(ptxas_summary(libs["nvcc ds_scan.cu"].build_log)))
 
-    vox = phase_voxelize(torch, ds)   # first: host-bound times before any profiler
+    vox, vox_vals = phase_voxelize(torch, ds)  # first: host-bound times before any profiler
     rows = phase_kernels(torch, ds)
     phase_invariants(torch, ds)
     results = phase_main(torch, ds)
     phase_golden(torch)
     cli = phase_cli(torch, ds)
+    gs = phase_gs(torch, ds)
+    add_device_ms(torch, ds, vox["pack"], vox_vals)
+    say("voxelize", **{k: json.dumps(v) if isinstance(v, (dict, list)) else v
+                       for k, v in vox["pack"].items()})
     for row in rows:
         # `launches`: the codec's main path (phase 3); each path's own count
         # beside it, every one read around a run that began from zero
@@ -753,9 +1070,13 @@ def main() -> int:
         row["launches_by_path"] = {
             "codec_j10": row["launches"], "cli": cli["launches"][row["name"]],
             "segment_sums_prefix": vox["prefix"]["scan_launches"] if row["name"] == "ds_cumsum"
-            else 0}
+            else 0,
+            "gs_cli": gs["cli"]["launches"][row["name"]]}
         if row["name"] == "ds_cumsum":
             row["voxelize_pack"] = vox["pack"]
+            row["gs_pack"] = gs["pack"]
+            row["gs_pack_nvox"] = gs["pack_nvox"]
+            row["gs_pack_merge"] = gs["pack_merge"]
     say("done", seconds=round(time.perf_counter() - t_start, 1))
 
     print(card)

@@ -1,18 +1,20 @@
 """Standalone decoder: .r3tc frame stream + voxel positions -> PLY.
 
 Counterpart of ``raht3dgs_tpu/cli/decode.py`` for R3TC frame streams with
-``--positions`` (any PLY with x/y/z): it rebuilds the transform structure
-from the positions, decodes on CUDA unless ``--platform cpu``, and writes
-the reconstruction in the positions file's point order.
+``--positions`` (any PLY with x/y/z; with ``--color-space 3dgs`` the
+compressed-3DGS PLY with its voxel metadata): it rebuilds the transform
+structure from the positions, decodes on CUDA unless ``--platform cpu``,
+and writes the reconstruction in the positions file's point order, as an
+ASCII PLY or, for a 56-channel 3DGS stream, as a renderable 3DGS PLY.
 
     python -m raht3dgs_tpu_torch.cli.decode --stream frame.r3tc \\
-        --positions frame.ply --output recon.ply [--color-space yuv]
+        --positions frame.ply --output recon.ply [--color-space yuv|raw|3dgs]
 
 Not ported yet, each exiting with its ROADMAP queue A item: R3TS sequences
 and R3TT tiles, ``--frame-index``, ``--all-frames``, ``--lod`` and
 ``--roi`` (item 15); streams with a geometry section, decoding without
-``--positions`` and ``--geometry-lod`` (item 12); ``--color-space 3dgs``
-(item 11); inter frames (item 14).
+``--positions`` (3DGS streams included) and ``--geometry-lod`` (item 12);
+inter frames (item 14).
 """
 
 from __future__ import annotations
@@ -60,7 +62,8 @@ def build_parser() -> argparse.ArgumentParser:
         "--color-space", choices=("yuv", "raw", "3dgs"), default="yuv",
         help="'yuv': the stream holds BT.709 YUV (the encode_ply path), "
         "converted back to RGB; 'raw': attributes written as they are; "
-        "'3dgs' is not ported yet (item 11)",
+        "'3dgs': a 56-channel stream written as a renderable 3DGS PLY "
+        "(--positions must be the compressed-3DGS PLY with voxel metadata)",
     )
     add_runtime_args(p)
     return p
@@ -76,8 +79,6 @@ def main(argv=None) -> int:
         raise not_ported("--roi", 15, "the tiled .r3tt stream")
     if args.geometry_lod:
         raise not_ported("--geometry-lod", 12, "the geometry coder")
-    if args.color_space == "3dgs":
-        raise not_ported("--color-space 3dgs", 11, "the 3DGS codec")
     if args.positions is None:
         raise not_ported("decoding without --positions", 12, "the geometry coder")
     if args.progressive < 0:
@@ -108,7 +109,12 @@ def _run(args, device) -> int:
 def _decode_attrs(args, stream, device) -> None:
     import torch
 
-    from raht3dgs_tpu_torch.io.ply import read_ply, save_ply_ascii
+    from raht3dgs_tpu_torch.io.ply import (
+        read_compressed_3dgs_ply,
+        read_ply,
+        save_ply_3dgs,
+        save_ply_ascii,
+    )
     from raht3dgs_tpu_torch.models.pipeline import (
         AttributeCodec,
         prepare_voxel_frame,
@@ -117,8 +123,22 @@ def _decode_attrs(args, stream, device) -> None:
     from raht3dgs_tpu_torch.ops.color import yuv_to_rgb
     from raht3dgs_tpu_torch.utils.synth import morton_codes_np
 
-    v = read_ply(args.positions).vertices
-    V = np.stack([v["x"], v["y"], v["z"]], axis=1).astype(np.float64)
+    gs = args.color_space == "3dgs"
+    if gs:
+        if stream.n_channels < 8:
+            raise SystemExit(f"--color-space 3dgs needs the 56-channel layout, stream "
+                             f"has {stream.n_channels}")
+        try:
+            # the integer voxel coordinates are the x/y/z columns
+            V_int, _, voxel_size, vmin = read_compressed_3dgs_ply(args.positions)
+        except (ValueError, KeyError) as e:
+            raise SystemExit(
+                f"--color-space 3dgs: {args.positions} is not a compressed-3DGS PLY "
+                f"(needs rot_*/scale_*/opacity/f_dc_* properties): {e}")
+        V = V_int.astype(np.float64)
+    else:
+        v = read_ply(args.positions).vertices
+        V = np.stack([v["x"], v["y"], v["z"]], axis=1).astype(np.float64)
     if len(V) != stream.n_voxels:
         raise SystemExit(
             f"stream encodes {stream.n_voxels} voxels but {args.positions} "
@@ -148,7 +168,19 @@ def _decode_attrs(args, stream, device) -> None:
     out_attrs = np.empty_like(rec)
     out_attrs[order] = rec
 
-    if args.color_space == "yuv" and stream.n_channels == 3:
+    if gs:
+        # the compressed-3DGS convention: x/y/z hold the integer voxel
+        # coordinates, the header the world mapping; quaternions renormalized
+        # (identity below 1e-8), |scales|, opacity clipped to [0, 1]
+        quats = out_attrs[:, 0:4]
+        norm = np.linalg.norm(quats, axis=1, keepdims=True)
+        quats = np.where(norm > 1e-8, quats / np.maximum(norm, 1e-8),
+                         np.array([[1.0, 0, 0, 0]]))
+        save_ply_3dgs(args.output, means=V, quats=quats,
+                      scales=np.abs(out_attrs[:, 4:7]),
+                      opacities=np.clip(out_attrs[:, 7], 0.0, 1.0),
+                      colors=out_attrs[:, 8:], voxel_size=float(voxel_size), vmin=vmin)
+    elif args.color_space == "yuv" and stream.n_channels == 3:
         rgb = yuv_to_rgb(torch.as_tensor(out_attrs, device=device)).cpu().numpy()
         save_ply_ascii(args.output, V, np.clip(rgb, 0, 255).astype(int))
     else:

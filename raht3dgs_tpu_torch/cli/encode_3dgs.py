@@ -1,0 +1,145 @@
+"""3DGS 56-channel codec CLI.
+
+Counterpart of ``raht3dgs_tpu/cli/encode_3dgs.py``: reads a voxelized-3DGS
+PLY (from ``voxelize_3dgs``), runs the RD sweep over all 56 attribute
+channels on CUDA (unless ``--platform cpu``) and logs the reference's
+19-column CSV. Example:
+
+    python -m raht3dgs_tpu_torch.cli.encode_3dgs \\
+        --input output_compressed/compressed_Nvox_gaussians.ply --depth 10
+
+``--tiles`` (ROADMAP queue A, item 15), ``--target-bpp`` (item 14),
+``--code-geometry`` and ``--entropy rac|auto`` (item 12), ``--predict``
+(item 13) and ``--render`` other than ``none`` (item 16) are not ported
+yet and exit naming their item.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+from pathlib import Path
+
+from raht3dgs_tpu_torch.cli._common import (
+    CsvLogger,
+    add_geometry_arg,
+    add_quant_args,
+    add_runtime_args,
+    maybe_profile,
+    not_ported,
+    quant_kwargs,
+    torch_dtype,
+)
+from raht3dgs_tpu_torch.config import GsCodecConfig
+from raht3dgs_tpu_torch.utils.device import resolve_device
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--input", required=True, help="voxelized 3DGS PLY")
+    p.add_argument("--depth", type=int, default=GsCodecConfig.depth)
+    p.add_argument("--steps", type=float, nargs="+", default=list(GsCodecConfig.steps))
+    p.add_argument(
+        "--per-attribute", action="store_true",
+        help="importance-weighted per-attribute-group quantization "
+        "(encode_3dgs_debug strategy)",
+    )
+    p.add_argument(
+        "--render", choices=("auto", "gsplat", "jax", "preview", "none"),
+        default="none",
+        help="render comparison of the reconstruction (only 'none' is ported: "
+        "ROADMAP queue A, item 16)",
+    )
+    p.add_argument("--save-streams", default=None,
+                   help="directory to write .r3tc frame bitstreams")
+    p.add_argument(
+        "--entropy-chunk", type=int, default=0,
+        help="entropy-code each of the 56 channels in independent chunks of "
+        "this many symbols (0 = sequential)",
+    )
+    p.add_argument(
+        "--target-bpp", type=float, default=None,
+        help="search the step that hits this rate (not ported yet: ROADMAP "
+        "queue A, item 14)",
+    )
+    p.add_argument(
+        "--tiles", type=int, default=0, metavar="D",
+        help="write one spatially tiled .r3tt frame at this brick depth (not "
+        "ported yet: ROADMAP queue A, item 15)",
+    )
+    add_geometry_arg(p)
+    add_quant_args(p)
+    add_runtime_args(p)
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    if args.tiles:
+        raise not_ported("--tiles", 15, "the tiled .r3tt stream")
+    if args.target_bpp is not None:
+        raise not_ported("--target-bpp", 14, "rate control")
+    if args.code_geometry:
+        raise not_ported("--code-geometry", 12, "the geometry coder")
+    if args.entropy != "rlgr":
+        raise not_ported(f"--entropy {args.entropy}", 12, "the RAC coder")
+    if args.predict:
+        raise not_ported("--predict", 13, "predicted RAHT")
+    if args.render != "none":
+        raise not_ported(f"--render {args.render}", 16, "the render comparison")
+    device = resolve_device(args.platform)
+    with maybe_profile(args, device):
+        return _run(args, device)
+
+
+def per_attribute_scales():
+    """Step multipliers of ``--per-attribute``: importance ~ 1/ablation-PSNR,
+    multiplier = min importance / the group's, in (0, 1]."""
+    from raht3dgs_tpu_torch.ops.quantize import GS_ABLATION_PSNR_DB
+
+    imp = {k: 1.0 / v for k, v in GS_ABLATION_PSNR_DB.items()}
+    imp_min = min(imp.values())
+    return {k: imp_min / imp[k] for k in imp}
+
+
+def _run(args, device) -> int:
+    from raht3dgs_tpu_torch.io.ply import read_compressed_3dgs_ply
+    from raht3dgs_tpu_torch.models.gs_codec import CSV_HEADER, encode_gs_frame
+    from raht3dgs_tpu_torch.models.pipeline import AttributeCodec
+
+    V_int, attrs, voxel_size, vmin = read_compressed_3dgs_ply(args.input)
+    print(f"loaded {len(V_int)} voxels, {attrs.shape[1]} channels "
+          f"(voxel_size={voxel_size}, vmin={vmin})")
+    group_scales = None
+    if args.per_attribute:
+        group_scales = per_attribute_scales()
+        print("per-attribute step multipliers:", group_scales)
+
+    dtype = torch_dtype(args.dtype)
+    codec = AttributeCodec(args.depth, dtype=dtype, chunk=args.entropy_chunk,
+                           device=device, **quant_kwargs(args))
+    points = encode_gs_frame(
+        V_int, attrs, depth=args.depth, steps=args.steps,
+        group_step_scales=group_scales, bucket=args.bucket, dtype=dtype,
+        keep_streams=bool(args.save_streams), codec=codec,
+        vmin=vmin, width=float(voxel_size) * (1 << args.depth),
+    )
+    log = CsvLogger(args.csv or "results/runtime_3dgs.csv", CSV_HEADER)
+    for pt in points:
+        log.row(pt.csv_row())
+        print(
+            f"step {pt.step:g}: {pt.bpp:.4f} bpp | PSNR all "
+            f"{pt.psnr['psnr_all']:.2f} dB (quats {pt.psnr['psnr_quats']:.2f}, "
+            f"scales {pt.psnr['psnr_scales']:.2f}, opacity "
+            f"{pt.psnr['psnr_opacity']:.2f}, colors {pt.psnr['psnr_colors']:.2f})"
+        )
+        if args.save_streams and pt.encoded is not None:
+            out = Path(args.save_streams)
+            out.mkdir(parents=True, exist_ok=True)
+            (out / f"gs_step{pt.step:g}.r3tc").write_bytes(pt.encoded.stream.to_bytes())
+    log.close()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,15 +1,15 @@
 """Typed configuration shared by the library and the CLIs.
 
-Counterpart of ``raht3dgs_tpu/config.py`` for the colour codec: the
-reference codec's tuning constants as dataclass defaults. The JAX compile
-cache field has no counterpart; the 3DGS dataclasses come with the 3DGS
-slice (ROADMAP queue A, item 11).
+Counterpart of ``raht3dgs_tpu/config.py``: the reference codec's tuning
+constants as dataclass defaults, for the colour and the 3DGS workloads.
+The JAX compile cache field has no counterpart; the rendering config comes
+with the renderer (ROADMAP queue A, item 16).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 
 @dataclass
@@ -29,3 +29,23 @@ class ColorCodecConfig:
     steps: Tuple[float, ...] = (1, 2, 4, 6, 8, 12, 16, 20, 24, 32, 64)
     decode: bool = True                     # full decode vs coeff-domain PSNR
     order_mode: str = "ragft"               # "ragft" | "weight_desc" | "morton"
+
+
+@dataclass
+class GsCodecConfig:
+    """encode_3dgs workload (the reference's encode_3dgs constants)."""
+
+    depth: int = 10
+    steps: Tuple[float, ...] = (1, 4, 8, 12, 16, 20, 24, 32, 64)
+    per_attribute: bool = False
+    level_budget: int = 1024
+    group_step_scales: Optional[Dict[str, float]] = None
+
+
+@dataclass
+class VoxelizeConfig:
+    """3DGS N -> Nvox preprocessing (voxelize_3dgs)."""
+
+    depth: int = 10
+    weight_by_opacity: bool = True
+    output_dir: Optional[str] = "output_compressed"

@@ -46,6 +46,17 @@
 // timing-dependent order this association rules out, or a cooperative
 // grid barrier). The pack's [hi | lo] rows are staged whole, half a tile
 // at a time, and stored as one contiguous run.
+//
+// Wider rows (the 3DGS transform's (N, 57) pack, the Gaussian merge's
+// (N, 60) segment sums) take the wide path: the same two passes on a grid
+// of tiles by column blocks of 8, each block reading its column slice with
+// the stride of the whole row and writing its own columns of the output or
+// pack. A whole 57-column tile would need 481 KB of shared memory, over
+// the 227 KB a Hopper block may have; a column block stages 67.6 KB. At
+// (487 180, 57) the bound is 333 MB of traffic, ~0.1 ms at 3.35 TB/s. What
+// the wide path leaves: element loads and stores (a 228-byte row is not
+// 16-byte aligned), one block per SM, and each column block re-reading the
+// 32-byte sectors its neighbours share.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -287,19 +298,20 @@ __device__ __forceinline__ void block_scan(float (&hi)[K], float (&lo)[K],
 }
 
 // Loads the block's tile (hi, and lo for a ds-pair input) into registers
-// through the staged buffer, and reduces each thread's rows.
-template <int K, bool kPair>
+// through the staged buffer s, and reduces each thread's rows. stage(p)
+// stages the block's tile of input p into s.
+template <int K, bool kPair, class Stage>
 __device__ __forceinline__ void load_tile(
-    const float* __restrict__ in_hi, const float* __restrict__ in_lo,
-    bool row_major, long long cs, long long row0, int R, float* s,
+    Stage stage, const float* __restrict__ in_hi,
+    const float* __restrict__ in_lo, bool row_major, float* s,
     float (&xh)[kItems][K], float (&xl)[kItems][K], float (&hi)[K],
     float (&lo)[K]) {
-  stage_in<K>(in_hi, row_major, cs, row0, R, s);
+  stage(in_hi);
   __syncthreads();
   read_rows<K>(s, row_major, xh);
   if (kPair) {
     __syncthreads();
-    stage_in<K>(in_lo, row_major, cs, row0, R, s);
+    stage(in_lo);
     __syncthreads();
     read_rows<K>(s, row_major, xl);
   } else {
@@ -319,18 +331,91 @@ __device__ __forceinline__ void load_tile(
     for (int k = 0; k < K; ++k) ds_add(hi[k], lo[k], xh[j][k], xl[j][k]);
 }
 
+// The carry in front of tile b, per column: the inclusive prefix of the
+// tiles before it. carry: kCarryTotals: carry_hi/lo are the (T, stride)
+// tile totals and block b combines rows [0, b), in the same fixed order in
+// every block (thread t adds totals t*8..t*8+7, then a block scan of the
+// thread sums); kCarryScanned: their inclusive scan, block b takes row
+// b - 1; kCarryNone: a single tile. Block columns k read column col0 + k of
+// the totals, those at or past kv read nothing. Every thread must call it.
+template <int K>
+__device__ __forceinline__ void carry_in(int carry,
+                                         const float* __restrict__ carry_hi,
+                                         const float* __restrict__ carry_lo,
+                                         long long stride, int col0, int kv,
+                                         float (&run_h)[K],
+                                         float (&run_l)[K]) {
+  const int b = blockIdx.x;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    run_h[k] = 0.f;
+    run_l[k] = 0.f;
+  }
+  if (carry == kCarryTotals && b > 0) {
+    float ch[K], cl[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      ch[k] = 0.f;
+      cl[k] = 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      const int t = threadIdx.x * kItems + j;
+      if (t < b) {
+#pragma unroll
+        for (int k = 0; k < K; ++k)
+          if (k < kv)
+            ds_add(ch[k], cl[k], carry_hi[(long long)t * stride + col0 + k],
+                   carry_lo[(long long)t * stride + col0 + k]);
+      }
+    }
+    float eh[K], el[K];
+    block_scan<K>(ch, cl, eh, el, run_h, run_l);
+  } else if (carry == kCarryScanned && b > 0) {
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      if (k < kv) {
+        run_h[k] = carry_hi[((long long)b - 1) * stride + col0 + k];
+        run_l[k] = carry_lo[((long long)b - 1) * stride + col0 + k];
+      }
+  }
+}
+
+// Each thread's rows of the tile, in place: the carry, then the thread's
+// exclusive prefix (ph, pl) in the block, then its 8 rows one by one.
+template <int K>
+__device__ __forceinline__ void scan_rows(float (&run_h)[K], float (&run_l)[K],
+                                          const float (&ph)[K],
+                                          const float (&pl)[K],
+                                          float (&xh)[kItems][K],
+                                          float (&xl)[kItems][K]) {
+#pragma unroll
+  for (int k = 0; k < K; ++k) ds_add(run_h[k], run_l[k], ph[k], pl[k]);
+#pragma unroll
+  for (int j = 0; j < kItems; ++j)
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      ds_add(run_h[k], run_l[k], xh[j][k], xl[j][k]);
+      xh[j][k] = run_h[k];
+      xl[j][k] = run_l[k];
+    }
+}
+
 template <int K, bool kPair>
 __global__ void __launch_bounds__(kThreads)
     ds_tile_total(const float* __restrict__ in_hi,
                   const float* __restrict__ in_lo, long long n, long long cs,
                   float* __restrict__ tot_hi, float* __restrict__ tot_lo) {
   extern __shared__ float s_tile[];
+  const bool row_major = cs == 1;
   const long long row0 = (long long)blockIdx.x * kTile;
   const int R = (int)min((long long)kTile, n - row0);
   float xh[kItems][K], xl[kItems][K], hi[K], lo[K], ph[K], pl[K], th[K],
       tl[K];
-  load_tile<K, kPair>(in_hi, in_lo, cs == 1, cs, row0, R, s_tile, xh, xl, hi,
-                      lo);
+  const auto stage = [&](const float* p) {
+    stage_in<K>(p, row_major, cs, row0, R, s_tile);
+  };
+  load_tile<K, kPair>(stage, in_hi, in_lo, row_major, s_tile, xh, xl, hi, lo);
   block_scan<K>(hi, lo, ph, pl, th, tl);
   if (threadIdx.x == 0) {
 #pragma unroll
@@ -359,57 +444,17 @@ __global__ void __launch_bounds__(kThreads, K <= 4 ? 2 : 1)
   const bool row_major = cs == 1;
   const long long row0 = (long long)blockIdx.x * kTile;
   const int R = (int)min((long long)kTile, n - row0);
+  const int b = blockIdx.x;
   float xh[kItems][K], xl[kItems][K], hi[K], lo[K], ph[K], pl[K], th[K],
       tl[K];
-  load_tile<K, kPair>(in_hi, in_lo, row_major, cs, row0, R, s_tile, xh, xl,
-                      hi, lo);
+  const auto stage = [&](const float* p) {
+    stage_in<K>(p, row_major, cs, row0, R, s_tile);
+  };
+  load_tile<K, kPair>(stage, in_hi, in_lo, row_major, s_tile, xh, xl, hi, lo);
   block_scan<K>(hi, lo, ph, pl, th, tl);
-
   float run_h[K], run_l[K];
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    run_h[k] = 0.f;
-    run_l[k] = 0.f;
-  }
-  const int b = blockIdx.x;
-  if (carry == kCarryTotals && b > 0) {
-    // the same reduction in every block: thread t adds totals t*8..t*8+7
-    // (those before b), then the block combines the thread sums
-    float ch[K], cl[K];
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      ch[k] = 0.f;
-      cl[k] = 0.f;
-    }
-#pragma unroll
-    for (int j = 0; j < kItems; ++j) {
-      const int t = threadIdx.x * kItems + j;
-      if (t < b) {
-#pragma unroll
-        for (int k = 0; k < K; ++k)
-          ds_add(ch[k], cl[k], carry_hi[(long long)t * K + k],
-                 carry_lo[(long long)t * K + k]);
-      }
-    }
-    float eh[K], el[K];
-    block_scan<K>(ch, cl, eh, el, run_h, run_l);
-  } else if (carry == kCarryScanned && b > 0) {
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      run_h[k] = carry_hi[((long long)b - 1) * K + k];
-      run_l[k] = carry_lo[((long long)b - 1) * K + k];
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < K; ++k) ds_add(run_h[k], run_l[k], ph[k], pl[k]);
-#pragma unroll
-  for (int j = 0; j < kItems; ++j)
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      ds_add(run_h[k], run_l[k], xh[j][k], xl[j][k]);
-      xh[j][k] = run_h[k];
-      xl[j][k] = run_l[k];
-    }
+  carry_in<K>(carry, carry_hi, carry_lo, K, 0, K, run_h, run_l);
+  scan_rows<K>(run_h, run_l, ph, pl, xh, xl);
 
   // every thread read its rows before block_scan's barriers, so the staged
   // buffer is free for the outputs
@@ -445,6 +490,128 @@ __global__ void __launch_bounds__(kThreads, K <= 4 ? 2 : 1)
   write_rows<K>(s_tile, row_major, xl);
   __syncthreads();
   stage_out<K>(s_tile, row_major, cs, out + n * K, row0, R);
+}
+
+// -- The wide path: more than 8 columns, in column blocks ---------------------
+//
+// Block (b, y) takes rows [b * kTile, ...) of the columns [c0, c0 + kv),
+// c0 = y * kWide, kv <= kWide (the last block is masked). It reads its
+// column slice with the stride of the whole matrix and writes hi and lo to
+// their own columns of the output, so the pack [0; hi | lo] of any width is
+// written in place. Per column the adds are those of the path above, in the
+// same order (load_tile, block_scan, carry_in, scan_rows): a column of a
+// wide pack equals the same column scanned alone, bit for bit.
+constexpr int kWide = 8;
+
+// Staged position q of the column block holds element (r, c) in the order
+// of staged<kWide> (row-major for the row layout, so neighbouring threads
+// touch neighbouring columns of one row; a wide row is seldom 16-byte
+// aligned, so these are element loads). Element (r, c) lies at
+// x[r * rs + c * cs], x at the block's first row and column. Rows past R
+// and columns past kv stage as 0.
+__device__ __forceinline__ void wide_stage_in(const float* __restrict__ x,
+                                              bool row_major, long long rs,
+                                              long long cs, int R, int kv,
+                                              float* s) {
+  constexpr int kPer = kWide * kTile / kThreads;
+#pragma unroll 8
+  for (int j = 0; j < kPer; ++j) {
+    const int q = threadIdx.x + j * kThreads;
+    const int r = row_major ? q / kWide : q % kTile;
+    const int c = row_major ? q % kWide : q / kTile;
+    s[pad(q)] = r < R && c < kv ? __ldg(x + r * rs + c * cs) : 0.f;
+  }
+}
+
+// wide_stage_in's mirror: the staged column block to o[r * ors + c * ocs].
+__device__ __forceinline__ void wide_stage_out(const float* s, bool row_major,
+                                               float* __restrict__ o,
+                                               long long ors, long long ocs,
+                                               int R, int kv) {
+  constexpr int kPer = kWide * kTile / kThreads;
+#pragma unroll 8
+  for (int j = 0; j < kPer; ++j) {
+    const int q = threadIdx.x + j * kThreads;
+    const int r = row_major ? q / kWide : q % kTile;
+    const int c = row_major ? q % kWide : q / kTile;
+    if (r < R && c < kv) o[r * ors + c * ocs] = s[pad(q)];
+  }
+}
+
+template <bool kPair>
+__global__ void __launch_bounds__(kThreads, 1)
+    ds_wide_total(const float* __restrict__ in_hi,
+                  const float* __restrict__ in_lo, long long n, int ncol,
+                  long long rs, long long cs, float* __restrict__ tot_hi,
+                  float* __restrict__ tot_lo) {
+  extern __shared__ float s_tile[];
+  const bool row_major = cs == 1;
+  const long long row0 = (long long)blockIdx.x * kTile;
+  const int R = (int)min((long long)kTile, n - row0);
+  const int c0 = blockIdx.y * kWide;
+  const int kv = min(kWide, ncol - c0);
+  const long long off = row0 * rs + c0 * cs;
+  float xh[kItems][kWide], xl[kItems][kWide], hi[kWide], lo[kWide],
+      ph[kWide], pl[kWide], th[kWide], tl[kWide];
+  const auto stage = [&](const float* p) {
+    wide_stage_in(p + off, row_major, rs, cs, R, kv, s_tile);
+  };
+  load_tile<kWide, kPair>(stage, in_hi, in_lo, row_major, s_tile, xh, xl, hi,
+                          lo);
+  block_scan<kWide>(hi, lo, ph, pl, th, tl);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int k = 0; k < kWide; ++k)
+      if (k < kv) {
+        tot_hi[(long long)blockIdx.x * ncol + c0 + k] = th[k];
+        tot_lo[(long long)blockIdx.x * ncol + c0 + k] = tl[k];
+      }
+  }
+}
+
+// carry as in ds_tile_scan, over (T, ncol) totals. out_hi / out_lo: row 0,
+// column 0 of hi and lo, strides (ors, ocs); zero_row, unless null, gets
+// the pack's zero row (its 2 * ncol floats).
+template <bool kPair>
+__global__ void __launch_bounds__(kThreads, 1)
+    ds_wide_scan(const float* __restrict__ in_hi,
+                 const float* __restrict__ in_lo, long long n, int ncol,
+                 long long rs, long long cs, const float* __restrict__ carry_hi,
+                 const float* __restrict__ carry_lo, int carry,
+                 float* __restrict__ out_hi, float* __restrict__ out_lo,
+                 long long ors, long long ocs, float* __restrict__ zero_row) {
+  extern __shared__ float s_tile[];
+  const bool row_major = cs == 1;
+  const long long row0 = (long long)blockIdx.x * kTile;
+  const int R = (int)min((long long)kTile, n - row0);
+  const int c0 = blockIdx.y * kWide;
+  const int kv = min(kWide, ncol - c0);
+  const long long off = row0 * rs + c0 * cs;
+  float xh[kItems][kWide], xl[kItems][kWide], hi[kWide], lo[kWide],
+      ph[kWide], pl[kWide], th[kWide], tl[kWide];
+  const auto stage = [&](const float* p) {
+    wide_stage_in(p + off, row_major, rs, cs, R, kv, s_tile);
+  };
+  load_tile<kWide, kPair>(stage, in_hi, in_lo, row_major, s_tile, xh, xl, hi,
+                          lo);
+  block_scan<kWide>(hi, lo, ph, pl, th, tl);
+  float run_h[kWide], run_l[kWide];
+  carry_in<kWide>(carry, carry_hi, carry_lo, ncol, c0, kv, run_h, run_l);
+  scan_rows<kWide>(run_h, run_l, ph, pl, xh, xl);
+
+  if (zero_row != nullptr && blockIdx.x == 0 && threadIdx.x < kv) {
+    zero_row[c0 + threadIdx.x] = 0.f;
+    zero_row[ncol + c0 + threadIdx.x] = 0.f;
+  }
+  // the staged buffer is free (see ds_tile_scan): hi, then lo through it
+  const long long o = row0 * ors + c0 * ocs;
+  write_rows<kWide>(s_tile, row_major, xh);
+  __syncthreads();
+  wide_stage_out(s_tile, row_major, out_hi + o, ors, ocs, R, kv);
+  __syncthreads();
+  write_rows<kWide>(s_tile, row_major, xl);
+  __syncthreads();
+  wide_stage_out(s_tile, row_major, out_lo + o, ors, ocs, R, kv);
 }
 
 template <int K, bool kPair>
@@ -502,27 +669,90 @@ void scan_level(const float* in_hi, const float* in_lo, long long n,
       in_hi, in_lo, n, cs, inc, inc + t * K, kCarryScanned, out, pack);
 }
 
+template <bool kPair>
+size_t wide_stage_bytes() {
+  const size_t bytes = sizeof(float) * stage_floats(kWide);  // 67.6 KB
+  static bool raised = false;
+  if (!raised) {
+    cudaFuncSetAttribute(ds_wide_total<kPair>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)bytes);
+    cudaFuncSetAttribute(ds_wide_scan<kPair>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)bytes);
+    raised = true;
+  }
+  return bytes;
+}
+
+// scan_level for ncol > kWide columns, on a grid of (tiles, column blocks).
+// Input element (r, c) at in[r * rs + c * cs]; output hi (r, c) at
+// out_hi[r * ors + c * ocs], lo likewise from out_lo. Scratch as in
+// scan_level, with ncol columns to a totals row.
+template <bool kPair>
+void wide_level(const float* in_hi, const float* in_lo, long long n, int ncol,
+                long long rs, long long cs, float* out_hi, float* out_lo,
+                long long ors, long long ocs, float* zero_row, float* scratch,
+                cudaStream_t st) {
+  const size_t smem = wide_stage_bytes<kPair>();
+  const long long t = (n + kTile - 1) / kTile;
+  const dim3 grid((unsigned)t, (unsigned)((ncol + kWide - 1) / kWide));
+  if (t <= 1) {
+    ds_wide_scan<kPair><<<grid, kThreads, smem, st>>>(
+        in_hi, in_lo, n, ncol, rs, cs, nullptr, nullptr, kCarryNone, out_hi,
+        out_lo, ors, ocs, zero_row);
+    return;
+  }
+  float* tot_hi = scratch;
+  float* tot_lo = tot_hi + t * ncol;
+  ds_wide_total<kPair><<<grid, kThreads, smem, st>>>(in_hi, in_lo, n, ncol,
+                                                      rs, cs, tot_hi, tot_lo);
+  if (t <= kMaxCarryTiles) {
+    ds_wide_scan<kPair><<<grid, kThreads, smem, st>>>(
+        in_hi, in_lo, n, ncol, rs, cs, tot_hi, tot_lo, kCarryTotals, out_hi,
+        out_lo, ors, ocs, zero_row);
+    return;
+  }
+  float* inc = tot_lo + t * ncol;
+  wide_level<true>(tot_hi, tot_lo, t, ncol, ncol, 1, inc, inc + t * ncol,
+                   ncol, 1, nullptr, inc + 2 * t * ncol, st);
+  ds_wide_scan<kPair><<<grid, kThreads, smem, st>>>(
+      in_hi, in_lo, n, ncol, rs, cs, inc, inc + t * ncol, kCarryScanned,
+      out_hi, out_lo, ors, ocs, zero_row);
+}
+
 }  // namespace
 
 extern "C" {
 
-// Inclusive compensated prefix sums along the rows of x (n rows, 1 <= k <= 8
+// Inclusive compensated prefix sums along the rows of x (n rows, k >= 1
 // columns, element (r, c) at x[r * rs + c * cs]: the row layout rs == k,
 // cs == 1 or the column layout rs == 1, cs == n). Without pack, out gets hi
 // in x's layout and lo n * k floats after it; with pack (row layout only),
-// the (n + 1, 2k) matrix of a zero row, then rows [hi | lo]. scratch holds
-// scratch_floats floats. Launches on `stream`, does not synchronise, and
-// returns cudaGetLastError() after the launches, or without launching -1
-// for an unsupported k, -2 for an unsupported layout, -3 for too little
-// scratch.
+// the (n + 1, 2k) matrix of a zero row, then rows [hi | lo]. Up to 8
+// columns one block takes all of a tile's columns; more go through the
+// wide path's column blocks. scratch holds scratch_floats floats. Launches
+// on `stream`, does not synchronise, and returns cudaGetLastError() after
+// the launches, or without launching -1 for k < 1, -2 for an unsupported
+// layout, -3 for too little scratch.
 int ds_cumsum_f32(const float* x, long long n, int k, long long rs,
                   long long cs, int pack, float* out, float* scratch,
                   long long scratch_floats, void* stream) {
-  if (k < 1 || k > 8) return -1;
+  if (k < 1) return -1;
   const bool row = rs == k && cs == 1;
   if (!(row || (rs == 1 && cs == n)) || (pack && !row)) return -2;
   if (scratch_floats < scratch_need(n, k)) return -3;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (k > kWide) {
+    // hi keeps x's strides; the pack's hi starts at row 1, its lo k after
+    if (pack)
+      wide_level<false>(x, nullptr, n, k, rs, cs, out + 2 * k, out + 3 * k,
+                        2 * k, 1, out, scratch, st);
+    else
+      wide_level<false>(x, nullptr, n, k, rs, cs, out, out + n * k, rs, cs,
+                        nullptr, scratch, st);
+    return static_cast<int>(cudaGetLastError());
+  }
 #define DS_SCAN_CASE(K)                                                  \
   case K:                                                                \
     scan_level<K, false>(x, nullptr, n, cs, out, pack != 0, scratch, st); \

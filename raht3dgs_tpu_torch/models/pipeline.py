@@ -368,6 +368,7 @@ class AttributeCodec:
         self.quant_f = float(quant_f)
         self.rec_delta = float(rec_delta)
         self.entropy = entropy
+        self.predict = bool(predict)
 
     def _on_device(self, x) -> torch.Tensor:
         t = torch.as_tensor(x)

@@ -8,6 +8,9 @@ ctypes on PyTorch's current stream. The wrappers take the plain version
 only for a tensor that lies on the CPU; for a CUDA tensor they launch the
 kernel or raise. :func:`ds_prefix_pack` gives the codec's prefix pack (a
 zero row, then ``[hi | lo]``), which on the card the kernel writes itself.
+Both take any number of columns K in one call: up to 8 columns a block
+scans a whole tile, wider rows go in column blocks of 8 (the wide path of
+``csrc/ds_scan.cu``), with the same adds per column.
 
 Both the kernel and :func:`ds_cumsum_reference` keep ~48 mantissa bits
 (error-free two-sum) and give exact results for integer-valued lanes whose
@@ -24,8 +27,6 @@ from typing import Tuple
 import torch
 
 from raht3dgs_tpu_torch.codec._native import NativeLib, nvcc_command
-
-MAX_K = 8  # widest row the kernel takes (the switch in ds_cumsum_f32)
 
 _SRC = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -147,8 +148,8 @@ def _launch(x: torch.Tensor, n: int, k: int, rs: int, cs: int, entry: str,
     Returns ``(hi, lo)`` in ``x``'s layout, or with ``pack`` the
     ``(n+1, 2k)`` matrix ``[0; hi | lo]`` written by the kernel itself. One
     allocation holds the outputs and the kernel's scratch."""
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"ds scan kernel takes 1..{MAX_K} columns, got {k}")
+    if k < 1:
+        raise ValueError(f"ds scan kernel takes at least one column, got {k}")
     if not x.is_contiguous():
         raise ValueError("ds scan kernel takes a contiguous tensor")
     if x.device.type != "cuda":

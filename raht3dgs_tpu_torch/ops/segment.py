@@ -27,7 +27,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from raht3dgs_tpu_torch.ops.ds_scan import MAX_K, ds_cumsum, ds_prefix_pack
+from raht3dgs_tpu_torch.ops.ds_scan import ds_prefix_pack
 from raht3dgs_tpu_torch.ops.raht_span import _two_sum
 from raht3dgs_tpu_torch.utils.device import DeviceLike, device_of
 
@@ -87,7 +87,7 @@ def sorted_segment_sums(
     starts, n_seg = segment_starts(first)
     use_ds = values.dtype == torch.float32
     if use_ds:
-        prefix = _ds_prefix(values)                       # (N+1, 2K) [hi | lo]
+        prefix = ds_prefix_pack(values.contiguous())      # (N+1, 2K) [hi | lo]
         acc_dt, pk = torch.float32, 2 * K
     else:
         P = torch.cumsum(values.to(torch.float64), dim=0)
@@ -117,20 +117,6 @@ def sorted_segment_sums(
     else:
         extra = _pad_row(extra_rows)[starts_c]
     return sums, extra, starts, n_seg
-
-
-def _ds_prefix(values: torch.Tensor) -> torch.Tensor:
-    """The (N+1, 2K) ``[0; hi | lo]`` pack of ``values`` f32. The kernel
-    takes at most ``MAX_K`` columns; columns scan independently (bitwise:
-    a column alone == the same column in a pack), so wider inputs go in
-    column blocks."""
-    values = values.contiguous()
-    K = values.shape[1]
-    if K <= MAX_K:
-        return ds_prefix_pack(values)
-    parts = [ds_cumsum(values[:, i:i + MAX_K].contiguous()) for i in range(0, K, MAX_K)]
-    P = torch.cat([h for h, _ in parts] + [lo for _, lo in parts], dim=1)
-    return torch.cat([P.new_zeros((1, 2 * K)), P])
 
 
 def _sorted_segment_sums_shift(values, first, extra_rows=None):

@@ -97,3 +97,60 @@ def raw_surface_cloud(n: int, seed: int = 0):
     phase = np.array([0.0, 2.1, 4.2])
     rgb = np.round(127.5 * (1.0 + np.sin(6.0 * np.pi * pts[:, [0]] + 4.0 * d + phase)))
     return pts, np.clip(rgb, 0, 255)
+
+
+# A seeded 3DGS scene on the raw J10 cloud's surface. At 2 000 000
+# Gaussians and seed 0 its means are that cloud's points, so at J=10 they
+# voxelize to the same 487 180 voxels.
+SH_C0 = 0.28209479177387814  # degree-0 spherical harmonic
+
+
+def gaussian_scene(n: int, seed: int = 0):
+    """``n`` Gaussians as a gsplat checkpoint loads them (float64 numpy):
+    means on :func:`raw_surface_cloud`'s shells, unit quaternions, scales
+    ``exp(N(-6, 0.3))``, opacities in (0.05, 1) and 48 SH colour channels
+    (the DC term from the cloud's RGB, ``(rgb / 255 - 0.5) / SH_C0``, then
+    45 small higher-order terms). Returns a dict of means (n, 3), quats
+    (n, 4), scales (n, 3), opacities (n,) and colors (n, 48)."""
+    pts, rgb = raw_surface_cloud(n, seed)
+    rng = np.random.default_rng([seed, 1])
+    quats = rng.normal(size=(n, 4))
+    quats /= np.linalg.norm(quats, axis=1, keepdims=True)
+    scales = np.exp(rng.normal(-6.0, 0.3, size=(n, 3)))
+    opacities = rng.uniform(0.05, 1.0, size=n)
+    dc = (rgb / 255.0 - 0.5) / SH_C0
+    colors = np.concatenate([dc, rng.normal(scale=0.02, size=(n, 45))], axis=1)
+    return {"means": pts.astype(np.float64), "quats": quats, "scales": scales,
+            "opacities": opacities, "colors": colors}
+
+
+# The 3DGS golden fixture: the 371 occupied J=5 cells of a 1 500-Gaussian
+# scene, one voxel each with the 56-channel payload [quats, scales, opacity,
+# colors] of its first Gaussian, every value rounded to a multiple of 2^-10.
+# Each prefix sum of the transform is then exact in float64 (and in the
+# float32 scan), so the stream does not depend on the summation order and
+# the card must give the CPU's bytes. Hashes of the port's
+# ``AttributeCodec(GS_GOLDEN_DEPTH).encode(frame, GS_GOLDEN_STEP)`` stream.
+GS_GOLDEN_DEPTH = 5
+GS_GOLDEN_BUCKET = 1024
+GS_GOLDEN_STEP = 0.05
+GS_GOLDEN_SHA256 = {
+    "float64": "60666bbeb5d0a4f44f4179ab635d0bd6eb9e91340566f08d703268e8251a40ef",
+    "float32": "27e9e92b44d599aef7ee62fab66a2b6546475ea79180c71cafa0d264269db341",
+}
+
+
+def gs_golden_fixture():
+    """``(integer voxel positions (n, 3), payload (n, 56))`` of the 3DGS
+    golden fixture, Morton-sorted."""
+    scene = gaussian_scene(1500, seed=5)
+    m = scene["means"]
+    vmin = m.min(axis=0)
+    width = float((m - vmin).max())
+    lim = (1 << GS_GOLDEN_DEPTH) - 1
+    V = np.clip(np.floor((m - vmin) / (width / (1 << GS_GOLDEN_DEPTH))), 0, lim)
+    codes = morton_codes_np(V.astype(np.int64), GS_GOLDEN_DEPTH)
+    _, first = np.unique(codes, return_index=True)  # sorted by code
+    attrs = np.concatenate([scene["quats"], scene["scales"],
+                            scene["opacities"][:, None], scene["colors"]], axis=1)
+    return V[first].astype(np.int64), np.round(attrs[first] * 1024.0) / 1024.0

@@ -3,6 +3,7 @@
 
     python3 scripts/profile_torch_port.py [--depth 10] [--n 500000] [--seed 0]
     python3 scripts/profile_torch_port.py --scan [--reps 5] [--against ROOT]
+    python3 scripts/profile_torch_port.py --gs 2000000 [--depth 10] [--seed 0]
 
 Same frame as ``chip_smoke.py`` phase 3 (unique voxels, D=3, bucket 2^19,
 float32, step 16). After a warm-up frame, one encode + decode runs under
@@ -23,6 +24,15 @@ commit, unpacked with ``git archive``) beside this one and times, in
 turns in one process, every entry point that both have, so that the
 host's own drift between processes does not enter the comparison.
 Timing helpers are ``chip_smoke.py``'s.
+
+``--gs N`` splits the wall time of the 3DGS sweep CLI: a seeded scene of
+N Gaussians (``utils/synth.py:gaussian_scene``) is voxelized and merged
+into a compressed PLY in a temporary directory, then ``cli.encode_3dgs``
+(float32, bucket 2^19, the reference's 9 steps, streams saved) runs three
+times: a warm-up, one under ``cProfile`` (host functions by own and
+cumulative time; the profiler's cost per Python call inflates
+Python-heavy functions) and one under ``torch.profiler`` (the device's
+busy share of the wall and kernel time by name).
 """
 
 from __future__ import annotations
@@ -122,6 +132,61 @@ def scan_times(torch, modules: dict, reps: int) -> dict:
     return out
 
 
+def gs_profile(torch, args) -> dict:
+    """``--gs``: where the wall time of ``cli.encode_3dgs`` goes."""
+    import cProfile
+    import pstats
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from raht3dgs_tpu_torch.cli import encode_3dgs
+    from raht3dgs_tpu_torch.models.gs_voxelize import compress_to_nvox
+    from raht3dgs_tpu_torch.ops.ds_scan import KERNEL
+    from raht3dgs_tpu_torch.utils.synth import gaussian_scene
+
+    KERNEL.load()  # the nvcc build, before any timed run
+    with tempfile.TemporaryDirectory() as tmp:
+        res = compress_to_nvox(gaussian_scene(args.gs, args.seed), depth=args.depth,
+                               output_dir=tmp)
+        argv = ["--input", os.path.join(tmp, "compressed_Nvox_gaussians.ply"),
+                "--depth", str(args.depth), "--dtype", "float32", "--bucket", str(1 << 19),
+                "--csv", os.path.join(tmp, "gs.csv"),
+                "--save-streams", os.path.join(tmp, "streams")]
+
+        def run() -> float:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            encode_3dgs.main(argv)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+
+        warm_s = run()
+        pr = cProfile.Profile()
+        pr.enable()
+        cprofile_s = run()
+        pr.disable()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch_profile_s = run()
+    funcs = [(f"{os.path.basename(fn)}:{ln}:{name}", tt, ct)
+             for (fn, ln, name), (_, _, tt, ct, _) in pstats.Stats(pr).stats.items()]
+    dev_events = _device_events(torch, prof)
+    busy_s = _busy_us(dev_events) / 1e6
+    by_name = {}
+    for e in dev_events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    return {
+        "gaussians": args.gs, "voxels": res.n_voxels, "warm_s": warm_s,
+        "cprofile_s": cprofile_s, "torch_profile_s": torch_profile_s,
+        "device_busy_ms": busy_s * 1e3, "device_busy_share": busy_s / torch_profile_s,
+        "top_own_s": [[n, tt] for n, tt, _ in sorted(funcs, key=lambda f: -f[1])[:args.top]],
+        "top_cumulative_s": [[n, ct] for n, _, ct in
+                             sorted(funcs, key=lambda f: -f[2])[:args.top]],
+        "top_kernels_ms": [[n[:90], ms] for n, ms in
+                           sorted(by_name.items(), key=lambda kv: -kv[1])[:args.top]],
+    }
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--depth", type=int, default=10)
@@ -131,6 +196,8 @@ def main() -> int:
     ap.add_argument("--scan", action="store_true",
                     help="time the scan kernel's entry points alone")
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--gs", type=int, metavar="N",
+                    help="split the wall time of the 3DGS sweep CLI on N Gaussians")
     ap.add_argument("--against", metavar="ROOT",
                     help="with --scan: also time the scan of the checkout at "
                          "ROOT, in turns with this one, in the same process")
@@ -152,6 +219,9 @@ def main() -> int:
         if args.against:
             modules["against"] = load_scan_module(args.against)
         print(json.dumps({"card": card, "scan": scan_times(torch, modules, args.reps)}))
+        return 0
+    if args.gs:
+        print(json.dumps({"card": card, "gs": gs_profile(torch, args)}))
         return 0
     from raht3dgs_tpu_torch.codec.bitstream import FrameStream
     from raht3dgs_tpu_torch.models import pipeline as tp

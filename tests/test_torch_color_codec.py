@@ -290,7 +290,7 @@ def test_cli_encode_ply_subprocess(tmp_path):
     (tdec, ["--all-frames"], 15),
     (tdec, ["--frame-index", "2"], 15),
     (tdec, ["--geometry-lod", "2"], 12),
-    (tdec, ["--color-space", "3dgs"], 11),
+    (tdec, ["--color-space", "3dgs", "--lod", "2"], 15),
     (tdec, ["--no-positions"], 12),
 ])
 def test_cli_unported_options_exit_naming_their_item(tmp_path, cli, extra, item):

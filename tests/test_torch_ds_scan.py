@@ -144,7 +144,7 @@ def _recount_scratch(n, k):
         n = tiles
 
 
-@pytest.mark.parametrize("k", [1, 4, 8])
+@pytest.mark.parametrize("k", [1, 4, 8, 57, 60])
 @pytest.mark.parametrize("n", [0, 1, 2047, 2048, 2049, 1 << 19, 2048 * 2048,
                                2048 * 2048 + 1, (1 << 23) + 3, 2048 ** 3 + 5])
 def test_scratch_floats_matches_recount(n, k):
@@ -155,6 +155,9 @@ def test_scratch_floats_known_sizes():
     assert scratch_floats(1 << 19, 4) == 2 * 256 * 4     # the forward's pack
     assert scratch_floats(2048, 1) == 0                  # one tile, one launch
     assert scratch_floats((1 << 23) + 3, 1) == 4 * 4097 + 2 * 3
+    # the wide path counts a totals row of all K columns
+    assert scratch_floats(487_180, 57) == 2 * 238 * 57   # the 3DGS transform's pack
+    assert scratch_floats(2_000_000, 60) == 2 * 977 * 60  # the Gaussian merge's prefix
 
 
 @pytest.mark.parametrize("n,k", [(1, 1), (7, 1), (300, 4), (2049, 3), (5000, 4)])
@@ -193,8 +196,14 @@ def test_wrapper_checks_pack_and_launch_arguments():
         ds_prefix_pack(torch.zeros(4, 2, dtype=torch.float64))
     with pytest.raises(ValueError):
         ds_prefix_pack(torch.zeros(4))
-    with pytest.raises(ValueError, match="columns"):
-        ds_scan._launch(torch.zeros(4, 9), 4, 9, 9, 1, "ds_cumsum", pack=True)
+    # any K >= 1 goes to the kernel: a wide row is refused only for what
+    # any row is refused for
+    with pytest.raises(ValueError, match="column"):
+        ds_scan._launch(torch.zeros(4, 0), 4, 0, 0, 1, "ds_cumsum", pack=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        ds_scan._launch(torch.zeros(4, 57), 4, 57, 57, 1, "ds_cumsum", pack=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        ds_scan._launch(torch.zeros(4, 120)[:, :57], 4, 57, 57, 1, "ds_cumsum")
     with pytest.raises(ValueError, match="contiguous"):
         ds_scan._launch(torch.zeros(4, 6)[:, :2], 4, 2, 2, 1, "ds_cumsum")
     with pytest.raises(ValueError, match="CUDA"):
@@ -223,3 +232,41 @@ def test_cuda_bitwise_invariants_fractional(rng):
     for n in (2049, 1 << 19, (1 << 23) + 3):
         assert lib.ds_cumsum_f32(None, n, 4, 4, 1, 1, None, None,
                                  scratch_floats(n, 4) - 1, None) == -3
+
+
+def test_transform_prefix_pack_at_3dgs_width(rng):
+    # the float32 56-channel transform's fused pack: sqrt(w)-scaled
+    # attributes and the weight lane, K = 57, in one ds_prefix_pack call
+    # (the plain pack on the CPU), equal to the JAX package's Pallas pack
+    from raht3dgs_tpu_torch.ops.raht_span import _prefix_pack
+
+    body = rng.normal(scale=3, size=(3000, 57)).astype(np.float32)
+    body[:, -1] = rng.integers(0, 3, size=3000)
+    P = _prefix_pack(torch.from_numpy(body), True)
+    assert torch.equal(P, ds_scan.ds_prefix_pack_reference(torch.from_numpy(body)))
+    ph, pl = (np.asarray(a) for a in ds_cumsum_pallas(jnp.asarray(body), interpret=True))
+    assert np.array_equal(P[1:, [56, 113]].numpy(), np.stack([ph[:, 56], pl[:, 56]], 1))
+    assert _rel_err(_total(P[1:, :57], P[1:, 57:]), _total(ph, pl)) < 1e-12
+
+
+@pytest.mark.cuda
+def test_cuda_wide_pack_invariants(rng):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from raht3dgs_tpu_torch.ops.raht_span import _prefix_pack
+
+    for n, k in ((70000, 57), (2049, 9), ((1 << 22) + 5, 12)):
+        x = torch.from_numpy(rng.uniform(0, 3, size=(n, k)).astype(np.float32)).cuda()
+        P = _prefix_pack(x, True)
+        assert torch.equal(P, ds_prefix_pack(x))                    # run to run
+        assert P.shape == (n + 1, 2 * k) and not P[0].any()
+        hi, lo = ds_cumsum(x)
+        assert torch.equal(P[1:, :k], hi) and torch.equal(P[1:, k:], lo)
+        for c in (0, 7, 8, k - 1):                                  # K-independent
+            h1, l1 = ds_cumsum(x[:, c:c + 1].contiguous())
+            assert torch.equal(hi[:, c:c + 1], h1) and torch.equal(lo[:, c:c + 1], l1)
+        ht, lt = ds_cumsum_t(x.T.contiguous())                      # layout-independent
+        assert torch.equal(ht.T, hi) and torch.equal(lt.T, lo)
+        ref = torch.cumsum(x.double(), 0)
+        got = hi.double() + lo.double()
+        assert float((got - ref).abs().max()) / float(ref.abs().max()) < 1e-12

@@ -122,11 +122,26 @@ def test_degenerate_runs(rng, method):
         assert not ts[n_seg:].any()
 
 
-def test_wide_f32_prefix_goes_in_column_blocks(rng):
-    # the kernel takes at most MAX_K columns; a wider pack is scanned in
-    # column blocks, bitwise the one-piece scan (columns are independent)
-    x = torch.from_numpy(rng.uniform(0, 5, (3000, ds_scan.MAX_K + 3)).astype(np.float32))
-    assert torch.equal(tseg._ds_prefix(x), ds_scan.ds_prefix_pack_reference(x))
+def test_wide_f32_prefix_goes_in_column_blocks(rng, monkeypatch):
+    # a pack wider than one column block of the kernel (8) is one
+    # ds_prefix_pack call on the whole (N, K) input: the kernel scans it in
+    # column blocks itself, with no copies around the call
+    x = torch.from_numpy(rng.uniform(0, 5, (3000, 11)).astype(np.float32))
+    first = torch.from_numpy(_random_runs(rng, 3000, 9))
+    calls = []
+
+    def pack(v):
+        calls.append(tuple(v.shape))
+        return ds_scan.ds_prefix_pack(v)
+
+    monkeypatch.setattr(tseg, "ds_prefix_pack", pack)
+    sums, _, starts, n_seg = tseg.sorted_segment_sums(x, first, method="prefix")
+    assert calls == [(3000, 11)]
+    P = ds_scan.ds_prefix_pack_reference(x).double()
+    full = P[:, :11] + P[:, 11:]
+    ends = torch.cat([starts[1:].long(), torch.tensor([3000])])[:int(n_seg)]
+    want = full[ends] - full[starts[:int(n_seg)].long()]
+    assert torch.allclose(sums[:int(n_seg)].double(), want, rtol=1e-6, atol=1e-4)
 
 
 def test_segment_starts_matches_jax(rng):
