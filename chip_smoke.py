@@ -62,7 +62,22 @@ Phases, each printed on its own line, any failure exits nonzero:
    ((2^19, 57) as the path gives it, (487 180, 57)) and of the merge, each
    against its plain version and a float64 cumsum, its last column
    bitwise its K=1 scan, the row, transposed and pack entries equal, run
-   to run, then timed; the 3DGS golden fixture's float64 hash.
+   to run, then timed; the 3DGS golden fixture's float64 hash;
+8. the dataset path: eight seeded 8iVFBv2 frames of about 0.8 M voxels
+   at J=10 (``utils/synth.py:dataset_frame``, counts differing by frame)
+   as binary PLYs in a temporary tree, through ``cli.encode_dataset`` with
+   ``--batch 4`` (two batches, each padded to 2^20 rows) and as a frame
+   loop (float32, bucket 2^19, the reference's 11 steps), the scan launches
+   read around each run and held to 13 batched launches a batch (forward,
+   inverse order, one per decoded step) and none of the single entry; the
+   two CSVs' rates equal row by row, PSNR finite and ordered by step; in
+   process, one batch's ``encode_sweep`` bytes against per-frame
+   ``encode`` at every step and its batched decode against per-frame
+   ``decode``, in float64 and float32; the kernel's batched entry at the path's (4, 2^20, 4) pack,
+   at (2, 2^19, 9) and past the one-block carry at (2, 2^22 + 5, 4) and
+   (2, 2^22 + 5, 12), bitwise against the single entry frame by frame and
+   against its plain version (integer lanes bitwise, float lanes 1e-12),
+   then timed beside B single-entry calls.
 
 Needs one CUDA card; imports nothing of JAX or of the JAX package.
 """
@@ -79,10 +94,16 @@ import threading
 import time
 
 REPLACES = {
-    "ds_cumsum": "raht3dgs_tpu/ops/pallas_scan.py:57",    # _scan_kernel
-    "ds_cumsum_t": "raht3dgs_tpu/ops/pallas_scan.py:94",  # _scan_kernel_t
+    "ds_cumsum": "raht3dgs_tpu/ops/pallas_scan.py:57",          # _scan_kernel
+    "ds_cumsum_t": "raht3dgs_tpu/ops/pallas_scan.py:94",        # _scan_kernel_t
+    "ds_cumsum_batched": "raht3dgs_tpu/ops/pallas_scan.py:57",  # _scan_kernel under vmap
 }
-SOURCE = "raht3dgs_tpu_torch/csrc/ds_scan.cu"
+SOURCE = {
+    "ds_cumsum": "raht3dgs_tpu_torch/csrc/ds_scan.cu",
+    "ds_cumsum_t": "raht3dgs_tpu_torch/csrc/ds_scan.cu",
+    "ds_cumsum_batched": "raht3dgs_tpu_torch/csrc/ds_scan.cu",
+}
+SINGLE = ("ds_cumsum", "ds_cumsum_t")   # the single-matrix entry's counts
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 DS_OPS_PER_ELEM = 11        # adds/subtracts of one ds_add per scanned element
@@ -95,6 +116,9 @@ GS_MERGE_TOL = 1e-5        # merged f32 attributes, card against CPU, relative
 GS_SEG_TOL = 1e-5          # (N, 60) prefix segment sums against shift, per column
 NVOX_RANGE = (400_000, 520_000)
 N_VOX = 500_000
+N_FRAMES = 8               # phase 8: dataset frames (8iVFBv2 loot 1000..1007)
+BATCH = 4                  # phase 8: frames per batched call
+NVOX_FRAME_RANGE = (750_000, 850_000)
 DEPTH = 10
 D_ATTR = 3
 BUCKET = 1 << 19
@@ -170,15 +194,15 @@ def device_ms(torch, fn, reps: int = 50, warm: int = 3):
 
 
 def ptxas_summary(log: str) -> dict:
-    """{kernel<K,pair>: [registers, spill bytes]} from nvcc -Xptxas=-v
-    (the wide path's kernels as kernel<pair>)."""
+    """{kernel<K,pair,batch>: [registers, spill bytes]} from nvcc -Xptxas=-v
+    (the wide path's kernels as kernel<pair,batch>)."""
     out, name = {}, None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '\S*?(ds_(?:tile|wide)_[a-z]+)I(?:Li(\d+)E)?"
-                      r"Lb([01])E", ln)
+                      r"Lb([01])ELb([01])E", ln)
         if m:
             k = f"{m.group(2)}," if m.group(2) else ""
-            name = f"{m.group(1)}<{k}{m.group(3)}>"
+            name = f"{m.group(1)}<{k}{m.group(3)},{m.group(4)}>"
             out[name] = [None, 0]
             continue
         m = re.search(r"(\d+) bytes spill stores", ln)
@@ -291,7 +315,7 @@ def phase_kernels(torch, ds):
         bytes_ms = 4.0 * (N * K + out_floats) / HBM_BYTES_PER_S * 1e3
         ops_ms = DS_OPS_PER_ELEM * N * K / F32_OPS_PER_S * 1e3
         row = {
-            "name": name, "route": "cuda", "source": SOURCE,
+            "name": name, "route": "cuda", "source": SOURCE[name],
             "replaces": REPLACES[name], "launches": 0, "max_abs_err": max_abs,
             "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, ops_ms),
@@ -430,10 +454,10 @@ def phase_main(torch, ds):
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         total = sum(launches.values())
         check(total >= 3, f"scan kernel launched {total} times in one encode+decode")
-        for name, cnt in launches.items():
-            check(cnt >= 1, f"{name} not launched on the main path")
+        for name in SINGLE:
+            check(launches[name] >= 1, f"{name} not launched on the main path")
         # one forward pack, two one-column weight scans in the decode
-        check(launches == {"ds_cumsum": 1, "ds_cumsum_t": 2},
+        check(launches == {"ds_cumsum": 1, "ds_cumsum_t": 2, "ds_cumsum_batched": 0},
               f"scan launches in one encode+decode {launches}")
 
         want = frame.attributes[:n].cpu().numpy()
@@ -492,26 +516,6 @@ def phase_golden(torch):
         f32_sha256=out["float32"],
         f32_matches_cpu=out["float32"] == synth.GOLDEN_SHA256["float32"])
     check(f64_ok, "float64 golden stream on the card differs from the CPU hash")
-
-
-def write_binary_ply(path, pts, rgb=None) -> None:
-    """A binary-little-endian PLY: x y z float[, red green blue uchar]."""
-    import numpy as np
-
-    names = [("x", "<f4"), ("y", "<f4"), ("z", "<f4")]
-    if rgb is not None:
-        names += [("red", "u1"), ("green", "u1"), ("blue", "u1")]
-    rec = np.zeros(len(pts), dtype=names)
-    for i, c in enumerate("xyz"):
-        rec[c] = pts[:, i]
-    head = f"ply\nformat binary_little_endian 1.0\nelement vertex {len(pts)}\n"
-    head += "".join(f"property {'float' if t == '<f4' else 'uchar'} {n}\n" for n, t in names)
-    if rgb is not None:
-        for i, c in enumerate(("red", "green", "blue")):
-            rec[c] = rgb[:, i]
-    with open(path, "wb") as f:
-        f.write((head + "end_header\n").encode())
-        rec.tofile(f)
 
 
 def segment_inputs(torch, PC, res):
@@ -593,12 +597,14 @@ def phase_voxelize(torch, ds):
         mean_err = float((means - g.attributes).abs().max())
         check(mean_err <= (0.0 if method == "shift" else 1e-6 * float(c.attributes.abs().max())),
               f"{method}: means off the voxelizer's by {mean_err}")
-        check(launches["ds_cumsum"] == (method == "prefix") and launches["ds_cumsum_t"] == 0,
+        check(launches == {"ds_cumsum": int(method == "prefix"), "ds_cumsum_t": 0,
+                           "ds_cumsum_batched": 0},
               f"{method}: scan launches {launches}")
         ms = cuda_ms(torch, lambda: sorted_segment_sums(*on_card, method=method), reps=5, warm=1)
-        out[method] = {"ms": ms, "scan_launches": launches["ds_cumsum"],
+        out[method] = {"ms": ms, "launches": launches,
                        "peak_mem_gib": peak_gib, "sum_err": sum_err, "mean_err": mean_err}
-        say("segment_sums", method=method, shape=tuple(on_card[0].shape), **out[method])
+        say("segment_sums", method=method, shape=tuple(on_card[0].shape),
+            **{k: json.dumps(v) if isinstance(v, dict) else v for k, v in out[method].items()})
 
     # the prefix method's scan: (N, D+1) sorted colours and the valid lane
     vals = on_card[0]
@@ -646,7 +652,11 @@ def phase_cli(torch, ds):
     from raht3dgs_tpu_torch.models.color_codec import CSV_HEADER
     from raht3dgs_tpu_torch.ops.color import rgb_to_yuv, yuv_to_rgb
     from raht3dgs_tpu_torch.ops.voxelize import voxelize
-    from raht3dgs_tpu_torch.utils.synth import morton_codes_np, raw_surface_cloud
+    from raht3dgs_tpu_torch.utils.synth import (
+        morton_codes_np,
+        raw_surface_cloud,
+        write_binary_ply,
+    )
 
     steps = list(ColorCodecConfig.steps)
     pts, rgb = raw_surface_cloud(N_RAW, seed=0)
@@ -741,10 +751,11 @@ def phase_cli(torch, ds):
         t0 = time.perf_counter()
         save_ply_ascii(os.path.join(tmp, "again.ply"), V2, want)
         write_s = time.perf_counter() - t0
-    for name, cnt in launches.items():
-        check(cnt >= 1, f"{name} not launched on the CLI path")
+    for name in SINGLE:
+        check(launches[name] >= 1, f"{name} not launched on the CLI path")
     # one forward pack; two weight scans per decode (11 in the sweep, 1 in the CLI)
-    check(launches == {"ds_cumsum": 1, "ds_cumsum_t": 2 * (len(steps) + 1)},
+    check(launches == {"ds_cumsum": 1, "ds_cumsum_t": 2 * (len(steps) + 1),
+                       "ds_cumsum_batched": 0},
           f"scan launches on the CLI path {launches}")
     out = {"nvox": nvox, "steps": len(steps), "encode_ply_s": enc_s,
            "sweep_mpts": nvox * len(steps) / enc_s / 1e6, "decode_cli_s": dec_s,
@@ -956,9 +967,10 @@ def phase_gs(torch, ds):
         with open(os.path.join(tmp, "ck.csv")) as f:
             ck_vox = int(list(csv.DictReader(f))[0]["N_vox"])
         check(0 < ck_vox < N_GS_CKPT, f"voxelize_3dgs --ckpt: {ck_vox} voxels")
-    for name, cnt in launches.items():
-        check(cnt >= 1, f"{name} not launched on the 3DGS path")
-    check(launches == {"ds_cumsum": 1, "ds_cumsum_t": 2 * (len(steps) + 1)},
+    for name in SINGLE:
+        check(launches[name] >= 1, f"{name} not launched on the 3DGS path")
+    check(launches == {"ds_cumsum": 1, "ds_cumsum_t": 2 * (len(steps) + 1),
+                       "ds_cumsum_batched": 0},
           f"scan launches on the 3DGS path {launches}")
     out["cli"] = {"nvox": nvox, "steps": len(steps), "voxelize_3dgs_ms": float(vrow["Voxel_time_ms"]),
                   "voxelize_3dgs_s": vox_s, "encode_3dgs_s": enc_s,
@@ -989,7 +1001,8 @@ def phase_gs(torch, ds):
         seg[method] = sorted_segment_sums(vals, first, method=method)
         torch.cuda.synchronize()
         n_scan = dict(ds.LAUNCHES)
-        check(n_scan == {"ds_cumsum": int(method == "prefix"), "ds_cumsum_t": 0},
+        check(n_scan == {"ds_cumsum": int(method == "prefix"), "ds_cumsum_t": 0,
+                         "ds_cumsum_batched": 0},
               f"{method}: scan launches {n_scan}")
         seg[method + "_ms"] = cuda_ms(torch, lambda: sorted_segment_sums(
             vals, first, method=method), reps=5, warm=1)
@@ -1035,6 +1048,212 @@ def phase_gs(torch, ds):
     return out
 
 
+def check_batched_scan(torch, ds, x):
+    """The batched entry on ``x (B, N, K)``: its pack and (hi, lo) against
+    each other, a second run and, frame by frame, the single entry (all
+    bitwise); against its plain version (integer lanes bitwise, float lanes
+    to 1e-12 relative: the two associate differently) and a float64 cumsum.
+    Returns (rel. error against f64, max abs error against the plain
+    version)."""
+    B, N, K = x.shape
+    P = ds.ds_prefix_pack_batched(x)
+    hi, lo = ds.ds_cumsum_batched(x)
+    R = ds.ds_prefix_pack_batched_reference(x)
+    torch.cuda.synchronize()
+    check(P.shape == (B, N + 1, 2 * K) and not bool(P[:, 0].any()),
+          f"{tuple(x.shape)} batched pack: shape or zero rows")
+    got = P[:, 1:, :K].double() + P[:, 1:, K:].double()
+    ref = torch.cumsum(x.double(), 1)
+    rel = float((got - ref).abs().max()) / max(float(ref.abs().max()), 1.0)
+    max_abs = float((got - (R[:, 1:, :K].double() + R[:, 1:, K:].double())).abs().max())
+    check(rel < 1e-12, f"{tuple(x.shape)} batched pack: rel err {rel}")
+    ints = [k for k in range(K) if bool((x[..., k] == x[..., k].round()).all())]
+    for k in ints:
+        check(torch.equal(P[..., k], R[..., k]) and not bool(P[..., K + k].any()),
+              f"{tuple(x.shape)} batched pack: integer lane {k} differs from the plain version")
+    check(torch.equal(P[:, 1:, :K], hi) and torch.equal(P[:, 1:, K:], lo),
+          f"{tuple(x.shape)}: batched pack and batched (hi, lo) differ")
+    check(torch.equal(P, ds.ds_prefix_pack_batched(x)), f"{tuple(x.shape)}: two runs differ")
+    for b in range(B):
+        check(torch.equal(P[b], ds.ds_prefix_pack(x[b])),
+              f"{tuple(x.shape)}: frame {b} differs from the single entry's pack")
+        h1, l1 = ds.ds_cumsum(x[b])
+        check(torch.equal(hi[b], h1) and torch.equal(lo[b], l1),
+              f"{tuple(x.shape)}: frame {b} differs from the single entry's (hi, lo)")
+    say("dataset_scan", shape=tuple(x.shape), rel_err=rel, max_abs_err_vs_plain=max_abs,
+        integer_lanes=ints, frames_equal_single_entry=B)
+    return rel, max_abs
+
+
+def phase_dataset(torch, ds):
+    """Phase 8: the dataset path. Eight seeded 8iVFBv2 frames (about 0.8 M
+    voxels each at J=10) as binary PLYs in a temporary tree, through
+    ``cli.encode_dataset.main`` with ``--batch 4`` (two batches) and then
+    as a frame loop, float32, bucket 2^19, the reference's 11 steps, with
+    the scan launches read around each run; the two CSVs against each
+    other; in process, one batch's ``encode_sweep`` against per-frame
+    ``encode`` and its batched decode against per-frame decode, in float64
+    and float32; the scan
+    kernel's batched entry at the path's (4, 2^20, 4) pack, at (2, 2^19, 9)
+    and past the one-block carry, then timed."""
+    import csv
+    import math
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from raht3dgs_tpu_torch.cli import encode_dataset
+    from raht3dgs_tpu_torch.config import ColorCodecConfig
+    from raht3dgs_tpu_torch.io.datasets import frame_path, get_pointcloud
+    from raht3dgs_tpu_torch.models import pipeline as tp
+    from raht3dgs_tpu_torch.models.batch_codec import BatchAttributeCodec, prepare_frame_batch
+    from raht3dgs_tpu_torch.ops.color import rgb_to_yuv
+    from raht3dgs_tpu_torch.ops.raht import ieee_sqrt
+    from raht3dgs_tpu_torch.utils import synth
+
+    steps = list(ColorCodecConfig.steps)
+    n_batches = -(-N_FRAMES // BATCH)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        nvox = []
+        for f in range(N_FRAMES):
+            V, rgb = synth.dataset_frame(f)
+            path = frame_path("8iVFBv2", "loot", f + 1, tmp)
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            synth.write_binary_ply(path, V.astype(np.float32), rgb.astype(np.uint8),
+                                   width=(1 << DEPTH) - 1)
+            nvox.append(len(V))
+        check(all(NVOX_FRAME_RANGE[0] <= n <= NVOX_FRAME_RANGE[1] for n in nvox)
+              and len(set(nvox)) > 1, f"dataset frames hold {nvox} voxels")
+        say("dataset", frames=N_FRAMES, nvox=json.dumps(nvox),
+            generate_s=time.perf_counter() - t0)
+
+        runs = {}
+        for mode, extra in (("batch", ["--batch", str(BATCH)]), ("loop", [])):
+            csv_path = os.path.join(tmp, f"{mode}.csv")
+            argv = ["--dataset", "8iVFBv2", "--sequence", "loot", "--data-root", tmp,
+                    "--frames", "1", str(N_FRAMES), "--dtype", "float32", "--bucket",
+                    str(BUCKET), "--csv", csv_path, "--steps", *[f"{s:g}" for s in steps],
+                    *extra]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ds.reset_launches()
+            t0 = time.perf_counter()
+            check(encode_dataset.main(argv) == 0, f"encode_dataset ({mode}) failed")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(ds.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            with open(csv_path) as f:
+                rows = list(csv.DictReader(f))
+            check(len(rows) == N_FRAMES * len(steps), f"{mode}: {len(rows)} CSV rows")
+            runs[mode] = {(int(r["Frame"]), float(r["Quantization_Step"])): r for r in rows}
+            check(len(runs[mode]) == len(rows), f"{mode}: repeated CSV rows")
+            for fr in range(1, N_FRAMES + 1):
+                psnr = [float(runs[mode][(fr, s)]["psnr"]) for s in steps]
+                check(all(math.isfinite(p) for p in psnr)
+                      and all(a >= b for a, b in zip(psnr, psnr[1:])),
+                      f"{mode}: frame {fr} PSNR {psnr}")
+            out[mode] = {"wall_s": wall,
+                         "sweep_mpts": sum(nvox) * len(steps) / wall / 1e6,
+                         "peak_mem_gib": peak, "launches": launches,
+                         "stage_s": {k: sum(float(r[k]) for r in rows)
+                                     for k in list(rows[0])[3:10]}}
+            say("dataset_cli", mode=mode, **{k: json.dumps(v) if isinstance(v, dict) else v
+                                             for k, v in out[mode].items()})
+        check(out["batch"]["launches"] == {"ds_cumsum": 0, "ds_cumsum_t": 0,
+                                           "ds_cumsum_batched": n_batches * (2 + len(steps))},
+              f"scan launches of the batched run {out['batch']['launches']}")
+        check(out["loop"]["launches"] == {"ds_cumsum": N_FRAMES,
+                                          "ds_cumsum_t": N_FRAMES * 2 * len(steps),
+                                          "ds_cumsum_batched": 0},
+              f"scan launches of the frame loop {out['loop']['launches']}")
+        for key, row in runs["batch"].items():
+            check(row["Rate_bpp"] == runs["loop"][key]["Rate_bpp"],
+                  f"frame {key[0]} step {key[1]:g}: batched rate {row['Rate_bpp']} != "
+                  f"frame loop {runs['loop'][key]['Rate_bpp']}")
+
+        # one batch in process, float64 (the CLI's default) and float32 (the
+        # runs above): the sweep against per-frame encode, byte for byte, and
+        # the batched decode against per-frame decode
+        loaded = [get_pointcloud("8iVFBv2", "loot", f + 1, tmp) for f in range(BATCH)]
+    pos = [np.floor(v).astype(np.int64) for v, _, _ in loaded]
+    for dt in (torch.float64, torch.float32):
+        yuv = [rgb_to_yuv(torch.as_tensor(c, device="cuda"), dtype=dt).cpu().numpy()
+               for _, c, _ in loaded]
+        frames = prepare_frame_batch(pos, yuv, DEPTH, bucket=BUCKET, dtype=dt)
+        bc = BatchAttributeCodec(DEPTH, dtype=dt)
+        codec = tp.AttributeCodec(DEPTH, dtype=dt)
+        coeffs, orderp, _ = bc.transform(frames)
+        sweep = bc.encode_sweep(frames, steps, coeffs=coeffs, orderp=orderp)
+        inv = bc.inverse_order(frames)
+        for fi, f in enumerate(frames):
+            c, o, _, _ = codec.transform(f)
+            for s, (streams, _) in zip(steps, sweep):
+                blob = streams[fi].to_bytes()
+                check(blob == codec.encode(f, s, coeffs=c, order=o).stream.to_bytes(),
+                      f"{dt} frame {fi + 1} step {s:g}: encode_sweep bytes != per-frame encode")
+                if dt == torch.float32:
+                    check(f"{streams[fi].bpp():.6f}" == runs["batch"][(fi + 1, s)]["Rate_bpp"],
+                          f"frame {fi + 1} step {s:g}: the CLI's rate differs from the stream's")
+        for si in (0, len(steps) - 1):
+            recs, _ = bc.decode(sweep[si][0], frames, inv=inv)
+            for f, stream, rec in zip(frames, sweep[si][0], recs):
+                want, _ = codec.decode(stream, f.codes, f.weights)
+                check(np.array_equal(rec, want),
+                      f"{dt} step {steps[si]:g}: batched decode != decode")
+        say("dataset", dtype=str(dt).removeprefix("torch."),
+            sweep_bytes_equal_encode=BATCH * len(steps), decode_equal=2 * BATCH,
+            frames_padded_to=int(frames[0].codes.shape[0]))
+        del coeffs, orderp, sweep, inv
+
+    # the batched entry at the path's forward pack (the float32 frames), and
+    # the wide path
+    w = torch.stack([f.weights for f in frames])
+    body = torch.cat([ieee_sqrt(w)[..., None] * torch.stack([f.attributes for f in frames]),
+                      w[..., None]], dim=2).contiguous()
+    del frames
+    B, N, K = body.shape
+    padded = -(-max(nvox[:BATCH]) // BUCKET) * BUCKET   # 2^20 at 0.8 M voxels
+    check((B, N, K) == (BATCH, padded, D_ATTR + 1), f"the path's pack is {(B, N, K)}")
+    rel, max_abs = check_batched_scan(torch, ds, body)
+    # the wide path, and both paths past the one-block carry (2048 tiles)
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    for shape in ((2, 1 << 19, 9), (2, (1 << 22) + 5, 4), (2, (1 << 22) + 5, 12)):
+        x = torch.rand(*shape, generator=gen) * 3.0
+        x[..., -1] = (x[..., -1] > 1.5).float()   # an integer lane
+        check_batched_scan(torch, ds, x.cuda())
+    del x
+
+    ms = cuda_ms(torch, lambda: ds.ds_prefix_pack_batched(body), reps=100)
+    single_ms = cuda_ms(torch, lambda: [ds.ds_prefix_pack(body[b]) for b in range(B)], reps=100)
+    plain_ms = cuda_ms(torch, lambda: ds.ds_prefix_pack_batched_reference(body), reps=3, warm=1)
+    lib_ms = cuda_ms(torch, lambda: torch.cumsum(body, 1, dtype=torch.float64), reps=5, warm=1)
+    bytes_ms = 4.0 * (B * N * K + B * (N + 1) * 2 * K) / HBM_BYTES_PER_S * 1e3
+    ops_ms = DS_OPS_PER_ELEM * B * N * K / F32_OPS_PER_S * 1e3
+    row = {
+        "name": "ds_cumsum_batched", "route": "cuda", "source": SOURCE["ds_cumsum_batched"],
+        "replaces": REPLACES["ds_cumsum_batched"],
+        "launches": out["batch"]["launches"]["ds_cumsum_batched"], "max_abs_err": max_abs,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "library_ms": lib_ms,
+        "call": "ds_prefix_pack_batched", "shape": [B, N, K], "rel_err": rel,
+        "single_entry_ms": single_ms,
+    }
+    row["device_ms"], row["device_launches_per_call"], row["device_us_by_kernel"] = \
+        device_ms(torch, lambda: ds.ds_prefix_pack_batched(body))
+    row["single_entry_device_ms"], _, _ = device_ms(
+        torch, lambda: [ds.ds_prefix_pack(body[b]) for b in range(B)])
+    say("dataset_kernel", **{k: json.dumps(v) if isinstance(v, (dict, list)) else v
+                             for k, v in row.items()})
+    out["row"] = row
+    out["nvox"] = nvox
+    return out
+
+
+
 def main() -> int:
     import torch
 
@@ -1060,18 +1279,21 @@ def main() -> int:
     phase_golden(torch)
     cli = phase_cli(torch, ds)
     gs = phase_gs(torch, ds)
+    data = phase_dataset(torch, ds)
     add_device_ms(torch, ds, vox["pack"], vox_vals)
     say("voxelize", **{k: json.dumps(v) if isinstance(v, (dict, list)) else v
                        for k, v in vox["pack"].items()})
+    # every path's counts, each read around a run that began from zero
+    paths = {"codec_j10": results[DEPTH]["launches"], "cli": cli["launches"],
+             "segment_sums_prefix": vox["prefix"]["launches"], "gs_cli": gs["cli"]["launches"],
+             "dataset_batch": data["batch"]["launches"], "dataset_loop": data["loop"]["launches"]}
+    rows.append(data["row"])
     for row in rows:
-        # `launches`: the codec's main path (phase 3); each path's own count
-        # beside it, every one read around a run that began from zero
-        row["launches"] = results[DEPTH]["launches"][row["name"]]
-        row["launches_by_path"] = {
-            "codec_j10": row["launches"], "cli": cli["launches"][row["name"]],
-            "segment_sums_prefix": vox["prefix"]["scan_launches"] if row["name"] == "ds_cumsum"
-            else 0,
-            "gs_cli": gs["cli"]["launches"][row["name"]]}
+        # `launches`: the codec's main path (phase 3) for the single entry,
+        # the batched dataset run for the batched entry
+        if row["name"] in SINGLE:
+            row["launches"] = results[DEPTH]["launches"][row["name"]]
+        row["launches_by_path"] = {p: counts[row["name"]] for p, counts in paths.items()}
         if row["name"] == "ds_cumsum":
             row["voxelize_pack"] = vox["pack"]
             row["gs_pack"] = gs["pack"]

@@ -2,15 +2,19 @@
 plain PyTorch version.
 
 Counterpart of ``raht3dgs_tpu/ops/pallas_scan.py`` (``ds_cumsum_pallas``
-and ``ds_cumsum_pallas_t``). The kernel is ``csrc/ds_scan.cu``, built with
-nvcc for ``sm_90a`` into ``_build/`` at first use and called through
-ctypes on PyTorch's current stream. The wrappers take the plain version
-only for a tensor that lies on the CPU; for a CUDA tensor they launch the
-kernel or raise. :func:`ds_prefix_pack` gives the codec's prefix pack (a
+and ``ds_cumsum_pallas_t``). The kernel is ``csrc/ds_scan.cu``, with two
+entries: one matrix, and a (B, N, K) stack of frames (the TPU kernel under
+``jax.vmap``). It is built with nvcc for ``sm_90a`` into ``_build/`` at
+first use and called through ctypes on PyTorch's current stream. The
+wrappers take the plain version only for a tensor that lies on the CPU;
+for a CUDA tensor they launch the kernel or raise. :func:`ds_prefix_pack` gives the codec's prefix pack (a
 zero row, then ``[hi | lo]``), which on the card the kernel writes itself.
 Both take any number of columns K in one call: up to 8 columns a block
 scans a whole tile, wider rows go in column blocks of 8 (the wide path of
 ``csrc/ds_scan.cu``), with the same adds per column.
+:func:`ds_cumsum_batched` and :func:`ds_prefix_pack_batched` scan every
+frame of a stack in the launches one frame takes; frame b's result is the
+single entry's on ``x[b]``, bit for bit.
 
 Both the kernel and :func:`ds_cumsum_reference` keep ~48 mantissa bits
 (error-free two-sum) and give exact results for integer-valued lanes whose
@@ -38,12 +42,15 @@ def _configure(lib: ctypes.CDLL) -> None:
     vp, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.ds_cumsum_f32.argtypes = [vp, ll, i32, ll, ll, i32, vp, vp, ll, vp]
     lib.ds_cumsum_f32.restype = i32
+    lib.ds_cumsum_batched_f32.argtypes = [vp, ll, ll, i32, i32, vp, vp, ll, vp]
+    lib.ds_cumsum_batched_f32.restype = i32
 
 
 KERNEL = NativeLib(_SRC, "libds_scan.so", _configure, nvcc_command)
 
 TILE = 2048             # rows per block (kTile in csrc/ds_scan.cu)
 MAX_CARRY_TILES = 2048  # tile totals one block combines (kMaxCarryTiles)
+MAX_FRAMES = 65535      # frames of one batched launch (the grid's z extent)
 
 
 def scratch_floats(n: int, k: int) -> int:
@@ -61,7 +68,7 @@ def scratch_floats(n: int, k: int) -> int:
 
 # Kernel launches per entry point. Each wrapper adds one where it launches
 # the kernel and nowhere else; callers reset and read them.
-LAUNCHES = {"ds_cumsum": 0, "ds_cumsum_t": 0}
+LAUNCHES = {"ds_cumsum": 0, "ds_cumsum_t": 0, "ds_cumsum_batched": 0}
 
 
 def reset_launches() -> None:
@@ -131,6 +138,25 @@ def ds_prefix_pack_reference(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([P.new_zeros((1, P.shape[1])), P])
 
 
+def ds_cumsum_batched_reference(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`ds_cumsum_batched` on any device:
+    every frame's columns side by side in one (N, B*K) plain scan, whose
+    adds are per column, so frame b's result is
+    ``ds_cumsum_reference(x[b])`` bit for bit."""
+    _check_batched(x)
+    B, N, K = x.shape
+    cols = x.permute(1, 0, 2).reshape(N, B * K)
+    hi, lo = _ds_scan_plain(cols, torch.zeros_like(cols))
+    return tuple(t.reshape(N, B, K).permute(1, 0, 2).contiguous() for t in (hi, lo))
+
+
+def ds_prefix_pack_batched_reference(x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`ds_prefix_pack_batched`."""
+    hi, lo = ds_cumsum_batched_reference(x)
+    P = torch.cat([hi, lo], dim=2)
+    return torch.cat([P.new_zeros((P.shape[0], 1, P.shape[2])), P], dim=1)
+
+
 # -- kernel wrappers ------------------------------------------------------------
 
 
@@ -139,6 +165,14 @@ def _check(x: torch.Tensor) -> None:
         raise TypeError(f"ds scan takes float32, got {x.dtype}")
     if x.dim() != 2:
         raise ValueError(f"ds scan takes a 2-D tensor, got shape {tuple(x.shape)}")
+
+
+def _check_batched(x: torch.Tensor) -> None:
+    if x.dtype != torch.float32:
+        raise TypeError(f"ds scan takes float32, got {x.dtype}")
+    if x.dim() != 3:
+        raise ValueError(f"batched ds scan takes a (B, N, K) tensor, got shape "
+                         f"{tuple(x.shape)}")
 
 
 def _launch(x: torch.Tensor, n: int, k: int, rs: int, cs: int, entry: str,
@@ -214,3 +248,56 @@ def ds_prefix_pack(x: torch.Tensor) -> torch.Tensor:
         return ds_prefix_pack_reference(x)
     N, K = x.shape
     return _launch(x, N, K, K, 1, _row_entry(K), pack=True)
+
+
+def _launch_batched(x: torch.Tensor, pack: bool):
+    """Launch the batched entry on the (B, N, K) stack ``x``: ``(hi, lo)``
+    as (B, N, K) views of one (B, 2, N, K) block, or with ``pack`` the
+    (B, N + 1, 2K) stack of packs. One allocation holds the outputs and
+    every frame's scratch."""
+    B, N, K = x.shape
+    if K < 1:
+        raise ValueError(f"ds scan kernel takes at least one column, got {K}")
+    if not x.is_contiguous():
+        raise ValueError("ds scan kernel takes a contiguous tensor")
+    if x.device.type != "cuda":
+        raise ValueError(f"ds scan kernel needs a CUDA tensor, got {x.device}")
+    if B > MAX_FRAMES:
+        raise ValueError(f"batched ds scan takes at most {MAX_FRAMES} frames, got {B}")
+    lib = KERNEL.load()
+    if B == 0 or N == 0:
+        if pack:
+            return x.new_zeros((B, N + 1, 2 * K))
+        return x.new_empty(x.shape), x.new_empty(x.shape)
+    per = (N + 1) * 2 * K if pack else 2 * N * K
+    scratch = B * scratch_floats(N, K)
+    buf = x.new_empty(B * per + scratch)
+    out = buf.data_ptr()
+    stream = torch._C._cuda_getCurrentRawStream(x.get_device())
+    rc = lib.ds_cumsum_batched_f32(x.data_ptr(), B, N, K, int(pack), out,
+                                   out + 4 * B * per, scratch, stream)
+    if rc != 0:
+        raise RuntimeError(f"ds_cumsum_batched_f32 launch failed (code {rc})")
+    LAUNCHES["ds_cumsum_batched"] += 1
+    if pack:
+        return buf[:B * per].view(B, N + 1, 2 * K)
+    hl = buf[:B * per].view(B, 2, N, K)
+    return hl[:, 0], hl[:, 1]
+
+
+def ds_cumsum_batched(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`ds_cumsum` of every frame of ``x (B, N, K)`` f32, in one
+    launch per pass of the kernel. Returns ``(hi, lo)``, each (B, N, K)."""
+    _check_batched(x)
+    if x.device.type == "cpu":
+        return ds_cumsum_batched_reference(x)
+    return _launch_batched(x, pack=False)
+
+
+def ds_prefix_pack_batched(x: torch.Tensor) -> torch.Tensor:
+    """:func:`ds_prefix_pack` of every frame of ``x (B, N, K)`` f32: the
+    (B, N + 1, 2K) stack of packs, written by the kernel on the card."""
+    _check_batched(x)
+    if x.device.type == "cpu":
+        return ds_prefix_pack_batched_reference(x)
+    return _launch_batched(x, pack=True)

@@ -13,6 +13,14 @@ as single IEEE operations (no fused multiply-add, no ``addcmul``), so the
 port's CPU and CUDA runs give the same float64 bits wherever the prefix
 sums are exact.
 
+The ``*_batched`` forms at the end run a (B, N, ...) stack of equally
+padded frames, as the JAX package's batched codec ``jax.vmap``s these
+functions (``parallel/sharding.py``): the same operations in the same
+order for every frame, with the f32 prefix packs through the scan kernel's
+batched entry (one launch per stack), so frame b's result equals the
+single-frame function's on frame b bit for bit. The single-frame functions
+never call them.
+
 Not ported yet: the tiered nearest->= variant and the ``fill`` inverse
 (opt-in alternatives in the JAX package with equal results; ROADMAP).
 """
@@ -23,7 +31,12 @@ import math
 
 import torch
 
-from raht3dgs_tpu_torch.ops.ds_scan import ds_cumsum, ds_prefix_pack
+from raht3dgs_tpu_torch.ops.ds_scan import (
+    ds_cumsum,
+    ds_cumsum_batched,
+    ds_prefix_pack,
+    ds_prefix_pack_batched,
+)
 from raht3dgs_tpu_torch.ops.raht import (
     RahtForwardResult,
     RahtStructure,
@@ -198,10 +211,11 @@ def raht_structure_span(codes: torch.Tensor, weights: torch.Tensor,
 
 
 def _guarded_scale(sub: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``sub / sqrt(w)`` where ``w > 0``, else 0 (row-wise)."""
+    """``sub / sqrt(w)`` where ``w > 0``, else 0 (row-wise, any leading
+    dimensions)."""
     pos = w > 0
     root = ieee_sqrt(torch.where(pos, w, torch.ones_like(w)))
-    return torch.where(pos[:, None], sub / root[:, None], torch.zeros_like(sub))
+    return torch.where(pos[..., None], sub / root[..., None], torch.zeros_like(sub))
 
 
 def raht_forward_span(codes: torch.Tensor, attributes: torch.Tensor,
@@ -347,3 +361,252 @@ def raht_inverse_span(coeffs: torch.Tensor, codes: torch.Tensor,
     the pointer-doubling chain. The JAX package's opt-in ``fill`` inverse is
     not ported yet."""
     return _raht_inverse_span_chain(coeffs, codes, weights, depth)
+
+
+# -- batched forms: a (B, N, ...) stack of frames of one padded size ----------
+
+
+def _rows_batched(P: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``P[b, idx[b, i]]`` for a (B, M, C) stack and (B, N) indices, as
+    (B, N, C): one row gather over the flattened stack, each frame's
+    indices offset by b * M."""
+    B, M, C = P.shape
+    off = torch.arange(B, dtype=torch.int64, device=idx.device)[:, None] * M
+    return P.reshape(B * M, C)[(idx.long() + off).reshape(-1)].reshape(B, -1, C)
+
+
+def _nearest_ge_batched(B: torch.Tensor, n_vals: int, W: torch.Tensor = None):
+    """:func:`_nearest_ge_flat` of every row of ``B (F, N)``, one (F, V, N)
+    cummax / reverse cummin; ``W`` (F, N+1) as there."""
+    F, N = B.shape
+    dev = B.device
+    idx = torch.arange(N, dtype=torch.int32, device=dev)
+    vals = torch.arange(n_vals, dtype=B.dtype, device=dev)
+    ge = B[:, None, :] >= vals[None, :, None]              # (F, V, N)
+    neg1 = torch.full((), -1, dtype=torch.int32, device=dev)
+    nfill = torch.full((), N, dtype=torch.int32, device=dev)
+    last = torch.cummax(torch.where(ge, idx, neg1), dim=2).values
+    nxt = torch.cummin(torch.where(ge, idx, nfill).flip(2), dim=2).values.flip(2)
+    rows = B.to(torch.int64)[:, None, :]
+    last_excl = torch.cat([torch.full((F, n_vals, 1), -1, dtype=torch.int32, device=dev),
+                           last[:, :, :-1]], dim=2)
+    next_excl = torch.cat([nxt[:, :, 1:],
+                           torch.full((F, n_vals, 1), N, dtype=torch.int32, device=dev)],
+                          dim=2)
+    prev_ge = torch.gather(last_excl, 1, rows)[:, 0]
+    next_ge = torch.gather(next_excl, 1, rows)[:, 0]
+    if W is None:
+        return prev_ge, next_ge
+    Wrow = W[:, None, :N]
+    w_total = W[:, N, None, None]
+    zero = torch.zeros((), dtype=W.dtype, device=dev)
+    lastW = torch.cummax(torch.where(ge, Wrow, zero), dim=2).values
+    nxtW = torch.cummin(torch.where(ge, Wrow, w_total).flip(2), dim=2).values.flip(2)
+    lastW_excl = torch.cat([torch.zeros((F, n_vals, 1), dtype=W.dtype, device=dev),
+                            lastW[:, :, :-1]], dim=2)
+    nextW_excl = torch.cat([nxtW[:, :, 1:], w_total.expand(F, n_vals, 1)], dim=2)
+    w_prev = torch.gather(lastW_excl, 1, rows)[:, 0]
+    w_next = torch.gather(nextW_excl, 1, rows)[:, 0]
+    return prev_ge, next_ge, w_prev, w_next
+
+
+def _span_topology_batched(codes: torch.Tensor, depth: int, W: torch.Tensor = None):
+    """:func:`_span_topology` of every frame of ``codes (F, N)``; row 0 of
+    each frame starts its own span."""
+    F, N = codes.shape
+    levels = num_levels(depth, N)
+    dev = codes.device
+    diff = codes[:, 1:] ^ codes[:, :-1]
+    B = torch.cat([torch.full((F, 1), levels + 1, dtype=torch.int32, device=dev),
+                   _msb(diff, levels).to(torch.int32)], dim=1)
+    drop = torch.cat([torch.zeros((F, 1), dtype=torch.int32, device=dev),
+                      (B[:, 1:] + 1).to(torch.int32)], dim=1)
+    if W is None:
+        prev_ge, next_ge = _nearest_ge_batched(B, levels + 2)
+        return drop, prev_ge, next_ge, levels, B
+    prev_ge, next_ge, w_prev, w_next = _nearest_ge_batched(B, levels + 2, W)
+    return drop, prev_ge, next_ge, levels, w_prev, w_next, B
+
+
+def _weight_prefix_batched(weights: torch.Tensor, fdtype):
+    """:func:`_weight_prefix` of every frame of ``weights (F, N)``: (F, N+1)
+    and the (F,) totals. float32 through the scan kernel's batched entry;
+    float64 the single-frame cumsum of each frame (a cumsum over the stack
+    may associate otherwise on the card)."""
+    if fdtype == torch.float32:
+        hi, lo = ds_cumsum_batched(weights.to(torch.float32)[..., None].contiguous())
+        Wincl = (hi + lo)[..., 0]
+    else:
+        Wincl = torch.stack([torch.cumsum(w, dim=0) for w in weights.to(torch.float64)])
+    W = torch.cat([torch.zeros((Wincl.shape[0], 1), dtype=Wincl.dtype,
+                               device=Wincl.device), Wincl], dim=1)
+    return W, Wincl[:, -1]
+
+
+def _prefix_pack_batched(body: torch.Tensor, use_ds: bool) -> torch.Tensor:
+    """:func:`_prefix_pack` of every frame of ``body (F, N, K)``: (F, N+1, K)
+    float64 (the single-frame cumsum of each frame, as in
+    :func:`_weight_prefix_batched`), or (F, N+1, 2K) float32 written by the
+    batched scan entry."""
+    if use_ds:
+        return ds_prefix_pack_batched(body.to(torch.float32).contiguous())
+    P = torch.stack([torch.cumsum(b, dim=0) for b in body.to(torch.float64)])
+    return torch.cat([P.new_zeros((P.shape[0], 1, P.shape[2])), P], dim=1)
+
+
+def _pair_weights_batched(codes: torch.Tensor, weights: torch.Tensor, depth: int,
+                          fdtype):
+    """:func:`_pair_weights` of every frame of a (F, N) stack."""
+    N = codes.shape[1]
+    if fdtype == torch.float32:
+        drop, prev_ge, next_ge, levels, B = _span_topology_batched(codes, depth)
+        P = _prefix_pack_batched(weights.to(torch.float32)[..., None], True)
+        here = P[:, :N]
+        g_next = _rows_batched(P, next_ge)
+        g_prev = _rows_batched(P, torch.clamp(prev_ge, min=0))
+        w1 = _prefix_diff(g_next[..., :1], g_next[..., 1:], here[..., :1], here[..., 1:])[..., 0]
+        w0 = _prefix_diff(here[..., :1], here[..., 1:], g_prev[..., :1], g_prev[..., 1:])[..., 0]
+        w_total = P[:, N, 0] + P[:, N, 1]
+        return drop, prev_ge, next_ge, levels, B, w0, w1, w_total
+    W, w_total = _weight_prefix_batched(weights, fdtype)
+    drop, prev_ge, next_ge, levels, w_prev, w_next, B = _span_topology_batched(codes, depth, W)
+    W_here = W[:, :N]
+    return drop, prev_ge, next_ge, levels, B, W_here - w_prev, w_next - W_here, w_total
+
+
+def raht_structure_span_batched(codes: torch.Tensor, weights: torch.Tensor,
+                                depth: int) -> RahtStructure:
+    """:func:`raht_structure_span` of every frame: (F, N) fields."""
+    N = codes.shape[1]
+    fdtype = weights.dtype
+    drop, _, _, _, _, w0, w1, w_total = _pair_weights_batched(codes, weights, depth, fdtype)
+    is0 = torch.arange(N, device=codes.device) == 0
+    node_w = torch.where(is0, w_total[:, None], w0 + w1).to(fdtype)
+    subtree = torch.where(is0, w_total[:, None], w1).to(fdtype)
+    return RahtStructure(drop_level=drop, subtree_w=subtree, node_weights=node_w)
+
+
+def raht_forward_span_batched(codes: torch.Tensor, attributes: torch.Tensor,
+                              weights: torch.Tensor, depth: int) -> RahtForwardResult:
+    """:func:`raht_forward_span` of every frame of ``codes (F, N)``,
+    ``attributes (F, N, D)``, ``weights (F, N)``: one fused prefix pack for
+    the whole stack."""
+    F, N, D = attributes.shape
+    fdtype = attributes.dtype
+    dev = attributes.device
+    drop, prev_ge, next_ge, _, _B = _span_topology_batched(codes, depth)
+    idx = torch.arange(N, device=dev)
+
+    use_ds = fdtype == torch.float32
+    acc_dt = torch.float32 if use_ds else torch.float64
+    w_acc = weights.to(acc_dt)
+    sw = ieee_sqrt(w_acc)[..., None]
+    body = torch.cat([sw * attributes.to(acc_dt), w_acc[..., None]], dim=2)
+    K = D + 1
+    SW = _prefix_pack_batched(body, use_ds)
+
+    SW_here = SW[:, :N]
+    g_next = _rows_batched(SW, next_ge)
+    g_prev = _rows_batched(SW, torch.clamp(prev_ge, min=0))
+    if use_ds:
+        sub = _prefix_diff(g_next[..., :K], g_next[..., K:], SW_here[..., :K], SW_here[..., K:])
+        sub1, w1 = sub[..., :D], sub[..., D]
+        sub = _prefix_diff(SW_here[..., :K], SW_here[..., K:], g_prev[..., :K], g_prev[..., K:])
+        sub0, w0 = sub[..., :D], sub[..., D]
+        totals = SW[:, N, :K] + SW[:, N, K:]
+        w_total = totals[:, D]
+        total_S = totals[:, :D]
+    else:
+        sub1 = g_next[..., :D] - SW_here[..., :D]
+        sub0 = SW_here[..., :D] - g_prev[..., :D]
+        w1 = g_next[..., D] - SW_here[..., D]
+        w0 = SW_here[..., D] - g_prev[..., D]
+        w_total = SW[:, N, D]
+        total_S = SW[:, N, :D]
+    x1 = _guarded_scale(sub1, w1)
+    x0 = _guarded_scale(sub0, w0)
+    a, b = _butterfly_ab(w0, w1)
+    detail = ((-b[..., None]) * x0 + a[..., None] * x1).to(fdtype)
+
+    w_root = ieee_sqrt(torch.where(w_total > 0, w_total, torch.ones_like(w_total)))
+    dc = (total_S / w_root[:, None]).to(fdtype)
+    T = torch.where((idx == 0)[None, :, None], dc[:, None, :], detail)
+
+    node_w = torch.where(idx == 0, w_total[:, None], w0 + w1).to(fdtype)
+    subtree = torch.where(idx == 0, w_total[:, None], w1).to(fdtype)
+    return RahtForwardResult(
+        coeffs=T,
+        weights=node_w,
+        structure=RahtStructure(drop_level=drop, subtree_w=subtree,
+                                node_weights=node_w),
+    )
+
+
+def raht_inverse_span_batched(coeffs: torch.Tensor, codes: torch.Tensor,
+                              weights: torch.Tensor, depth: int) -> torch.Tensor:
+    """:func:`raht_inverse_span` (the pointer-doubling chain) of every frame
+    of ``coeffs (F, N, D)``; returns (F, N, D)."""
+    F, N, D = coeffs.shape
+    fdtype = coeffs.dtype
+    dev = coeffs.device
+    W, _ = _weight_prefix_batched(weights, fdtype)
+    drop, prev_ge, next_ge, levels, w_prev, w_next, _B = _span_topology_batched(codes, depth, W)
+    W_here = W[:, :N]
+    w1 = w_next - W_here
+    w0 = W_here - w_prev
+    idx = torch.arange(N, device=dev)
+    a, b = _butterfly_ab(w0, w1)
+    T64 = coeffs
+
+    p = prev_ge
+    q = next_ge
+    p_c = torch.clamp(p, min=0).long()
+    q_c = torch.clamp(q, max=N - 1).long()
+    lane_limit = 1 << {torch.float32: 24, torch.float64: 53}[T64.dtype]
+    if N > lane_limit:
+        raise NotImplementedError(
+            f"{T64.dtype} chain inverse supports N <= {lane_limit} slots "
+            f"(got {N}): pointer lanes ride as exact float values; use "
+            "float64 I/O"
+        )
+    nf = next_ge.to(T64.dtype)
+    Z = torch.cat([a[..., None].to(T64.dtype), b[..., None].to(T64.dtype), T64,
+                   nf[..., None]], dim=2)
+    Zp = _rows_batched(Z, p_c)
+    Zq = _rows_batched(Z, q_c)
+    a_p, b_p, T_p = Zp[..., 0], Zp[..., 1], Zp[..., 2:2 + D]
+    a_q, b_q, T_q = Zq[..., 0], Zq[..., 1], Zq[..., 2:2 + D]
+    last_merge = Zp[..., 2 + D] == q.to(T64.dtype)
+
+    par = torch.where(last_merge, p_c, q_c)
+    g = torch.where(last_merge, b_p, a_q)
+    d = torch.where(last_merge[..., None], a_p[..., None] * T_p, (-b_q)[..., None] * T_q)
+    root_child = last_merge & (p == 0)
+    zero = torch.zeros((), dtype=g.dtype, device=dev)
+    dc = T64[:, :1, :]
+    g = torch.where(root_child, zero, g)
+    d = torch.where(root_child[..., None], dc, d)
+    is0 = idx == 0
+    g = torch.where(is0, zero, g)
+    d = torch.where(is0[None, :, None], dc, d)
+    par = torch.where(is0, torch.zeros_like(par), par)
+
+    steps = max(1, math.ceil(math.log2(levels + 1)))
+    for _ in range(steps):
+        gp = torch.gather(g, 1, par)
+        dp = _rows_batched(d, par)
+        d = d + g[..., None] * dp
+        g = g * gp
+        par = torch.gather(par, 1, par)
+    Y = d
+
+    x0 = a[..., None] * Y - b[..., None] * T64
+    x1 = b[..., None] * Y + a[..., None] * T64
+
+    nxt_is_child = torch.cat([prev_ge[:, 1:] == idx[:-1].to(prev_ge.dtype),
+                              torch.zeros((F, 1), dtype=torch.bool, device=dev)], dim=1)
+    x0_next = torch.cat([x0[:, 1:], x0[:, -1:]], dim=1)
+    out = torch.where(nxt_is_child[..., None], x0_next, x1)
+    lone = is0 & ~nxt_is_child
+    out = torch.where(lone[..., None], Y, out)
+    return out.to(fdtype)

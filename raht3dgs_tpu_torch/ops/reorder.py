@@ -41,6 +41,23 @@ def coefficient_order(structure, mode: str = "ragft") -> torch.Tensor:
     raise ValueError(f"unknown order mode {mode!r} (choose from {ORDER_MODES})")
 
 
+def coefficient_order_batched(structure, mode: str = "ragft") -> torch.Tensor:
+    """:func:`coefficient_order` of every frame of a (B, N) structure stack
+    (each frame's own RA-GFT group range), int32 (B, N)."""
+    drop = structure.drop_level
+    if mode == "ragft":
+        group = torch.div(drop + 2, 3, rounding_mode="floor")
+        gmax = torch.amax(group, dim=1, keepdim=True)
+        key = torch.where(drop == 0, torch.zeros_like(group), 1 + gmax - group)
+        return torch.argsort(key, dim=1, stable=True).to(torch.int32)
+    if mode == "weight_desc":
+        return torch.argsort(-structure.node_weights, dim=1, stable=True).to(torch.int32)
+    if mode == "morton":
+        return torch.arange(drop.shape[1], dtype=torch.int32,
+                            device=drop.device).expand(drop.shape).contiguous()
+    raise ValueError(f"unknown order mode {mode!r} (choose from {ORDER_MODES})")
+
+
 def inverse_permutation(order: torch.Tensor) -> torch.Tensor:
     """argsort of a permutation: the decode-side inverse."""
     return torch.argsort(order, stable=True).to(torch.int32)

@@ -108,9 +108,12 @@ def voxelize(
         width = _as_float(width, fdtype, dev)
 
     # float32 stays float32: the scale is a tensor op on the input dtype,
-    # and the floor comes before the clamp and the cast, as in the JAX package
+    # and the floor comes before the clamp and the cast, as in the JAX package.
+    # A cloud of zero extent has voxel_size 0 and NaN coordinates here; XLA
+    # casts NaN to the integer 0, PyTorch to INT_MIN, so NaN maps to 0 first
     voxel_size = width / torch.tensor(2 ** depth, dtype=fdtype, device=dev)
-    Vint = torch.clamp(torch.floor(V0 / voxel_size), 0, lim).to(torch.int32)
+    Vint = torch.clamp(torch.floor(V0 / voxel_size).nan_to_num(nan=0.0), 0, lim) \
+        .to(torch.int32)
     cdt = code_dtype(depth, N)
     M = morton_encode(Vint, depth).to(cdt)
     # invalid input rows get sentinel codes, so they sort after every real code
@@ -129,7 +132,8 @@ def voxelize(
     vals = torch.cat([torch.where(valid_s[:, None], Cs, 0),
                       valid_s.to(fdtype)[:, None]], dim=1)
     Vint_f = torch.floor(V0s / voxel_size)  # shared with `corner` below
-    extra = torch.cat([_code_lanes(Ms, fdtype), torch.clamp(Vint_f, 0, lim)], dim=1)
+    extra = torch.cat([_code_lanes(Ms, fdtype),
+                       torch.clamp(Vint_f.nan_to_num(nan=0.0), 0, lim)], dim=1)
     sums, extra_rows, _, _ = sorted_segment_sums(vals, first, extra)
     counts = sums[:, D]
     Cvox = sums[:, :D] / torch.clamp_min(sums[:, D], 1.0)[:, None]

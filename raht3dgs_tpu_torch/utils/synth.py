@@ -154,3 +154,61 @@ def gs_golden_fixture():
     attrs = np.concatenate([scene["quats"], scene["scales"],
                             scene["opacities"][:, None], scene["colors"]], axis=1)
     return V[first].astype(np.int64), np.round(attrs[first] * 1024.0) / 1024.0
+
+
+# A seeded dataset sequence at 8iVFBv2 scale: three jittered sphere shells,
+# each frame shifted one voxel along x from the one before. At J=10,
+# 1 500 000 points a frame and seed 0, a frame holds about 0.8 M unique
+# voxels (an 8iVFBv2 vox10 frame's size), a few hundred more or fewer from
+# frame to frame.
+DATASET_CENTERS = ((0.2, 0.2, 0.5), (0.75, 0.3, 0.5), (0.5, 0.75, 0.5))
+DATASET_RADII = (0.168, 0.124, 0.09)
+DATASET_POINTS = 1_500_000
+
+
+def dataset_frame(frame: int, n_points: int = DATASET_POINTS, depth: int = 10,
+                  seed: int = 0):
+    """Frame ``frame`` of the seeded dataset sequence: ``n_points`` points on
+    three jittered sphere shells (``DATASET_RADII``, in units of the grid's
+    width), floored to the ``2**depth`` grid, shifted ``frame`` voxels along
+    x and deduplicated (a voxel keeps its first point's colour). Returns
+    ``(V (n, 3) int64, rgb (n, 3) int64)``, Morton-sorted, with integer
+    RGB that varies smoothly over the surface."""
+    rng = np.random.default_rng([seed, frame])
+    centers = np.asarray(DATASET_CENTERS)
+    radii = np.asarray(DATASET_RADII)
+    area = radii ** 2
+    k = rng.choice(len(radii), size=n_points, p=area / area.sum())
+    d = rng.normal(size=(n_points, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    r = radii[k] * (1.0 + SURFACE_JITTER * rng.standard_normal(n_points))
+    pts = centers[k] + r[:, None] * d
+    g = 1 << depth
+    V = np.clip(np.floor(pts * g).astype(np.int64) + np.array([frame, 0, 0]), 0, g - 1)
+    _, first = np.unique(morton_codes_np(V, depth), return_index=True)
+    phase = np.array([0.0, 2.1, 4.2])
+    rgb = np.round(127.5 * (1.0 + np.sin(6.0 * np.pi * pts[first, :1] + 4.0 * d[first]
+                                         + phase)))
+    return V[first], np.clip(rgb, 0, 255).astype(np.int64)
+
+
+def write_binary_ply(path, pts, rgb=None, width=None) -> None:
+    """A binary-little-endian PLY: x y z float[, red green blue uchar], with
+    the 8i header's ``comment width`` (``2**depth - 1``) when given."""
+    names = [("x", "<f4"), ("y", "<f4"), ("z", "<f4")]
+    if rgb is not None:
+        names += [("red", "u1"), ("green", "u1"), ("blue", "u1")]
+    rec = np.zeros(len(pts), dtype=names)
+    for i, c in enumerate("xyz"):
+        rec[c] = pts[:, i]
+    if rgb is not None:
+        for i, c in enumerate(("red", "green", "blue")):
+            rec[c] = rgb[:, i]
+    head = "ply\nformat binary_little_endian 1.0\n"
+    if width is not None:
+        head += f"comment width {width}\n"
+    head += f"element vertex {len(pts)}\n"
+    head += "".join(f"property {'float' if t == '<f4' else 'uchar'} {n}\n" for n, t in names)
+    with open(path, "wb") as f:
+        f.write((head + "end_header\n").encode())
+        rec.tofile(f)

@@ -135,6 +135,22 @@ def test_compress_to_nvox_matches_jax(rng, tmp_path, depth):
         np.testing.assert_array_equal(a[3], b[3])
 
 
+@pytest.mark.parametrize("n", [1, 3])
+def test_compress_to_nvox_zero_extent_matches_jax(rng, tmp_path, n):
+    # 1 and 3 Gaussians at one point: the voxelizer's width is 0 (C1); the
+    # voxel position is 0, as in the JAX package, never INT_MIN
+    scene = _scene(rng, n)
+    scene["means"][:] = scene["means"][0]
+    want = jgv.compress_to_nvox(scene, depth=10)
+    got = tgv.compress_to_nvox(scene, depth=10, output_dir=str(tmp_path), device="cpu")
+    _check_compressed(got, want)
+    assert got.n_voxels == 1 and not got.positions_int.any()
+    from raht3dgs_tpu_torch.io.ply import read_compressed_3dgs_ply
+
+    V, _, _, _ = read_compressed_3dgs_ply(tmp_path / "compressed_Nvox_gaussians.ply")
+    np.testing.assert_array_equal(V, np.zeros((1, 3)))
+
+
 def test_compress_gaussian_scene_uniform_weights_matches_jax():
     scene = synth.gaussian_scene(20000, seed=2)
     want = jgv.compress_to_nvox(scene, depth=10, weight_by_opacity=False)

@@ -113,6 +113,20 @@ def test_entry_points_refuse_silent_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         decode.main(["--stream", "missing.r3tc", "--positions", "p.ply",
                      "--output", "o.ply"])
+    # the batched codec, its frame batches and the dataset CLI
+    from raht3dgs_tpu_torch.cli import encode_dataset
+    from raht3dgs_tpu_torch.models.batch_codec import BatchAttributeCodec, prepare_frame_batch
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BatchAttributeCodec(6)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        prepare_frame_batch([np.zeros((1, 3), np.int64)], [np.zeros((1, 3))], 6)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        encode_dataset.main(["--dataset", "8iVFBv2", "--sequence", "loot"])
+    assert BatchAttributeCodec(6, device="cpu").device.type == "cpu"
+    frames = prepare_frame_batch([np.zeros((1, 3), np.int64)], [np.zeros((1, 3))], 6,
+                                 device="cpu")
+    assert frames[0].codes.device.type == "cpu"
 
 
 def test_codec_refuses_frame_on_other_device():

@@ -176,6 +176,29 @@ def test_positions_decode_to_codes(rng):
         assert bool((t.codes[1:] > t.codes[:-1]).all())  # sorted, unique, pads last
 
 
+@pytest.mark.parametrize("n", [1, 3])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_zero_extent_cloud_matches_jax(rng, monkeypatch, dtype, n):
+    # one point, or every point at one position: the width is 0 and the
+    # scaled coordinates are NaN, which XLA casts to 0; the port maps NaN
+    # to 0 before its integer casts (PyTorch would give INT_MIN)
+    PC = np.concatenate([np.tile([1.5, -2.0, 7.25], (n, 1)),
+                         rng.uniform(0, 255, (n, 3))], axis=1).astype(dtype)
+    j = _jax_voxelize(PC, 6, "shift", monkeypatch)
+    t = tvox.voxelize(torch.from_numpy(PC), 6)
+    assert int(t.nvox) == int(j.nvox) == 1
+    for f in EXACT:
+        np.testing.assert_array_equal(getattr(t, f).numpy(), np.asarray(getattr(j, f)),
+                                      err_msg=f)
+    assert not t.positions.any()
+    np.testing.assert_array_equal(t.attributes.numpy(), np.asarray(j.attributes))
+    np.testing.assert_array_equal(t.delta_attr.numpy(), np.asarray(j.delta_attr))
+    # delta_pos is NaN in both packages (0 / 0 on the grid)
+    assert np.isnan(t.delta_pos.numpy()).all() and np.isnan(np.asarray(j.delta_pos)).all()
+    for f in ("voxel_size", "vmin", "width"):
+        np.testing.assert_array_equal(getattr(t, f).numpy(), np.asarray(getattr(j, f)))
+
+
 def test_depth21_not_ported():
     with pytest.raises(NotImplementedError, match="item 2"):
         tvox.voxelize(np.zeros((4, 6)), 21, device="cpu")
