@@ -56,8 +56,12 @@ Phases, each printed on its own line, any failure exits nonzero:
    CSV (PSNR and rate ordered by step, group PSNRs finite),
    ``encode_sweep`` against per-step ``encode`` and the saved streams,
    and the decoded PLY against an in-process decode; the scan kernel's
-   wide path at its edges ((2049, 9), and (2^22 + 5, 12) past the
-   one-block carry), the merge's (2e6, 60) segment sums by the prefix
+   wide path at its edges ((2049, 9); one tile with a ragged last column
+   block, (2048, 17); full column blocks only, (70 000, 16); a tile count
+   off the wave, (2^19 + 3, 57); 2048 and 2049 tiles at K = 12, the last
+   one-block carry and the first recursive one; (2^22 + 5, 12)), each
+   against its K = 1 scan, the transposed entry, the pack and a float64
+   cumsum, the merge's (2e6, 60) segment sums by the prefix
    method against the shift method, and the packs of the transform
    ((2^19, 57) as the path gives it, (487 180, 57)) and of the merge, each
    against its plain version and a float64 cumsum, its last column
@@ -74,7 +78,8 @@ Phases, each printed on its own line, any failure exits nonzero:
    process, one batch's ``encode_sweep`` bytes against per-frame
    ``encode`` at every step and its batched decode against per-frame
    ``decode``, in float64 and float32; the kernel's batched entry at the path's (4, 2^20, 4) pack,
-   at (2, 2^19, 9) and past the one-block carry at (2, 2^22 + 5, 4) and
+   on the wide path at (2, 2^19, 9) and (3, 2^19, 57), and past the
+   one-block carry at (2, 2^22 + 5, 4) and
    (2, 2^22 + 5, 12), bitwise against the single entry frame by frame and
    against its plain version (integer lanes bitwise, float lanes 1e-12),
    then timed beside B single-entry calls.
@@ -981,10 +986,13 @@ def phase_gs(torch, ds):
     say("gs_cli", **{k: json.dumps(v) if isinstance(v, (dict, list)) else v
                      for k, v in out["cli"].items()})
 
-    # the scan's wide path at its edges: one tile +1 row, and past the
-    # one-block carry
+    # the scan's wide path at its edges: one tile +1 row, one tile with a
+    # ragged last column block, full column blocks only, a tile count off
+    # the wave, the one-block carry's last tile count (2048) and the
+    # recursive carry's first (2049), and past it
     gen = torch.Generator(device="cpu").manual_seed(2)
-    for n, k in ((2049, 9), ((1 << 22) + 5, 12)):
+    for n, k in ((2049, 9), (2048, 17), (70_000, 16), ((1 << 19) + 3, 57),
+                 (2048 * 2048, 12), (2048 * 2048 + 1, 12), ((1 << 22) + 5, 12)):
         x = torch.rand(n, k, generator=gen) * 3.0
         x[:, -1] = (x[:, -1] > 1.5).float()   # an integer lane
         rel, _ = check_pack(torch, ds, x.cuda())
@@ -1094,8 +1102,9 @@ def phase_dataset(torch, ds):
     other; in process, one batch's ``encode_sweep`` against per-frame
     ``encode`` and its batched decode against per-frame decode, in float64
     and float32; the scan
-    kernel's batched entry at the path's (4, 2^20, 4) pack, at (2, 2^19, 9)
-    and past the one-block carry, then timed."""
+    kernel's batched entry at the path's (4, 2^20, 4) pack, on the wide
+    path at (2, 2^19, 9) and (3, 2^19, 57), and past the one-block carry,
+    then timed."""
     import csv
     import math
     import os
@@ -1221,7 +1230,8 @@ def phase_dataset(torch, ds):
     rel, max_abs = check_batched_scan(torch, ds, body)
     # the wide path, and both paths past the one-block carry (2048 tiles)
     gen = torch.Generator(device="cpu").manual_seed(3)
-    for shape in ((2, 1 << 19, 9), (2, (1 << 22) + 5, 4), (2, (1 << 22) + 5, 12)):
+    for shape in ((2, 1 << 19, 9), (3, 1 << 19, 57), (2, (1 << 22) + 5, 4),
+                  (2, (1 << 22) + 5, 12)):
         x = torch.rand(*shape, generator=gen) * 3.0
         x[..., -1] = (x[..., -1] > 1.5).float()   # an integer lane
         check_batched_scan(torch, ds, x.cuda())

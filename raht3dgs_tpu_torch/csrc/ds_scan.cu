@@ -51,12 +51,24 @@
 // (N, 60) segment sums) take the wide path: the same two passes on a grid
 // of tiles by column blocks of 8, each block reading its column slice with
 // the stride of the whole row and writing its own columns of the output or
-// pack. A whole 57-column tile would need 481 KB of shared memory, over
-// the 227 KB a Hopper block may have; a column block stages 67.6 KB. At
-// (487 180, 57) the bound is 333 MB of traffic, ~0.1 ms at 3.35 TB/s. What
-// the wide path leaves: element loads and stores (a 228-byte row is not
-// 16-byte aligned), one block per SM, and each column block re-reading the
-// 32-byte sectors its neighbours share.
+// pack (a whole 57-column tile would need 481 KB of shared memory, over the
+// 227 KB a Hopper block may have). At (2^19, 57) the bound is 359 MB of
+// traffic, 0.107 ms at 3.35 TB/s. The column blocks of a tile are
+// neighbours in launch order (a linear blockIdx.x), so they run together
+// and can share in L2 the 32-byte sectors their slices of a row straddle. A
+// block stages its 73.7 KB slice with cp.async, the whole tile in flight and
+// no register holding it (16-byte copies where the layout is aligned,
+// 4-byte ones otherwise); each thread sums and scans its 8 rows from the
+// staged slots, writing hi back in place and keeping lo in registers, so
+// the scan pass runs two blocks an SM and the totals pass three; results
+// leave in 16-, 8- or 4-byte stores as the output's alignment allows. What
+// it leaves (scripts/scan_phase_probe.py): in the row layout the copies
+// alone take most of the time, a column block's 32-byte slices of every
+// row moving at a fraction of the rate of the transposed layout's
+// contiguous column runs; reading and writing whole rows needs the tile's
+// column blocks to share them (a thread-block cluster). After that, the
+// three block scans a tile and the second read of the input (a single
+// pass).
 //
 // The batched entry (kBatch) replaces _scan_kernel under jax.vmap, as the
 // JAX package's batched codec (parallel/sharding.py) runs it: a pallas_call
@@ -366,13 +378,12 @@ __device__ __forceinline__ void load_tile(
 // b - 1; kCarryNone: a single tile. Block columns k read column col0 + k of
 // the totals, those at or past kv read nothing. Every thread must call it.
 template <int K>
-__device__ __forceinline__ void carry_in(int carry,
+__device__ __forceinline__ void carry_at(int b, int carry,
                                          const float* __restrict__ carry_hi,
                                          const float* __restrict__ carry_lo,
                                          long long stride, int col0, int kv,
                                          float (&run_h)[K],
                                          float (&run_l)[K]) {
-  const int b = blockIdx.x;
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     run_h[k] = 0.f;
@@ -406,6 +417,18 @@ __device__ __forceinline__ void carry_in(int carry,
         run_l[k] = carry_lo[((long long)b - 1) * stride + col0 + k];
       }
   }
+}
+
+// carry_at for the tile of blockIdx.x.
+template <int K>
+__device__ __forceinline__ void carry_in(int carry,
+                                         const float* __restrict__ carry_hi,
+                                         const float* __restrict__ carry_lo,
+                                         long long stride, int col0, int kv,
+                                         float (&run_h)[K],
+                                         float (&run_l)[K]) {
+  carry_at<K>(blockIdx.x, carry, carry_hi, carry_lo, stride, col0, kv, run_h,
+              run_l);
 }
 
 // Each thread's rows of the tile, in place: the carry, then the thread's
@@ -531,90 +554,337 @@ __global__ void __launch_bounds__(kThreads, K <= 4 ? 2 : 1)
 
 // -- The wide path: more than 8 columns, in column blocks ---------------------
 //
-// Block (b, y) takes rows [b * kTile, ...) of the columns [c0, c0 + kv),
-// c0 = y * kWide, kv <= kWide (the last block is masked). It reads its
-// column slice with the stride of the whole matrix and writes hi and lo to
-// their own columns of the output, so the pack [0; hi | lo] of any width is
-// written in place. Per column the adds are those of the path above, in the
-// same order (load_tile, block_scan, carry_in, scan_rows): a column of a
-// wide pack equals the same column scanned alone, bit for bit.
+// Block (tile b, column block y) takes rows [b * kTile, ...) of the columns
+// [c0, c0 + kv), c0 = y * kWide, kv <= kWide (the last column block is
+// masked). blockIdx.x is b * ncb + y over the ncb column blocks, so the
+// blocks of one tile are neighbours in launch order and run together, and
+// the 32-byte sectors that their slices of a row share can be found in L2
+// by the neighbour, read or partly written. A block reads its column slice
+// with the stride of the whole matrix and writes hi and lo to their own
+// columns of the output, so the pack [0; hi | lo] of any width is written
+// in place. Per column the adds are those of the path above, in the same
+// order (the thread's 8 rows, block_scan, carry_at, the rows again from the
+// carry): a column of a wide pack equals the same column scanned alone, bit
+// for bit.
 constexpr int kWide = 8;
+// Floats of one staged column block, pad words included (wide_word): 73.7 KB,
+// three blocks to an SM's 228 KB.
+constexpr int kWideStage = kWide * kTile + kWide * kTile / 8;
 
-// Staged position q of the column block holds element (r, c) in the order
-// of staged<kWide> (row-major for the row layout, so neighbouring threads
-// touch neighbouring columns of one row; a wide row is seldom 16-byte
-// aligned, so these are element loads). Element (r, c) lies at
-// x[r * rs + c * cs], x at the block's first row and column. Rows past R
-// and columns past kv stage as 0.
+// Shared word of element (r, c) of the staged column block, in the input's
+// layout. Row layout: row-major with 4 pad words after every 8 rows, so
+// thread t's rows 8t..8t+7 are the 64 floats at 68t. Column layout:
+// column-major with 4 pad words after every 32 rows, so thread t's 8 rows
+// of a column are 8 consecutive floats. Either way 16-byte accesses by 8
+// neighbouring threads fall on 32 distinct banks, and every run of 4 along
+// the contiguous axis that starts at a multiple of 4 is 16-byte aligned.
+__device__ __forceinline__ int wide_word(bool row_major, int r, int c) {
+  return row_major ? (kWide * 8 + 4) * (r >> 3) + kWide * (r & 7) + c
+                   : c * (kTile + kTile / 8) + r + 4 * (r >> 5);
+}
+
+// cp.async of V floats (V = 1, 2 or 4) from g to shared s, of which the
+// first `valid` are read and the rest filled with 0; g must be a valid
+// address even where valid is 0.
+template <int V>
+__device__ __forceinline__ void cp_async(float* s, const float* g,
+                                         int valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(s));
+  if constexpr (V == 4) {  // 16 bytes bypass L1
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                 "l"(g), "r"(4 * valid)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d),
+                 "l"(g), "n"(4 * V), "r"(4 * valid)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The widest V in {4, 2, 1} whose runs of V floats, starting at p and at
+// multiples of V along the contiguous axis, step floats apart along the
+// other, are all 4V-byte aligned.
+__device__ __forceinline__ int wide_vec(const float* p, long long step) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  if ((a & 15) == 0 && step % 4 == 0) return 4;
+  if ((a & 7) == 0 && step % 2 == 0) return 2;
+  return 1;
+}
+
+// Unit u of the column block: V floats along the contiguous axis (columns
+// in the row layout, rows in the column layout), neighbouring units on
+// neighbouring addresses. Sets its first element (r, c) and returns how
+// many of its V floats lie inside the block's R rows and kv columns.
+template <int V>
+__device__ __forceinline__ int wide_unit(bool row_major, int u, int R, int kv,
+                                         int& r, int& c) {
+  if (row_major) {
+    r = u / (kWide / V);
+    c = u % (kWide / V) * V;
+    return r < R ? max(0, min(V, kv - c)) : 0;
+  }
+  c = u / (kTile / V);
+  r = u % (kTile / V) * V;
+  return c < kv ? max(0, min(V, R - r)) : 0;
+}
+
+// Issues the copies of the column block (element (r, c) at x[r * rs + c *
+// cs], x at the block's first row and column) into the staged s: the whole
+// tile in flight at once, no register holding it. Rows past R and columns
+// past kv stage as 0.
+template <int V>
+__device__ __forceinline__ void wide_copy_in(const float* __restrict__ x,
+                                             bool row_major, long long rs,
+                                             long long cs, int R, int kv,
+                                             float* s) {
+  constexpr int kUnits = kWide * kTile / V / kThreads;
+#pragma unroll 16
+  for (int j = 0; j < kUnits; ++j) {
+    int r, c;
+    const int valid =
+        wide_unit<V>(row_major, threadIdx.x + j * kThreads, R, kv, r, c);
+    cp_async<V>(s + wide_word(row_major, r, c),
+                valid > 0 ? x + r * rs + c * cs : x, valid);
+  }
+}
+
 __device__ __forceinline__ void wide_stage_in(const float* __restrict__ x,
                                               bool row_major, long long rs,
                                               long long cs, int R, int kv,
                                               float* s) {
-  constexpr int kPer = kWide * kTile / kThreads;
-#pragma unroll 8
-  for (int j = 0; j < kPer; ++j) {
-    const int q = threadIdx.x + j * kThreads;
-    const int r = row_major ? q / kWide : q % kTile;
-    const int c = row_major ? q % kWide : q / kTile;
-    s[pad(q)] = r < R && c < kv ? __ldg(x + r * rs + c * cs) : 0.f;
+  switch (wide_vec(x, row_major ? rs : cs)) {
+    case 4:
+      wide_copy_in<4>(x, row_major, rs, cs, R, kv, s);
+      break;
+    case 2:
+      wide_copy_in<2>(x, row_major, rs, cs, R, kv, s);
+      break;
+    default:
+      wide_copy_in<1>(x, row_major, rs, cs, R, kv, s);
   }
 }
 
-// wide_stage_in's mirror: the staged column block to o[r * ors + c * ocs].
+// wide_copy_in's mirror: the staged column block to o[r * ors + c * ocs],
+// V floats a store where all V are inside the block.
+template <int V>
+__device__ __forceinline__ void wide_copy_out(const float* s, bool row_major,
+                                              float* __restrict__ o,
+                                              long long ors, long long ocs,
+                                              int R, int kv) {
+  constexpr int kUnits = kWide * kTile / V / kThreads;
+#pragma unroll 16
+  for (int j = 0; j < kUnits; ++j) {
+    int r, c;
+    const int valid =
+        wide_unit<V>(row_major, threadIdx.x + j * kThreads, R, kv, r, c);
+    const float* p = s + wide_word(row_major, r, c);
+    float* g = o + r * ors + c * ocs;
+    if (valid == V) {
+      if constexpr (V == 4) {
+        *reinterpret_cast<float4*>(g) = *reinterpret_cast<const float4*>(p);
+      } else if constexpr (V == 2) {
+        *reinterpret_cast<float2*>(g) = *reinterpret_cast<const float2*>(p);
+      } else {
+        *g = *p;
+      }
+    } else {
+      for (int e = 0; e < valid; ++e) g[e] = p[e];
+    }
+  }
+}
+
 __device__ __forceinline__ void wide_stage_out(const float* s, bool row_major,
                                                float* __restrict__ o,
                                                long long ors, long long ocs,
                                                int R, int kv) {
-  constexpr int kPer = kWide * kTile / kThreads;
-#pragma unroll 8
-  for (int j = 0; j < kPer; ++j) {
-    const int q = threadIdx.x + j * kThreads;
-    const int r = row_major ? q / kWide : q % kTile;
-    const int c = row_major ? q % kWide : q / kTile;
-    if (r < R && c < kv) o[r * ors + c * ocs] = s[pad(q)];
+  switch (wide_vec(o, row_major ? ors : ocs)) {
+    case 4:
+      wide_copy_out<4>(s, row_major, o, ors, ocs, R, kv);
+      break;
+    case 2:
+      wide_copy_out<2>(s, row_major, o, ors, ocs, R, kv);
+      break;
+    default:
+      wide_copy_out<1>(s, row_major, o, ors, ocs, R, kv);
   }
 }
 
+// Line i of the thread's 8 rows x 8 columns: row 8t + i (row layout) or
+// column i (column layout), 8 floats at two 16-byte aligned words.
+__device__ __forceinline__ int wide_line(bool row_major, int i) {
+  return row_major ? wide_word(true, threadIdx.x * kItems + i, 0)
+                   : wide_word(false, threadIdx.x * kItems, i);
+}
+
+__device__ __forceinline__ void load_line(const float* s, int w,
+                                          float (&v)[kWide]) {
+  const float4 a = *reinterpret_cast<const float4*>(s + w);
+  const float4 b = *reinterpret_cast<const float4*>(s + w + 4);
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+  v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+}
+
+__device__ __forceinline__ void store_line(float* s, int w,
+                                           const float (&v)[kWide]) {
+  *reinterpret_cast<float4*>(s + w) = make_float4(v[0], v[1], v[2], v[3]);
+  *reinterpret_cast<float4*>(s + w + 4) = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+// The thread's sums (hi, lo) of its 8 rows per column, read from the staged
+// block (hi from s, lo from s2 for a ds-pair input): load_tile's adds.
+template <bool kPair>
+__device__ __forceinline__ void wide_row_sums(const float* s, const float* s2,
+                                              bool row_major,
+                                              float (&hi)[kWide],
+                                              float (&lo)[kWide]) {
+#pragma unroll
+  for (int k = 0; k < kWide; ++k) {
+    hi[k] = 0.f;
+    lo[k] = 0.f;
+  }
+  float vh[kWide], vl[kWide];
+#pragma unroll
+  for (int k = 0; k < kWide; ++k) vl[k] = 0.f;
+  if (row_major) {
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {  // row j: every column's j-th add
+      load_line(s, wide_line(true, j), vh);
+      if (kPair) load_line(s2, wide_line(true, j), vl);
+#pragma unroll
+      for (int k = 0; k < kWide; ++k) ds_add(hi[k], lo[k], vh[k], vl[k]);
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kWide; ++k) {  // column k: its 8 adds
+      load_line(s, wide_line(false, k), vh);
+      if (kPair) load_line(s2, wide_line(false, k), vl);
+#pragma unroll
+      for (int j = 0; j < kItems; ++j) ds_add(hi[k], lo[k], vh[j], vl[j]);
+    }
+  }
+}
+
+// scan_rows on the staged block: from the running (rh, rl), the thread's 8
+// rows one by one; each result's hi goes back into the element's own slot
+// of s, its lo into that of s2 (kPair) or into lo_out[line][element], so
+// no register holds the input. Only the thread's own slots are touched.
+template <bool kPair>
+__device__ __forceinline__ void wide_scan_rows(float* s, float* s2,
+                                               bool row_major,
+                                               float (&rh)[kWide],
+                                               float (&rl)[kWide],
+                                               float (&lo_out)[kItems][kWide]) {
+  float vh[kWide], vl[kWide];
+#pragma unroll
+  for (int i = 0; i < kItems; ++i) {
+    const int w = wide_line(row_major, i);
+    load_line(s, w, vh);
+    if (kPair) {
+      load_line(s2, w, vl);
+    } else {
+#pragma unroll
+      for (int k = 0; k < kWide; ++k) vl[k] = 0.f;
+    }
+    if (row_major) {  // row i, every column
+#pragma unroll
+      for (int k = 0; k < kWide; ++k) {
+        ds_add(rh[k], rl[k], vh[k], vl[k]);
+        vh[k] = rh[k];
+        vl[k] = rl[k];
+      }
+    } else {          // column i, every row
+#pragma unroll
+      for (int j = 0; j < kItems; ++j) {
+        ds_add(rh[i], rl[i], vh[j], vl[j]);
+        vh[j] = rh[i];
+        vl[j] = rl[i];
+      }
+    }
+    store_line(s, w, vh);
+    if (kPair) {
+      store_line(s2, w, vl);
+    } else {
+#pragma unroll
+      for (int e = 0; e < kWide; ++e) lo_out[i][e] = vl[e];
+    }
+  }
+}
+
+// The column block of blockIdx.x: tile b, first column c0, R rows, kv
+// columns.
+struct WideBlock {
+  long long row0;
+  int b, c0, R, kv;
+};
+
+__device__ __forceinline__ WideBlock wide_block(long long n, int ncol) {
+  const unsigned ncb = (ncol + kWide - 1) / kWide;
+  WideBlock w;
+  w.b = (int)(blockIdx.x / ncb);
+  w.c0 = (int)(blockIdx.x % ncb) * kWide;
+  w.row0 = (long long)w.b * kTile;
+  w.R = (int)min((long long)kTile, n - w.row0);
+  w.kv = min(kWide, ncol - w.c0);
+  return w;
+}
+
+// Stages the block's column slice of in_hi into s (and of in_lo into s2),
+// the copies left in flight.
+template <bool kPair>
+__device__ __forceinline__ void wide_issue(const float* __restrict__ in_hi,
+                                           const float* __restrict__ in_lo,
+                                           bool row_major, long long rs,
+                                           long long cs, const WideBlock& w,
+                                           float* s, float* s2) {
+  const long long off = w.row0 * rs + w.c0 * cs;
+  wide_stage_in(in_hi + off, row_major, rs, cs, w.R, w.kv, s);
+  if (kPair) wide_stage_in(in_lo + off, row_major, rs, cs, w.R, w.kv, s2);
+}
+
+// Registers: up to three blocks an SM (80 a thread) for one input, the
+// staged tile's 73.7 KB being the limit.
 template <bool kPair, bool kBatch>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kThreads, kPair ? 1 : 3)
     ds_wide_total(const float* __restrict__ in_hi,
                   const float* __restrict__ in_lo, long long n, int ncol,
                   long long rs, long long cs, float* __restrict__ tot_hi,
                   float* __restrict__ tot_lo, Frames fs) {
-  extern __shared__ float s_tile[];
+  extern __shared__ __align__(16) float s_wide[];
   in_hi = frame_ptr<kBatch>(in_hi, fs.in);
   in_lo = frame_ptr<kBatch>(in_lo, fs.in);
   tot_hi = frame_ptr<kBatch>(tot_hi, fs.tot);
   tot_lo = frame_ptr<kBatch>(tot_lo, fs.tot);
+  float* s2 = s_wide + kWideStage;
   const bool row_major = cs == 1;
-  const long long row0 = (long long)blockIdx.x * kTile;
-  const int R = (int)min((long long)kTile, n - row0);
-  const int c0 = blockIdx.y * kWide;
-  const int kv = min(kWide, ncol - c0);
-  const long long off = row0 * rs + c0 * cs;
-  float xh[kItems][kWide], xl[kItems][kWide], hi[kWide], lo[kWide],
-      ph[kWide], pl[kWide], th[kWide], tl[kWide];
-  const auto stage = [&](const float* p) {
-    wide_stage_in(p + off, row_major, rs, cs, R, kv, s_tile);
-  };
-  load_tile<kWide, kPair>(stage, in_hi, in_lo, row_major, s_tile, xh, xl, hi,
-                          lo);
+  const WideBlock w = wide_block(n, ncol);
+  wide_issue<kPair>(in_hi, in_lo, row_major, rs, cs, w, s_wide, s2);
+  cp_async_wait_all();
+  __syncthreads();
+  float hi[kWide], lo[kWide], ph[kWide], pl[kWide], th[kWide], tl[kWide];
+  wide_row_sums<kPair>(s_wide, s2, row_major, hi, lo);
   block_scan<kWide>(hi, lo, ph, pl, th, tl);
   if (threadIdx.x == 0) {
 #pragma unroll
     for (int k = 0; k < kWide; ++k)
-      if (k < kv) {
-        tot_hi[(long long)blockIdx.x * ncol + c0 + k] = th[k];
-        tot_lo[(long long)blockIdx.x * ncol + c0 + k] = tl[k];
+      if (k < w.kv) {
+        tot_hi[(long long)w.b * ncol + w.c0 + k] = th[k];
+        tot_lo[(long long)w.b * ncol + w.c0 + k] = tl[k];
       }
   }
 }
 
 // carry as in ds_tile_scan, over (T, ncol) totals. out_hi / out_lo: row 0,
-// column 0 of hi and lo, strides (ors, ocs); zero_row, unless null, gets
-// the pack's zero row (its 2 * ncol floats).
+// column 0 of hi and lo, strides (ors, ocs), in the input's layout;
+// zero_row, unless null, gets the pack's zero row (its 2 * ncol floats).
+// The carry reads the totals while the tile's copies are in flight.
+// Registers: two blocks an SM (128 a thread), the lo results being 64 of
+// them.
 template <bool kPair, bool kBatch>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kThreads, kPair ? 1 : 2)
     ds_wide_scan(const float* __restrict__ in_hi,
                  const float* __restrict__ in_lo, long long n, int ncol,
                  long long rs, long long cs, const float* __restrict__ carry_hi,
@@ -622,7 +892,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                  float* __restrict__ out_hi, float* __restrict__ out_lo,
                  long long ors, long long ocs, float* __restrict__ zero_row,
                  Frames fs) {
-  extern __shared__ float s_tile[];
+  extern __shared__ __align__(16) float s_wide[];
   in_hi = frame_ptr<kBatch>(in_hi, fs.in);
   in_lo = frame_ptr<kBatch>(in_lo, fs.in);
   carry_hi = frame_ptr<kBatch>(carry_hi, fs.tot);
@@ -630,37 +900,42 @@ __global__ void __launch_bounds__(kThreads, 1)
   out_hi = frame_ptr<kBatch>(out_hi, fs.out);
   out_lo = frame_ptr<kBatch>(out_lo, fs.out);
   zero_row = frame_ptr<kBatch>(zero_row, fs.out);
+  float* s2 = s_wide + kWideStage;
   const bool row_major = cs == 1;
-  const long long row0 = (long long)blockIdx.x * kTile;
-  const int R = (int)min((long long)kTile, n - row0);
-  const int c0 = blockIdx.y * kWide;
-  const int kv = min(kWide, ncol - c0);
-  const long long off = row0 * rs + c0 * cs;
-  float xh[kItems][kWide], xl[kItems][kWide], hi[kWide], lo[kWide],
-      ph[kWide], pl[kWide], th[kWide], tl[kWide];
-  const auto stage = [&](const float* p) {
-    wide_stage_in(p + off, row_major, rs, cs, R, kv, s_tile);
-  };
-  load_tile<kWide, kPair>(stage, in_hi, in_lo, row_major, s_tile, xh, xl, hi,
-                          lo);
-  block_scan<kWide>(hi, lo, ph, pl, th, tl);
+  const WideBlock w = wide_block(n, ncol);
+  wide_issue<kPair>(in_hi, in_lo, row_major, rs, cs, w, s_wide, s2);
   float run_h[kWide], run_l[kWide];
-  carry_in<kWide>(carry, carry_hi, carry_lo, ncol, c0, kv, run_h, run_l);
-  scan_rows<kWide>(run_h, run_l, ph, pl, xh, xl);
-
-  if (zero_row != nullptr && blockIdx.x == 0 && threadIdx.x < kv) {
-    zero_row[c0 + threadIdx.x] = 0.f;
-    zero_row[ncol + c0 + threadIdx.x] = 0.f;
+  carry_at<kWide>(w.b, carry, carry_hi, carry_lo, ncol, w.c0, w.kv, run_h,
+                  run_l);
+  cp_async_wait_all();
+  __syncthreads();
+  {
+    float hi[kWide], lo[kWide], ph[kWide], pl[kWide], th[kWide], tl[kWide];
+    wide_row_sums<kPair>(s_wide, s2, row_major, hi, lo);
+    block_scan<kWide>(hi, lo, ph, pl, th, tl);
+#pragma unroll
+    for (int k = 0; k < kWide; ++k) ds_add(run_h[k], run_l[k], ph[k], pl[k]);
   }
-  // the staged buffer is free (see ds_tile_scan): hi, then lo through it
-  const long long o = row0 * ors + c0 * ocs;
-  write_rows<kWide>(s_tile, row_major, xh);
+  if (zero_row != nullptr && w.b == 0 && threadIdx.x < w.kv) {
+    zero_row[w.c0 + threadIdx.x] = 0.f;
+    zero_row[ncol + w.c0 + threadIdx.x] = 0.f;
+  }
+  float lo_out[kItems][kWide];
+  wide_scan_rows<kPair>(s_wide, s2, row_major, run_h, run_l, lo_out);
+  // hi, then lo, from the staged slots to the output
+  const long long o = w.row0 * ors + w.c0 * ocs;
   __syncthreads();
-  wide_stage_out(s_tile, row_major, out_hi + o, ors, ocs, R, kv);
+  wide_stage_out(s_wide, row_major, out_hi + o, ors, ocs, w.R, w.kv);
+  if (kPair) {
+    wide_stage_out(s2, row_major, out_lo + o, ors, ocs, w.R, w.kv);
+    return;
+  }
   __syncthreads();
-  write_rows<kWide>(s_tile, row_major, xl);
+#pragma unroll
+  for (int i = 0; i < kItems; ++i)
+    store_line(s_wide, wide_line(row_major, i), lo_out[i]);
   __syncthreads();
-  wide_stage_out(s_tile, row_major, out_lo + o, ors, ocs, R, kv);
+  wide_stage_out(s_wide, row_major, out_lo + o, ors, ocs, w.R, w.kv);
 }
 
 template <int K, bool kPair, bool kBatch>
@@ -724,26 +999,31 @@ void scan_level(const float* in_hi, const float* in_lo, long long n,
       in_hi, in_lo, n, cs, inc, inc + t * K, kCarryScanned, out, pack, fs);
 }
 
+// Shared memory of a wide block: one staged column block a staged input.
+// The carveout asks for the SM's whole 228 KB as shared memory, room for
+// three one-input blocks.
 template <bool kPair, bool kBatch>
 size_t wide_stage_bytes() {
-  const size_t bytes = sizeof(float) * stage_floats(kWide);  // 67.6 KB
+  const size_t bytes = sizeof(float) * kWideStage * (kPair ? 2 : 1);
   static bool raised = false;
   if (!raised) {
-    cudaFuncSetAttribute(ds_wide_total<kPair, kBatch>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)bytes);
-    cudaFuncSetAttribute(ds_wide_scan<kPair, kBatch>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)bytes);
+    for (const void* f : {(const void*)ds_wide_total<kPair, kBatch>,
+                          (const void*)ds_wide_scan<kPair, kBatch>}) {
+      cudaFuncSetAttribute(f, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)bytes);
+      cudaFuncSetAttribute(f, cudaFuncAttributePreferredSharedMemoryCarveout,
+                           cudaSharedmemCarveoutMaxShared);
+    }
     raised = true;
   }
   return bytes;
 }
 
-// scan_level for ncol > kWide columns, on a grid of (tiles, column blocks,
-// frames). Input element (r, c) at in[r * rs + c * cs]; output hi (r, c) at
-// out_hi[r * ors + c * ocs], lo likewise from out_lo. Scratch as in
-// scan_level, with ncol columns to a totals row.
+// scan_level for ncol > kWide columns, on a grid of (tiles x column blocks,
+// frames), the column block varying fastest along x. Input element (r, c)
+// at in[r * rs + c * cs]; output hi (r, c) at out_hi[r * ors + c * ocs], lo
+// likewise from out_lo. Scratch as in scan_level, with ncol columns to a
+// totals row.
 template <bool kPair, bool kBatch>
 void wide_level(const float* in_hi, const float* in_lo, long long n, int ncol,
                 long long rs, long long cs, float* out_hi, float* out_lo,
@@ -751,7 +1031,7 @@ void wide_level(const float* in_hi, const float* in_lo, long long n, int ncol,
                 cudaStream_t st, int nb, Frames fs) {
   const size_t smem = wide_stage_bytes<kPair, kBatch>();
   const long long t = (n + kTile - 1) / kTile;
-  const dim3 grid((unsigned)t, (unsigned)((ncol + kWide - 1) / kWide),
+  const dim3 grid((unsigned)(t * ((ncol + kWide - 1) / kWide)), 1,
                   (unsigned)nb);
   if (t <= 1) {
     ds_wide_scan<kPair, kBatch><<<grid, kThreads, smem, st>>>(

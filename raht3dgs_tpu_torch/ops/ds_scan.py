@@ -7,11 +7,15 @@ entries: one matrix, and a (B, N, K) stack of frames (the TPU kernel under
 ``jax.vmap``). It is built with nvcc for ``sm_90a`` into ``_build/`` at
 first use and called through ctypes on PyTorch's current stream. The
 wrappers take the plain version only for a tensor that lies on the CPU;
-for a CUDA tensor they launch the kernel or raise. :func:`ds_prefix_pack` gives the codec's prefix pack (a
-zero row, then ``[hi | lo]``), which on the card the kernel writes itself.
-Both take any number of columns K in one call: up to 8 columns a block
-scans a whole tile, wider rows go in column blocks of 8 (the wide path of
-``csrc/ds_scan.cu``), with the same adds per column.
+for a CUDA tensor they launch the kernel or raise. :func:`ds_prefix_pack`
+gives the codec's prefix pack (a zero row, then ``[hi | lo]``), which on
+the card the kernel writes itself. Both take any number of columns K in
+one call: up to 8 columns a block scans a whole tile; wider rows (the 3DGS
+transform's (N, 57) pack, the Gaussian merge's (N, 60) sums) take the wide
+path of ``csrc/ds_scan.cu``, column blocks of 8 whose blocks of one tile
+run side by side, each staging its slice with ``cp.async`` and scanning
+it from shared memory at two blocks an SM, with the same adds per column.
+``scripts/scan_phase_probe.py`` splits the wide path's time on the card.
 :func:`ds_cumsum_batched` and :func:`ds_prefix_pack_batched` scan every
 frame of a stack in the launches one frame takes; frame b's result is the
 single entry's on ``x[b]``, bit for bit.

@@ -13,17 +13,21 @@ time by kernel name, largest first. Needs a CUDA card.
 
 ``--scan`` times the double-single scan's entry points alone at the main
 path's shapes: ``ds_prefix_pack`` (the forward's pack) and ``ds_cumsum``
-at (2^19, 4), ``ds_cumsum_t`` at (1, 2^19). For each: the wrapper's time
-(CUDA events around one call; 10 x ``--reps`` rounds of 20 calls, each
-round's median and their median, taken before any profiler session) and
-the device's own time and kernel launches per call (profiler, 50
-back-to-back calls, ``--reps`` rounds), with the device time per call
-split by kernel name (mean over the rounds). ``--against ROOT`` loads
-the ``ops/ds_scan.py`` of another checkout (for example the parent
-commit, unpacked with ``git archive``) beside this one and times, in
-turns in one process, every entry point that both have, so that the
-host's own drift between processes does not enter the comparison.
-Timing helpers are ``chip_smoke.py``'s.
+at (2^19, 4), ``ds_cumsum_t`` at (1, 2^19); and the wide path's (K > 8):
+``ds_prefix_pack`` at (2^19, 57) (the 3DGS transform's pack, the integer
+weight lane last) and (2e6, 60) (the Gaussian merge's prefix segment
+sums), ``ds_cumsum_t`` at (57, 2^19). For each: the wrapper's time (CUDA
+events around one call; 10 x ``--reps`` rounds of 20 calls, each round's
+median and their median, taken before any profiler session) and the
+device's own time and kernel launches per call (profiler, 50 back-to-back
+calls, ``--reps`` rounds), with the device time per call split by kernel
+name (mean over the rounds). ``--against ROOT`` loads the
+``ops/ds_scan.py`` of another checkout (for example the parent commit,
+unpacked with ``git archive``) beside this one, builds both kernels side
+by side (their ptxas registers are printed) and times, in turns in one
+process, every entry point that both have, so that the host's own drift
+between processes does not enter the comparison. Timing helpers are
+``chip_smoke.py``'s.
 
 ``--gs N`` splits the wall time of the 3DGS sweep CLI: a seeded scene of
 N Gaussians (``utils/synth.py:gaussian_scene``) is voxelized and merged
@@ -43,6 +47,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -85,26 +90,39 @@ def load_scan_module(root: str):
     return mod
 
 
-ENTRIES = ("ds_prefix_pack", "ds_cumsum", "ds_cumsum_t")
+def scan_inputs(torch) -> list:
+    """(entry, input) of every ``--scan`` case, made from one seed on the
+    card."""
+    g = torch.Generator(device="cpu").manual_seed(0)
+    n = 1 << 19
+    x4 = torch.rand(n, 4, generator=g)
+    # the 3DGS transform's pack: sqrt(w)-scaled attributes and the integer
+    # weight lane, pads (weight 0) after the real voxels
+    w = torch.randint(1, 4, (n,), generator=g).float()
+    w[487_180:] = 0.0
+    x57 = torch.cat([torch.rand(n, 56, generator=g) * w.sqrt()[:, None], w[:, None]], 1)
+    cases = [("ds_prefix_pack", x4), ("ds_cumsum", x4),
+             ("ds_cumsum_t", torch.rand(1, n, generator=g)),
+             ("ds_prefix_pack", x57),
+             ("ds_prefix_pack", torch.rand(2_000_000, 60, generator=g)),
+             ("ds_cumsum_t", torch.rand(57, n, generator=g))]
+    return [(name, x.cuda()) for name, x in cases]
 
 
 def scan_times(torch, modules: dict, reps: int) -> dict:
     """Wrapper and device time of the scan's entry points in each module of
     ``modules`` ({label: ds_scan module}) that has them, rounds taken in
-    turns (a b, b a, ...). Every wrapper time comes before any profiler
-    session: the host stays busy for a while after a session ends."""
+    turns (a b, b a, ...), keyed by ``entry (shape)``. Every wrapper time
+    comes before any profiler session: the host stays busy for a while
+    after a session ends."""
     from chip_smoke import cuda_ms, device_ms
 
-    g = torch.Generator(device="cpu").manual_seed(0)
-    n = 1 << 19
-    x4 = torch.rand(n, 4, generator=g).cuda()
-    inputs = {"ds_prefix_pack": x4, "ds_cumsum": x4,
-              "ds_cumsum_t": torch.rand(1, n, generator=g).cuda()}
-    cases = {label: {name: getattr(ds, name) for name in ENTRIES if hasattr(ds, name)}
+    inputs = {f"{name} {tuple(x.shape)}": (name, x) for name, x in scan_inputs(torch)}
+    cases = {label: {key: (getattr(ds, name), x) for key, (name, x) in inputs.items()
+                     if hasattr(ds, name)}
              for label, ds in modules.items()}
-    out = {label: {name: {"shape": list(inputs[name].shape), "wrapper_ms": [],
-                          "device_ms": [], "launches_per_call": [],
-                          "by_kernel_us": {}} for name in cases[label]}
+    out = {label: {key: {"wrapper_ms": [], "device_ms": [], "launches_per_call": [],
+                         "by_kernel_us": {}} for key in cases[label]}
            for label in modules}
     labels = list(modules)
 
@@ -114,21 +132,21 @@ def scan_times(torch, modules: dict, reps: int) -> dict:
     # short wrapper rounds, many of them in turns: the host's slow spells
     # (tens of us a call, lasting seconds) then fall on both sides alike
     for label in turns(10 * reps):
-        for name, fn in cases[label].items():
-            x = inputs[name]
-            out[label][name]["wrapper_ms"].append(
+        for key, (fn, x) in cases[label].items():
+            out[label][key]["wrapper_ms"].append(
                 cuda_ms(torch, lambda: fn(x), reps=20, warm=1))
-    for row in (r for lab in out.values() for r in lab.values()):
-        row["wrapper_ms_median"] = statistics.median(row["wrapper_ms"])
     for label in turns(reps):
-        for name, fn in cases[label].items():
-            x = inputs[name]
+        for key, (fn, x) in cases[label].items():
             ms, launches, split = device_ms(torch, lambda: fn(x))
-            row = out[label][name]
+            row = out[label][key]
             row["device_ms"].append(ms)
             row["launches_per_call"].append(launches)
             for k, us in split.items():
                 row["by_kernel_us"][k] = row["by_kernel_us"].get(k, 0.0) + us / reps
+    for row in (r for lab in out.values() for r in lab.values()):
+        row["wrapper_ms_median"] = statistics.median(row["wrapper_ms"])
+        row["device_ms_median"] = statistics.median(row["device_ms"])
+        row["device_ms_range"] = [min(row["device_ms"]), max(row["device_ms"])]
     return out
 
 
@@ -215,10 +233,22 @@ def main() -> int:
     if args.scan:
         from raht3dgs_tpu_torch.ops import ds_scan
 
+        from chip_smoke import ptxas_summary
+
         modules = {"this": ds_scan}
         if args.against:
             modules["against"] = load_scan_module(args.against)
-        print(json.dumps({"card": card, "scan": scan_times(torch, modules, args.reps)}))
+        # both nvcc runs side by side, before anything is timed
+        builds = [threading.Thread(target=m.KERNEL.load) for m in modules.values()]
+        for t in builds:
+            t.start()
+        for t in builds:
+            t.join()
+        for m in modules.values():
+            m.KERNEL.load()  # raises here if its build failed
+        ptxas = {label: ptxas_summary(m.KERNEL.build_log) for label, m in modules.items()}
+        print(json.dumps({"card": card, "ptxas": ptxas,
+                          "scan": scan_times(torch, modules, args.reps)}))
         return 0
     if args.gs:
         print(json.dumps({"card": card, "gs": gs_profile(torch, args)}))

@@ -255,7 +255,11 @@ def test_cuda_wide_pack_invariants(rng):
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     from raht3dgs_tpu_torch.ops.raht_span import _prefix_pack
 
-    for n, k in ((70000, 57), (2049, 9), ((1 << 22) + 5, 12)):
+    # one tile with a ragged last column block, full column blocks only, a
+    # tile count off the wave, the one-block carry's last tile count (2048)
+    # and the recursive carry's first (2049), and past it
+    for n, k in ((70000, 57), (2049, 9), (2048, 17), (70000, 16), ((1 << 19) + 3, 57),
+                 (2048 * 2048, 12), (2048 * 2048 + 1, 12), ((1 << 22) + 5, 12)):
         x = torch.from_numpy(rng.uniform(0, 3, size=(n, k)).astype(np.float32)).cuda()
         P = _prefix_pack(x, True)
         assert torch.equal(P, ds_prefix_pack(x))                    # run to run
