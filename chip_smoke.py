@@ -82,7 +82,22 @@ Phases, each printed on its own line, any failure exits nonzero:
    one-block carry at (2, 2^22 + 5, 4) and
    (2, 2^22 + 5, 12), bitwise against the single entry frame by frame and
    against its plain version (integer lanes bitwise, float lanes 1e-12),
-   then timed beside B single-entry calls.
+   then timed beside B single-entry calls;
+9. the render comparison: the tiled rasterizer against the dense one on
+   the card (2 000 Gaussians at 64x64, SH degree 0 and 3), against the
+   port's CPU run of the same call (20 000 Gaussians of ``gaussian_scene``
+   at 128x128, 2 views), and its early exit bitwise against a run of every
+   chunk; then at full width, from PLYs in a temporary directory,
+   ``voxelize_3dgs --ply`` with its default ``--render auto`` (5 views at
+   512x512 of the phase 7 scene, 2e6 Gaussians, against its 487 180-voxel
+   merge), ``encode_3dgs --render auto`` on the merged PLY (the finest
+   step against the input) and ``encode_3dgs_debug --ablation`` (256x256),
+   each asserting the backend (``jax``, the port's rasterizer, on ``cuda``
+   tensors), finite PSNRs and pixels in [0, max(1, the scene's largest
+   colour) + 1e-5]; then each view of both scenes timed with CUDA events
+   after a warm-up, with its retries, overflow counts after them, blend
+   chunks, host syncs and peak device memory, and the scan launches read
+   around each CLI run.
 
 Needs one CUDA card; imports nothing of JAX or of the JAX package.
 """
@@ -124,6 +139,15 @@ N_VOX = 500_000
 N_FRAMES = 8               # phase 8: dataset frames (8iVFBv2 loot 1000..1007)
 BATCH = 4                  # phase 8: frames per batched call
 NVOX_FRAME_RANGE = (750_000, 850_000)
+N_RENDER_DENSE = 2_000     # phase 9: tiled against dense on the card, 64x64
+N_RENDER_CPU = 20_000      # phase 9: the card against the CPU, 128x128, 2 views
+RENDER_VIEWS = 5           # phase 9: the CLIs' render comparison, 512x512
+RENDER_SIZE = 512
+ABLATION_SIZE = 256
+RENDER_DENSE_TOL = 2e-5    # tiled against dense, the same device
+RENDER_CPU_TOL = 1e-4      # the card against the CPU (exp, log, sqrt and scans round apart)
+PIXEL_TOL = 1e-5           # a pixel over its scene's largest colour (or the white background)
+CARD = "cuda"              # the device phase 9 renders on
 DEPTH = 10
 D_ATTR = 3
 BUCKET = 1 << 19
@@ -1264,6 +1288,283 @@ def phase_dataset(torch, ds):
 
 
 
+def random_splats(np, rng, n, sh_k):
+    """``n`` random Gaussians in [-1, 1]^3 with ``sh_k`` SH coefficients."""
+    return (rng.uniform(-1, 1, (n, 3)).astype(np.float32),
+            rng.normal(size=(n, 4)).astype(np.float32),
+            rng.uniform(0.01, 0.06, (n, 3)).astype(np.float32),
+            rng.uniform(0.2, 1.0, n).astype(np.float32),
+            rng.normal(0, 0.5, (n, 3 * sh_k)).astype(np.float32))
+
+
+def scene_cameras(np, means, n_views, size):
+    """The render comparison's cameras for a scene (``render.py``)."""
+    from raht3dgs_tpu_torch.eval.cameras import generate_random_cameras
+
+    radius = float((means.max(axis=0) - means.min(axis=0)).max()) * 1.5
+    return generate_random_cameras(means.mean(axis=0), radius, n_views, size, size, seed=0)
+
+
+def render_checks(torch):
+    """Phase 9 (a): the tiled rasterizer on the card against the dense one,
+    against the port's CPU run of the same call, and its early exit
+    bitwise against a run of every chunk."""
+    import numpy as np
+
+    from raht3dgs_tpu_torch.eval import rasterize as tr
+    from raht3dgs_tpu_torch.utils import synth
+
+    out = {}
+    rng = np.random.default_rng(9)
+    viewmat = np.eye(4, dtype=np.float32)
+    viewmat[2, 3] = 3.0
+    K = np.array([[76.8, 0, 32], [0, 76.8, 32], [0, 0, 1]], np.float32)
+    for deg in (0, 3):
+        scene = random_splats(np, rng, N_RENDER_DENSE, (deg + 1) ** 2)
+        img, meta = tr.rasterize_gaussians(*scene, viewmat, K, 64, 64, max_per_tile=4096)
+        dense = tr.rasterize_dense(*scene, viewmat, K, 64, 64)
+        err = float(np.abs(img - dense).max())
+        counts = (int(meta.dup_clipped), int(meta.tile_clipped))
+        check(meta.dup_clipped.device.type == CARD, "the rasterizer ran off the card")
+        check(counts == (0, 0) and err <= RENDER_DENSE_TOL,
+              f"SH degree {deg}: tiled against dense {err}, counters {counts}")
+        out[f"dense_sh{deg}_err"] = err
+
+    # the early exit against every chunk: wide opaque splats stacked in depth
+    # (every pixel saturates), and the SH degree 3 scene (exits when spent)
+    n = 400
+    stack = (rng.normal(0, 0.05, (n, 3)).astype(np.float32), np.tile(
+        np.array([1, 0, 0, 0], np.float32), (n, 1)), np.full((n, 3), 2.0, np.float32),
+        np.full(n, 0.99, np.float32), rng.normal(0, 0.5, (n, 3)).astype(np.float32))
+    stack[0][:, 2] = np.linspace(-0.5, 0.5, n, dtype=np.float32)
+    for name, sc in (("stack", stack), ("sh3", scene)):
+        t = [torch.as_tensor(x, device=CARD) for x in (*sc, viewmat, K)]
+        sh, deg = tr._colors_to_sh(t[4])
+        kw = dict(width=64, height=64, sh_degree=deg, tile=16, max_tiles_per_gauss=32,
+                  max_per_tile=4096, chunk=16)
+        args = (*t[:4], sh, t[5], t[6], torch.ones(3, device=CARD))
+        tr.reset_counts()
+        early, _ = tr._rasterize_tiled(*args, **kw)
+        c_early = tr.COUNTS["chunks"]
+        full, _ = tr._rasterize_tiled(*args, early_exit=False, **kw)
+        c_full = tr.COUNTS["chunks"] - c_early
+        check(torch.equal(early, full), f"{name}: the early exit changed the image")
+        check(c_early < c_full or name != "stack", f"{name}: no early exit ({c_early})")
+        out[f"early_exit_{name}_chunks"] = [c_early, c_full]
+
+    # the card against the CPU on a gaussian_scene, with room for every
+    # entry (at 4096 a tile would clip, and one cull decision rounded apart
+    # would change which entries a tile keeps)
+    gs = synth.gaussian_scene(N_RENDER_CPU, seed=0)
+    vms, Ks, W, H = scene_cameras(np, gs["means"], 2, 128)
+    errs = []
+    for v in range(2):
+        args = (*(gs[k] for k in ("means", "quats", "scales", "opacities", "colors")), vms[v],
+                Ks[v], W, H)
+        g_img, g_meta = tr.rasterize_gaussians(*args, max_per_tile=16384)
+        c_img, c_meta = tr.rasterize_gaussians(*args, max_per_tile=16384, device="cpu")
+        counts = [(int(m.dup_clipped), int(m.tile_clipped)) for m in (g_meta, c_meta)]
+        errs.append(float(np.abs(g_img - c_img).max()))
+        check(counts[0] == counts[1] and errs[-1] <= RENDER_CPU_TOL,
+              f"view {v}: card against CPU {errs[-1]}, counters {counts}")
+    out.update(cpu_err=errs, cpu_counters=counts[0])
+    say("render_checks", **{k: json.dumps(v) if isinstance(v, (dict, list)) else v
+                            for k, v in out.items()})
+    return out
+
+
+def colour_max(torch, params, viewmats) -> float:
+    """The largest SH colour any Gaussian of the scene takes in these views:
+    a blended pixel is a convex combination of colours and the white
+    background, so no pixel exceeds max(1, this)."""
+    from raht3dgs_tpu_torch.eval import rasterize as tr
+
+    f32 = torch.float32
+    means = torch.as_tensor(params["means"], dtype=f32, device=CARD)
+    sh, deg = tr._colors_to_sh(torch.as_tensor(params["colors"], dtype=f32, device=CARD))
+    top = 0.0
+    for vm in viewmats:
+        R = torch.as_tensor(vm[:3, :3], dtype=f32, device=CARD)
+        t = torch.as_tensor(vm[:3, 3], dtype=f32, device=CARD)
+        d = means + R.T @ t
+        d = d / torch.clamp(torch.linalg.vector_norm(d, dim=1, keepdim=True), min=1e-12)
+        top = max(top, float(tr.eval_sh(sh, d, deg).max()))
+    return top
+
+
+def phase_render(torch, ds):
+    """Phase 9: the render comparison. (a) :func:`render_checks`; (b) at full
+    width, the three 3DGS CLIs' render paths from PLYs in a temporary
+    directory, each asserting the backend, the device, finite PSNRs and the
+    pixel range; then every view of the 2e6-Gaussian scene and of its
+    487 180-voxel merge timed (CUDA events, a warm-up first) with its
+    retries, overflow counts, chunks, syncs and peak memory."""
+    import contextlib
+    import csv
+    import math
+    import os
+    import tempfile
+    import warnings
+
+    import numpy as np
+
+    from raht3dgs_tpu_torch.cli import encode_3dgs, encode_3dgs_debug, voxelize_3dgs
+    from raht3dgs_tpu_torch.config import GsCodecConfig
+    from raht3dgs_tpu_torch.eval import rasterize as tr, render as trr
+    from raht3dgs_tpu_torch.io.ply import read_compressed_3dgs_ply, save_ply_3dgs
+    from raht3dgs_tpu_torch.models.gs_voxelize import GS_KEYS
+    from raht3dgs_tpu_torch.utils import synth
+
+    out = {"checks": render_checks(torch)}
+    rec = {"metas": [], "images": [], "results": []}
+    originals = (tr.rasterize_gaussians, trr.volumetric_render, trr.render_comparison)
+
+    def raster(*a, **k):
+        img, meta = originals[0](*a, **k)
+        rec["metas"].append((meta.dup_clipped.device.type, int(meta.dup_clipped),
+                             int(meta.tile_clipped), k["max_tiles_per_gauss"],
+                             k["max_per_tile"]))
+        return img, meta
+
+    def volumetric(params, viewmats, *a, **k):
+        imgs = originals[1](params, viewmats, *a, **k)
+        rec["images"].append((float(imgs.min()), float(imgs.max()),
+                              max(1.0, colour_max(torch, params, viewmats))))
+        return imgs
+
+    def compare(*a, **k):
+        res = originals[2](*a, **k)
+        rec["results"].append(res)
+        return res
+
+    @contextlib.contextmanager
+    def recorded(images=True):
+        """Record every rasterized view's overflow counts and, with
+        ``images``, every comparison and its pixel range (which costs a pass
+        over the scene: not inside a timed region)."""
+        for r in rec.values():
+            r.clear()
+        tr.rasterize_gaussians = raster
+        if images:
+            trr.volumetric_render, trr.render_comparison = volumetric, compare
+        try:
+            yield
+        finally:
+            tr.rasterize_gaussians, trr.volumetric_render, trr.render_comparison = originals
+
+    def run(name, cli, argv):
+        """One CLI run, recorded: its wall, scan launches, peak memory, and
+        every render comparison's backend, devices, PSNRs and pixel range."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ds.reset_launches()
+        tr.reset_counts()
+        with recorded(), warnings.catch_warnings(record=True) as warned:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            check(cli.main(argv) == 0, f"{name} failed")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        check(rec["results"] and all(r.get("backend") == "jax" for r in rec["results"]),
+              f"{name}: backends {[r.get('backend') for r in rec['results']]}")
+        check({m[0] for m in rec["metas"]} == {CARD}, f"{name}: rasterized off the card")
+        psnrs = [r["psnr_per_view"] for r in rec["results"]]
+        check(all(math.isfinite(p) for v in psnrs for p in v), f"{name}: PSNR {psnrs}")
+        for lo, hi, top in rec["images"]:
+            check(lo >= 0.0 and hi <= top + PIXEL_TOL, f"{name}: pixels in [{lo}, {hi}], "
+                  f"colours up to {top}")
+        row = {"wall_s": wall, "psnr_avg": [r["psnr_avg"] for r in rec["results"]],
+               "psnr_per_view": psnrs, "launches": dict(ds.LAUNCHES),
+               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "views": tr.COUNTS["views"], "chunks": tr.COUNTS["chunks"],
+               "syncs": tr.COUNTS["syncs"],
+               "render_ms": [[r["original_render_time_ms"], r["merged_render_time_ms"]]
+                             for r in rec["results"]],
+               "pixels": [list(x) for x in rec["images"]],
+               "overflow_warnings": [str(w.message) for w in warned
+                                     if "overflow" in str(w.message)]}
+        say(f"render_{name}", **{k: json.dumps(v) if isinstance(v, (dict, list)) else v
+                                 for k, v in row.items()})
+        return row
+
+    scene = synth.gaussian_scene(N_GS, seed=0)
+    with tempfile.TemporaryDirectory() as tmp:
+        scene_ply = os.path.join(tmp, "scene.ply")
+        save_ply_3dgs(scene_ply, *(scene[k] for k in GS_KEYS))
+        odir = os.path.join(tmp, "vox")
+        comp = os.path.join(odir, "compressed_Nvox_gaussians.ply")
+        out["voxelize_3dgs"] = run("voxelize_3dgs", voxelize_3dgs, [
+            "--ply", scene_ply, "--depth", str(DEPTH), "--output-dir", odir,
+            "--csv", os.path.join(tmp, "vox.csv")])
+        with open(os.path.join(tmp, "vox.csv")) as f:
+            nvox = int(list(csv.DictReader(f))[0]["N_vox"])
+        check(nvox == GS_NVOX, f"voxelize_3dgs: {nvox} voxels")
+        check(len(rec["results"]) == 1 and len(rec["results"][0]["psnr_per_view"])
+              == RENDER_VIEWS and rec["images"] and len(rec["metas"]) >= 2 * RENDER_VIEWS,
+              "voxelize_3dgs: not one comparison of 5 views a scene")
+        enc_argv = ["--input", comp, "--depth", str(DEPTH), "--dtype", "float32",
+                    "--bucket", str(BUCKET), "--csv", os.path.join(tmp, "gs.csv")]
+        out["encode_3dgs"] = run("encode_3dgs", encode_3dgs, enc_argv + ["--render", "auto"])
+        out["encode_3dgs_debug"] = run("encode_3dgs_debug", encode_3dgs_debug, [
+            "--input", comp, "--depth", str(DEPTH), "--dtype", "float32", "--bucket",
+            str(BUCKET), "--ablation", "--image-size", str(ABLATION_SIZE)])
+        check(len(rec["results"]) == 4, "the ablation: not one comparison a group")
+        V, A, vsize, vmin = read_compressed_3dgs_ply(comp)
+
+    n_steps = len(GsCodecConfig.steps)
+    check(out["voxelize_3dgs"]["launches"] == {"ds_cumsum": 0, "ds_cumsum_t": 0,
+                                               "ds_cumsum_batched": 0}
+          and out["encode_3dgs"]["launches"] == {"ds_cumsum": 1,
+                                                 "ds_cumsum_t": 2 * (n_steps + 1),
+                                                 "ds_cumsum_batched": 0}
+          and out["encode_3dgs_debug"]["launches"] == {"ds_cumsum": 1, "ds_cumsum_t": 2,
+                                                       "ds_cumsum_batched": 0},
+          "scan launches on the render paths")
+
+    # every view of both scenes, timed one at a time on a scene already on
+    # the card, with its retries and what they left
+    merged = {"means": (V.astype(np.float64) + 0.5) * vsize + vmin, "quats": A[:, 0:4],
+              "scales": A[:, 4:7], "opacities": A[:, 7], "colors": A[:, 8:]}
+    vms, Ks, W, H = scene_cameras(np, scene["means"], RENDER_VIEWS, RENDER_SIZE)
+    out["views"] = {}
+    for name, params in (("original_2e6", scene), ("merged_487k", merged)):
+        on_card = {k: torch.as_tensor(params[k], dtype=torch.float32, device=CARD)
+                   for k in GS_KEYS}
+        rows = []
+        with recorded(images=False), warnings.catch_warnings():
+            warnings.simplefilter("ignore")   # overflow after the retries is counted below
+            trr.volumetric_render(on_card, vms[:1], Ks[:1], W, H)   # warm-up
+            for v in range(RENDER_VIEWS):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                tr.reset_counts()
+                n0 = len(rec["metas"])
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                trr.volumetric_render(on_card, vms[v:v + 1], Ks[v:v + 1], W, H)
+                end.record()
+                end.synchronize()
+                metas = rec["metas"][n0:]
+                rows.append({"ms": start.elapsed_time(end), "retries": len(metas) - 1,
+                             "dup_clipped": metas[-1][1], "tile_clipped": metas[-1][2],
+                             "caps": list(metas[-1][3:]), "chunks": tr.COUNTS["chunks"],
+                             "syncs": tr.COUNTS["syncs"],
+                             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+        del on_card
+        out["views"][name] = rows
+        say("render_views", scene=name, n=len(params["means"]), size=RENDER_SIZE,
+            ms=json.dumps([r["ms"] for r in rows]),
+            retries=json.dumps([r["retries"] for r in rows]),
+            dup_clipped=json.dumps([r["dup_clipped"] for r in rows]),
+            tile_clipped=json.dumps([r["tile_clipped"] for r in rows]),
+            caps=json.dumps([r["caps"] for r in rows]),
+            chunks=json.dumps([r["chunks"] for r in rows]),
+            syncs=json.dumps([r["syncs"] for r in rows]),
+            peak_mem_gib=json.dumps([r["peak_mem_gib"] for r in rows]))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1290,13 +1591,16 @@ def main() -> int:
     cli = phase_cli(torch, ds)
     gs = phase_gs(torch, ds)
     data = phase_dataset(torch, ds)
+    render = phase_render(torch, ds)
     add_device_ms(torch, ds, vox["pack"], vox_vals)
     say("voxelize", **{k: json.dumps(v) if isinstance(v, (dict, list)) else v
                        for k, v in vox["pack"].items()})
     # every path's counts, each read around a run that began from zero
     paths = {"codec_j10": results[DEPTH]["launches"], "cli": cli["launches"],
              "segment_sums_prefix": vox["prefix"]["launches"], "gs_cli": gs["cli"]["launches"],
-             "dataset_batch": data["batch"]["launches"], "dataset_loop": data["loop"]["launches"]}
+             "dataset_batch": data["batch"]["launches"], "dataset_loop": data["loop"]["launches"],
+             **{f"render_{name}": render[name]["launches"]
+                for name in ("voxelize_3dgs", "encode_3dgs", "encode_3dgs_debug")}}
     rows.append(data["row"])
     for row in rows:
         # `launches`: the codec's main path (phase 3) for the single entry,

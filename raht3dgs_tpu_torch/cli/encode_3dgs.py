@@ -3,15 +3,16 @@
 Counterpart of ``raht3dgs_tpu/cli/encode_3dgs.py``: reads a voxelized-3DGS
 PLY (from ``voxelize_3dgs``), runs the RD sweep over all 56 attribute
 channels on CUDA (unless ``--platform cpu``) and logs the reference's
-19-column CSV. Example:
+19-column CSV; ``--render`` renders the finest step's reconstruction
+against the input scene (``auto`` takes the package's own volumetric
+rasterizer, named ``jax``, when gsplat is absent). Example:
 
     python -m raht3dgs_tpu_torch.cli.encode_3dgs \\
         --input output_compressed/compressed_Nvox_gaussians.ply --depth 10
 
 ``--tiles`` (ROADMAP queue A, item 15), ``--target-bpp`` (item 14),
-``--code-geometry`` and ``--entropy rac|auto`` (item 12), ``--predict``
-(item 13) and ``--render`` other than ``none`` (item 16) are not ported
-yet and exit naming their item.
+``--code-geometry`` and ``--entropy rac|auto`` (item 12) and ``--predict``
+(item 13) are not ported yet and exit naming their item.
 """
 
 from __future__ import annotations
@@ -47,8 +48,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--render", choices=("auto", "gsplat", "jax", "preview", "none"),
         default="none",
-        help="render comparison of the reconstruction (only 'none' is ported: "
-        "ROADMAP queue A, item 16)",
+        help="render comparison of the finest step's reconstruction against "
+        "the input ('jax': the package's own volumetric rasterizer)",
     )
     p.add_argument("--save-streams", default=None,
                    help="directory to write .r3tc frame bitstreams")
@@ -85,8 +86,6 @@ def main(argv=None) -> int:
         raise not_ported(f"--entropy {args.entropy}", 12, "the RAC coder")
     if args.predict:
         raise not_ported("--predict", 13, "predicted RAHT")
-    if args.render != "none":
-        raise not_ported(f"--render {args.render}", 16, "the render comparison")
     device = resolve_device(args.platform)
     with maybe_profile(args, device):
         return _run(args, device)
@@ -121,7 +120,7 @@ def _run(args, device) -> int:
     points = encode_gs_frame(
         V_int, attrs, depth=args.depth, steps=args.steps,
         group_step_scales=group_scales, bucket=args.bucket, dtype=dtype,
-        keep_streams=bool(args.save_streams), codec=codec,
+        keep_streams=bool(args.save_streams or args.render != "none"), codec=codec,
         vmin=vmin, width=float(voxel_size) * (1 << args.depth),
     )
     log = CsvLogger(args.csv or "results/runtime_3dgs.csv", CSV_HEADER)
@@ -138,7 +137,45 @@ def _run(args, device) -> int:
             out.mkdir(parents=True, exist_ok=True)
             (out / f"gs_step{pt.step:g}.r3tc").write_bytes(pt.encoded.stream.to_bytes())
     log.close()
+
+    if args.render != "none":
+        render_finest(args, points, codec, V_int, attrs, voxel_size, vmin, device)
     return 0
+
+
+def render_finest(args, points, codec, V_int, attrs, voxel_size, vmin, device) -> None:
+    """Decode the finest step and render it against the input scene, both
+    at the voxel centres, the reference's world mapping."""
+    import numpy as np
+
+    from raht3dgs_tpu_torch.eval.render import render_comparison
+    from raht3dgs_tpu_torch.models.pipeline import prepare_voxel_frame
+    from raht3dgs_tpu_torch.utils.synth import morton_codes_np
+
+    finest = min(points, key=lambda p: p.step)
+    frame = prepare_voxel_frame(V_int, attrs.astype(np.float64), args.depth,
+                                bucket=args.bucket, dtype=codec.dtype, device=device)
+    rec, _ = codec.decode(finest.encoded.stream, frame.codes, frame.weights)
+    world = (V_int.astype(np.float64) + 0.5) * voxel_size + vmin
+    # decoded rows are in Morton order; re-sort the originals to match
+    sort = np.argsort(morton_codes_np(V_int, args.depth), kind="stable")
+    original = {
+        "means": world[sort],
+        "quats": attrs[sort, 0:4],
+        "scales": attrs[sort, 4:7],
+        "opacities": attrs[sort, 7],
+        "colors": attrs[sort, 8:],
+    }
+    recon = {
+        "means": world[sort],
+        "quats": rec[:, 0:4],
+        "scales": np.abs(rec[:, 4:7]),
+        "opacities": np.clip(rec[:, 7], 0, 1),
+        "colors": rec[:, 8:],
+    }
+    m = render_comparison(original, recon, backend=args.render, device=device)
+    if m:
+        print(f"render PSNR ({m['backend']}): {m['psnr_avg']:.2f} dB")
 
 
 if __name__ == "__main__":

@@ -3,13 +3,12 @@
 Counterpart of ``raht3dgs_tpu/cli/encode_3dgs_debug.py``: prints the three
 step-allocation strategies for the actual coefficient ranges, then encodes
 with one strategy's per-attribute steps and reports rate and per-group
-PSNR, on CUDA unless ``--platform cpu``. Example:
+PSNR, on CUDA unless ``--platform cpu``; with ``--ablation``, measures
+which attribute group's quantization error hurts rendering most (one
+reconstructed group at a time through the render comparison). Example:
 
     python -m raht3dgs_tpu_torch.cli.encode_3dgs_debug \\
-        --input compressed_Nvox_gaussians.ply --depth 10
-
-``--ablation`` (the rendering ablation) is not ported yet and exits naming
-ROADMAP queue A, item 16.
+        --input compressed_Nvox_gaussians.ply --depth 10 --ablation
 """
 
 from __future__ import annotations
@@ -22,7 +21,6 @@ import numpy as np
 from raht3dgs_tpu_torch.cli._common import (
     add_runtime_args,
     maybe_profile,
-    not_ported,
     torch_dtype,
 )
 from raht3dgs_tpu_torch.utils.device import resolve_device
@@ -39,8 +37,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--strategy", choices=("range", "importance", "hybrid"),
                    default="importance")
     p.add_argument("--ablation", action="store_true",
-                   help="run the per-attribute rendering ablation (not ported "
-                   "yet: ROADMAP queue A, item 16)")
+                   help="run the per-attribute rendering ablation")
     p.add_argument("--views", type=int, default=5)
     p.add_argument("--image-size", type=int, default=256)
     p.add_argument("--render", choices=("auto", "gsplat", "jax", "preview", "none"),
@@ -51,8 +48,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.ablation:
-        raise not_ported("--ablation", 16, "the rendering ablation")
     device = resolve_device(args.platform)
     with maybe_profile(args, device):
         return _run(args, device)
@@ -62,6 +57,7 @@ def _run(args, device) -> int:
     from raht3dgs_tpu_torch.eval.metrics import gs_group_psnr
     from raht3dgs_tpu_torch.io.ply import read_compressed_3dgs_ply
     from raht3dgs_tpu_torch.models.gs_quant_analysis import (
+        attribute_ablation,
         coefficient_ranges,
         per_group_step_vector,
         quantization_strategy_report,
@@ -72,7 +68,7 @@ def _run(args, device) -> int:
     from raht3dgs_tpu_torch.models.pipeline import AttributeCodec, prepare_voxel_frame
     from raht3dgs_tpu_torch.utils.synth import morton_codes_np
 
-    V_int, attrs, _, _ = read_compressed_3dgs_ply(args.input)
+    V_int, attrs, voxel_size, vmin = read_compressed_3dgs_ply(args.input)
     dtype = torch_dtype(args.dtype)
     depth = args.depth
     frame = prepare_voxel_frame(V_int, attrs.astype(np.float64), depth,
@@ -96,11 +92,24 @@ def _run(args, device) -> int:
     enc = codec.encode(frame, steps=step_vec, coeffs=coeffs, order=order)
     rec, _ = codec.decode(enc.stream, frame.codes, frame.weights)
     sort = np.argsort(morton_codes_np(V_int, depth), kind="stable")
-    psnr = gs_group_psnr(attrs[sort].astype(np.float64), rec)
+    ref_sorted = attrs[sort].astype(np.float64)
+    psnr = gs_group_psnr(ref_sorted, rec)
     print(f"\n=== {args.strategy.upper()} STRATEGY ENCODE ===")
     print(f"rate: {enc.stream.bpp():.4f} bpp ({enc.stream.payload_bytes} bytes)")
     for k in ("psnr_all", "psnr_quats", "psnr_scales", "psnr_opacity", "psnr_colors"):
         print(f"  {k}: {psnr[k]:.2f} dB")
+
+    if args.ablation:
+        # voxel centres, the reference's world mapping
+        world = (V_int[sort].astype(np.float64) + 0.5) * voxel_size + vmin
+        print("\n=== RENDERING ABLATION (one reconstructed group at a time) ===")
+        result = attribute_ablation(world, ref_sorted, rec, n_views=args.views,
+                                    image_size=args.image_size, backend=args.render,
+                                    device=device)
+        for name, p in sorted(result.items(), key=lambda kv: kv[1]):
+            print(f"  {name:8s}: {p:.2f} dB")
+        worst = min(result, key=result.get)
+        print(f"most impactful attribute: {worst}")
     return 0
 
 

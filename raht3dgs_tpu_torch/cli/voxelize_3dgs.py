@@ -2,15 +2,13 @@
 
 Counterpart of ``raht3dgs_tpu/cli/voxelize_3dgs.py``: a gsplat checkpoint
 or a 3DGS PLY -> voxelize + merge on CUDA (unless ``--platform cpu``) ->
-compressed PLY with voxel metadata -> the reference's 15-column runtime
-CSV. Example:
+compressed PLY with voxel metadata -> the render comparison of the
+original against the merged scene (``--render``; ``auto`` falls to the
+package's own volumetric rasterizer, named ``jax`` as in the JAX package,
+when gsplat is absent) -> the reference's 15-column runtime CSV. Example:
 
     python -m raht3dgs_tpu_torch.cli.voxelize_3dgs --ckpt ckpt.pt \\
-        --depth 10 --output-dir output_compressed --render none
-
-The render comparison (every ``--render`` but ``none``, the default
-``auto`` included) is not ported yet and exits naming ROADMAP queue A,
-item 16.
+        --depth 10 --output-dir output_compressed --render auto
 """
 
 from __future__ import annotations
@@ -25,7 +23,6 @@ from raht3dgs_tpu_torch.cli._common import (
     CsvLogger,
     add_runtime_args,
     maybe_profile,
-    not_ported,
 )
 from raht3dgs_tpu_torch.config import VoxelizeConfig
 from raht3dgs_tpu_torch.utils.device import resolve_device
@@ -53,8 +50,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--render", choices=("auto", "gsplat", "jax", "preview", "none"),
         default="auto",
-        help="render-comparison backend (only 'none' is ported: ROADMAP queue "
-        "A, item 16)",
+        help="render-comparison backend ('jax': the package's own volumetric "
+        "rasterizer, which 'auto' takes when gsplat is absent)",
     )
     p.add_argument("--views", type=int, default=5)
     p.add_argument("--image-size", type=int, default=512)
@@ -91,15 +88,13 @@ def _load_params(args):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.render != "none":
-        raise not_ported(f"--render {args.render}", 16, "the render comparison")
     device = resolve_device(args.platform)
     with maybe_profile(args, device):
         return _run(args, device)
 
 
 def _run(args, device) -> int:
-    from raht3dgs_tpu_torch.models.gs_voxelize import compress_to_nvox
+    from raht3dgs_tpu_torch.models.gs_voxelize import compress_to_nvox, world_positions
 
     params, name = _load_params(args)
     result = compress_to_nvox(params, depth=args.depth,
@@ -118,6 +113,28 @@ def _run(args, device) -> int:
         comp_mb = os.path.getsize(comp) / 1e6
         reduction = (1 - comp_mb / orig_mb) * 100 if orig_mb else 0.0
         print(f"Files: {orig_mb:.2f} MB -> {comp_mb:.2f} MB ({reduction:.1f}% smaller)")
+
+    if args.render != "none":
+        from raht3dgs_tpu_torch.eval.render import render_comparison
+
+        r = slice(0, k)
+        merged = {
+            "means": world_positions(result),
+            "quats": result.quats[r],
+            "scales": result.scales[r],
+            "opacities": result.opacities[r],
+            "colors": result.colors[r],
+        }
+        metrics = render_comparison(
+            params, merged, n_views=args.views, image_size=args.image_size,
+            backend=args.render, output_dir=args.render_dir, device=device,
+        )
+        if metrics:
+            print(
+                f"Render PSNR ({metrics['backend']}): "
+                f"{metrics['psnr_avg']:.2f} +- {metrics['psnr_std']:.2f} dB "
+                f"[{metrics['psnr_min']:.2f}, {metrics['psnr_max']:.2f}]"
+            )
 
     log = CsvLogger(args.csv or "results/runtime_voxelize_3dgs.csv", CSV_HEADER)
     log.row(

@@ -2,8 +2,7 @@
 
 Counterpart of ``raht3dgs_tpu/config.py``: the reference codec's tuning
 constants as dataclass defaults, for the colour and the 3DGS workloads.
-The JAX compile cache field has no counterpart; the rendering config comes
-with the renderer (ROADMAP queue A, item 16).
+The JAX compile cache field has no counterpart.
 """
 
 from __future__ import annotations
@@ -49,3 +48,14 @@ class VoxelizeConfig:
     depth: int = 10
     weight_by_opacity: bool = True
     output_dir: Optional[str] = "output_compressed"
+
+
+@dataclass
+class RenderEvalConfig:
+    """Rendering comparison (the reference's try_render_comparison)."""
+
+    backend: str = "auto"                   # auto | gsplat | jax | preview | none
+    n_views: int = 5
+    image_size: int = 512
+    seed: int = 0
+    output_dir: Optional[str] = None

@@ -1,11 +1,11 @@
 """Per-attribute quantization strategies for the 3DGS payload.
 
 Counterpart of ``raht3dgs_tpu/models/gs_quant_analysis.py`` (the research
-toolkit of the reference's 3DGS debug script), in numpy on the host:
+toolkit of the reference's 3DGS debug script): in numpy on the host,
 three step allocations over the coefficients' dynamic ranges
 (range-normalized, importance-weighted by 1/ablation-PSNR, and their 50/50
-hybrid) and per-group step vectors. The rendering ablation needs the
-renderer and comes with it (ROADMAP queue A, item 16).
+hybrid) and per-group step vectors; on the device, the rendering
+ablation (one reconstructed group at a time through ``eval/render.py``).
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ from typing import Dict, Mapping, Tuple
 import numpy as np
 
 from raht3dgs_tpu_torch.ops.quantize import GS_ABLATION_PSNR_DB, GS_ATTRIBUTE_GROUPS
+from raht3dgs_tpu_torch.utils.device import DeviceLike
 
 
 def coefficient_ranges(
@@ -104,9 +105,42 @@ def per_group_step_vector(
     return out
 
 
-def attribute_ablation(*args, **kwargs) -> Dict[str, float]:
-    """Render-PSNR with one reconstructed attribute group at a time: needs
-    the renderer, which is not ported yet."""
-    raise NotImplementedError(
-        "attribute_ablation renders the scene; the renderer is not ported yet "
-        "(ROADMAP queue A, item 16)")
+def attribute_ablation(
+    positions_world: np.ndarray,
+    original_attrs: np.ndarray,
+    reconstructed_attrs: np.ndarray,
+    n_views: int = 5,
+    image_size: int = 256,
+    backend: str = "auto",
+    groups: Mapping[str, Tuple[int, int]] = GS_ATTRIBUTE_GROUPS,
+    seed: int = 0,
+    device: DeviceLike = None,
+) -> Dict[str, float]:
+    """Render-PSNR when substituting ONE reconstructed group at a time,
+    rendered on CUDA unless ``device="cpu"``.
+
+    Low PSNR => that attribute's quantization error hurts rendering most
+    (the study that produced GS_ABLATION_PSNR_DB).
+    """
+    from raht3dgs_tpu_torch.eval.render import render_comparison
+
+    def scene_from(attrs):
+        return {
+            "means": positions_world,
+            "quats": attrs[:, 0:4],
+            "scales": np.abs(attrs[:, 4:7]),
+            "opacities": np.clip(attrs[:, 7], 0, 1),
+            "colors": attrs[:, 8:],
+        }
+
+    original_scene = scene_from(np.asarray(original_attrs))
+    out: Dict[str, float] = {}
+    for name, (lo, hi) in groups.items():
+        mixed = np.asarray(original_attrs).copy()
+        mixed[:, lo:hi] = np.asarray(reconstructed_attrs)[:, lo:hi]
+        metrics = render_comparison(
+            original_scene, scene_from(mixed), n_views=n_views,
+            image_size=image_size, backend=backend, seed=seed, device=device,
+        )
+        out[name] = metrics.get("psnr_avg", float("nan"))
+    return out

@@ -4,6 +4,7 @@
     python3 scripts/profile_torch_port.py [--depth 10] [--n 500000] [--seed 0]
     python3 scripts/profile_torch_port.py --scan [--reps 5] [--against ROOT]
     python3 scripts/profile_torch_port.py --gs 2000000 [--depth 10] [--seed 0]
+    python3 scripts/profile_torch_port.py --render 2000000 [--size 512] [--seed 0]
 
 Same frame as ``chip_smoke.py`` phase 3 (unique voxels, D=3, bucket 2^19,
 float32, step 16). After a warm-up frame, one encode + decode runs under
@@ -37,6 +38,16 @@ times: a warm-up, one under ``cProfile`` (host functions by own and
 cumulative time; the profiler's cost per Python call inflates
 Python-heavy functions) and one under ``torch.profiler`` (the device's
 busy share of the wall and kernel time by name).
+
+``--render N`` splits one view of the render comparison: a seeded scene
+of N Gaussians and its merge at ``--depth`` (``compress_to_nvox``), each
+on the card, rendered from the comparison's first camera at ``--size``
+by ``rasterize_gaussians`` at each tile capacity of ``volumetric_render``'s
+retries (1024, 4096, 16384) and at 0, where the blend runs no chunk: CUDA
+events, median of 3 after a warm-up, with the chunks, host syncs and
+overflow of each; the difference to capacity 0 is the blend's time. Then
+one call at 16384 under ``torch.profiler``: the device's busy share of
+its wall and kernel time by name.
 """
 
 from __future__ import annotations
@@ -205,6 +216,65 @@ def gs_profile(torch, args) -> dict:
     }
 
 
+def render_profile(torch, args) -> dict:
+    """``--render``: where a view of the render comparison goes."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from chip_smoke import scene_cameras
+    from raht3dgs_tpu_torch.eval import rasterize as tr
+    from raht3dgs_tpu_torch.models.gs_voxelize import GS_KEYS, compress_to_nvox, world_positions
+    from raht3dgs_tpu_torch.utils.synth import gaussian_scene
+
+    scene = gaussian_scene(args.render, args.seed)
+    res = compress_to_nvox(scene, depth=args.depth)
+    r = slice(0, res.n_voxels)
+    merged = {"means": world_positions(res), "quats": res.quats[r], "scales": res.scales[r],
+              "opacities": res.opacities[r], "colors": res.colors[r]}
+    vms, Ks, W, H = scene_cameras(np, scene["means"], 1, args.size)
+    out = {"size": args.size}
+    for name, params in (("original", scene), ("merged", merged)):
+        t = [torch.as_tensor(params[k], dtype=torch.float32, device="cuda") for k in GS_KEYS]
+
+        def call(cap):
+            return tr.rasterize_gaussians(*t, vms[0], Ks[0], W, H, max_per_tile=cap)
+
+        row = {"n": len(params["means"])}
+        for cap in (0, 1024, 4096, 16384):
+            call(cap)
+            times = []
+            for _ in range(3):
+                tr.reset_counts()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                _, meta = call(cap)
+                end.record()
+                end.synchronize()
+                times.append(start.elapsed_time(end))
+            row[f"cap_{cap}"] = {"ms": statistics.median(times), "chunks": tr.COUNTS["chunks"],
+                                 "syncs": tr.COUNTS["syncs"],
+                                 "tile_clipped": int(meta.tile_clipped)}
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            call(16384)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+        dev_events = _device_events(torch, prof)
+        by_name = {}
+        for e in dev_events:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+        busy_s = _busy_us(dev_events) / 1e6
+        row["profile_16384"] = {
+            "wall_ms": wall_s * 1e3, "device_busy_ms": busy_s * 1e3,
+            "device_busy_share": busy_s / wall_s, "kernels": len(dev_events),
+            "top_kernels_ms": [[n[:90], ms] for n, ms in
+                               sorted(by_name.items(), key=lambda kv: -kv[1])[:args.top]]}
+        out[name] = row
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--depth", type=int, default=10)
@@ -216,6 +286,9 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--gs", type=int, metavar="N",
                     help="split the wall time of the 3DGS sweep CLI on N Gaussians")
+    ap.add_argument("--render", type=int, metavar="N",
+                    help="split one view of the render comparison on N Gaussians")
+    ap.add_argument("--size", type=int, default=512, help="with --render: image size")
     ap.add_argument("--against", metavar="ROOT",
                     help="with --scan: also time the scan of the checkout at "
                          "ROOT, in turns with this one, in the same process")
@@ -252,6 +325,9 @@ def main() -> int:
         return 0
     if args.gs:
         print(json.dumps({"card": card, "gs": gs_profile(torch, args)}))
+        return 0
+    if args.render:
+        print(json.dumps({"card": card, "render": render_profile(torch, args)}))
         return 0
     from raht3dgs_tpu_torch.codec.bitstream import FrameStream
     from raht3dgs_tpu_torch.models import pipeline as tp

@@ -294,8 +294,11 @@ def test_quant_analysis_matches_jax(rng):
     assert tqa.quantization_strategy_report(coeffs, 8.0) == \
         jqa.quantization_strategy_report(coeffs, 8.0)
     np.testing.assert_array_equal(tqa.per_group_step_vector(s2), jqa.per_group_step_vector(s2))
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tqa.attribute_ablation(coeffs[:, :3], coeffs, coeffs)
+    # the rendering ablation: a scene against itself renders equal images
+    kw = dict(n_views=2, image_size=32)
+    got = tqa.attribute_ablation(coeffs[:, :3], coeffs, coeffs, device="cpu", **kw)
+    assert got == jqa.attribute_ablation(coeffs[:, :3], coeffs, coeffs, **kw) == \
+        {k: float("inf") for k in jq.GS_ATTRIBUTE_GROUPS}
 
 
 @pytest.mark.parametrize("kw", [{}, {"level_budget": 300.0},

@@ -11,6 +11,7 @@ decode of the same stream.
 
 import glob
 import os
+import re
 import subprocess
 import sys
 
@@ -170,16 +171,12 @@ def test_voxelize_3dgs_subprocess(ckpt, tmp_path):
 
 
 @pytest.mark.parametrize("cli,extra,item", [
-    (tvox, [], 16),                          # the JAX default --render auto
-    (tvox, ["--render", "preview"], 16),
     (tenc, ["--tiles", "3"], 15),
     (tenc, ["--target-bpp", "1.0"], 14),
     (tenc, ["--code-geometry"], 12),
     (tenc, ["--entropy", "rac"], 12),
     (tenc, ["--entropy", "auto"], 12),
     (tenc, ["--predict"], 13),
-    (tenc, ["--render", "jax"], 16),
-    (tdbg, ["--ablation"], 16),
     (tdec, ["--no-positions"], 12),           # 3DGS streams without positions
 ])
 def test_unported_3dgs_options_exit_naming_their_item(tmp_path, cli, extra, item):
@@ -192,6 +189,86 @@ def test_unported_3dgs_options_exit_naming_their_item(tmp_path, cli, extra, item
         argv = ["--input", "x.ply", "--platform", "cpu"] + extra
     with pytest.raises(SystemExit, match=f"item {item}"):
         cli.main(argv)
+
+
+def _scene_ply(tmp_path, rng, n=800):
+    scene = tmp_path / "scene.ply"
+    save_ply_3dgs(scene, rng.uniform(-2, 2, (n, 3)), rng.normal(size=(n, 4)),
+                  np.abs(rng.normal(size=(n, 3))) * 0.05, rng.uniform(0, 1, n),
+                  rng.normal(size=(n, 48)) * 0.3)
+    return scene
+
+
+def _printed_psnrs(out):
+    """The numbers of the render lines a 3DGS CLI prints: the render
+    comparison's, or the ablation's one line a group."""
+    lines = out.splitlines()
+    if "=== RENDERING ABLATION (one reconstructed group at a time) ===" in lines:
+        lines = lines[lines.index("=== RENDERING ABLATION (one reconstructed group at a "
+                                  "time) ===") + 1:-1]
+    else:
+        lines = [ln for ln in lines if "PSNR (" in ln]
+    return lines, [[float(x) for x in re.findall(r"-?\d+\.\d+|inf", ln.split(":", 1)[1])]
+                   for ln in lines]
+
+
+@pytest.mark.parametrize("cli,extra,src", [
+    (tvox, [], "ckpt"),                       # the JAX default, --render auto
+    (tvox, [], "ply"),
+    (tvox, ["--render", "preview"], "ckpt"),
+    (tenc, ["--render", "jax"], "ckpt"),
+    (tenc, ["--render", "auto"], "ply"),
+    (tdbg, ["--ablation"], "ckpt"),
+])
+def test_render_options_match_jax_clis(ckpt, tmp_path, rng, no_jax_cache, capsys, cli, extra,
+                                       src):
+    """Each render choice of the three 3DGS CLIs against the JAX CLI on the
+    same files: the printed PSNRs within 0.011 dB (two decimals), the CSVs
+    as in the chains above; ``auto`` takes the package's rasterizer
+    (``jax``) with gsplat absent."""
+    path = ckpt if src == "ckpt" else _scene_ply(tmp_path, rng)
+    small = ["--views", "2", "--image-size", "64"]
+    if cli is not tvox:
+        voxply = str(_voxelize_both(tmp_path, f"--{src}", path)["t"])
+    capsys.readouterr()
+    outs = {}
+    for name, pkg in (("j", {tvox: jvox, tenc: jenc, tdbg: jdbg}[cli]), ("t", cli)):
+        csv = str(tmp_path / f"{name}.csv")
+        if cli is tvox:
+            argv = [f"--{src}", str(path), "--depth", "6", "--output-dir",
+                    str(tmp_path / f"vox_{name}"), "--render-dir", str(tmp_path / f"png_{name}"),
+                    "--csv", csv] + small
+        elif cli is tenc:
+            argv = ["--input", voxply, "--steps", "0.05", "0.5", "--csv", csv]
+        else:
+            argv = ["--input", voxply] + small
+        assert pkg.main(argv + ["--platform", "cpu"] + extra) == 0
+        outs[name] = capsys.readouterr().out
+        if cli is not tdbg:
+            outs[name + "csv"] = _csv(tmp_path / f"{name}.csv")
+    (jl, jn), (tl, tn) = _printed_psnrs(outs["j"]), _printed_psnrs(outs["t"])
+    assert [ln.split(":")[0] for ln in tl] == [ln.split(":")[0] for ln in jl] and tl
+    for a, b in zip(tn, jn):
+        assert len(a) == len(b) and all(x == y or abs(x - y) <= 0.011 for x, y in zip(a, b))
+    backend = "preview" if "preview" in extra else "jax"
+    if cli is not tdbg:
+        assert f"PSNR ({backend})" in tl[0]
+        (jh, jrows), (th, trows) = outs["jcsv"], outs["tcsv"]
+        assert th == jh and len(trows) == len(jrows)
+        for a, b in zip(trows, jrows):
+            if cli is tvox:
+                assert a[:5] == b[:5] and a[-3:] == b[-3:]
+            else:
+                assert a[:2] == b[:2] and abs(float(a[2]) - float(b[2])) <= 1e-3 * float(b[2])
+                for x, y in zip(a[15:], b[15:]):
+                    assert abs(float(x) - float(y)) <= 1e-6 + 1e-6
+    else:
+        assert sorted(ln.split()[0] for ln in tl) == ["colors", "opacity", "quats", "scales"]
+        assert all(all(np.isfinite(x)) for x in tn)
+        assert outs["t"].splitlines()[-1] == outs["j"].splitlines()[-1]  # the worst group
+    if cli is tvox:
+        pngs = sorted(p.name for p in (tmp_path / "png_t").iterdir())
+        assert pngs == sorted(p.name for p in (tmp_path / "png_j").iterdir()) and len(pngs) == 6
 
 
 def test_decode_3dgs_refuses_narrow_streams_and_plain_positions(tmp_path):
