@@ -6,8 +6,8 @@
 Phases, each printed on its own line, any failure exits nonzero:
 
 1. device and build: the card, torch/CUDA versions, and the seconds nvcc
-   (the scan kernel) and g++ (the RLGR coder) took, built in parallel from
-   the checkout's sources;
+   (the scan kernel) and g++ (the RLGR, RAC and geometry coders) took,
+   built in parallel from the checkout's sources;
 2. kernels against their plain PyTorch version on the card, at the main
    path's shapes (the forward's (2^19, 4) scan through ``ds_prefix_pack``,
    as the transform calls it), timed twice: the wrapper as the main path
@@ -97,7 +97,20 @@ Phases, each printed on its own line, any failure exits nonzero:
    colour) + 1e-5]; then each view of both scenes timed with CUDA events
    after a warm-up, with its retries, overflow counts after them, blend
    chunks, host syncs and peak device memory, and the scan launches read
-   around each CLI run.
+   around each CLI run;
+10. the entropy and geometry coders: phase 6's raw cloud through
+   ``encode_ply --code-geometry --entropy auto`` (one ext3 geometry section
+   shared by every step's stream; every channel no larger than phase 6's
+   RLGR stream nor than RAC alone; the same PSNRs), ``decode`` of the step-16
+   stream without ``--positions`` against the decode with them (rows
+   sorted by Morton code), a positions file with one voxel moved (exits),
+   ``--geometry-lod 6`` against ``decode_geometry_lod``; phase 7's merged
+   scene through ``encode_3dgs --code-geometry --entropy rac`` (the same
+   PSNRs) and ``decode --color-space 3dgs`` without positions against the
+   decode given the PLY; the golden fixture's RAC and auto float64 hashes
+   against the CPU's; the geometry coder's bits a voxel and host times
+   (ext3 and legacy) and RAC against RLGR per channel and per frame; the
+   scan launches around each CLI run, the same as with RLGR.
 
 Needs one CUDA card; imports nothing of JAX or of the JAX package.
 """
@@ -107,9 +120,11 @@ from __future__ import annotations
 import hashlib
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -245,10 +260,11 @@ def ptxas_summary(log: str) -> dict:
 
 def build_all():
     """Build every native library from the checkout's sources, in parallel."""
-    from raht3dgs_tpu_torch.codec.rlgr import NATIVE
+    from raht3dgs_tpu_torch.codec import geometry, rac, rlgr
     from raht3dgs_tpu_torch.ops.ds_scan import KERNEL
 
-    libs = {"nvcc ds_scan.cu": KERNEL, "g++ rlgr.cpp": NATIVE}
+    libs = {"nvcc ds_scan.cu": KERNEL, "g++ rlgr.cpp": rlgr.NATIVE,
+            "g++ rac.cpp": rac.NATIVE, "g++ geom.cpp": geometry.NATIVE}
     errors = []
 
     def run(lib):
@@ -662,9 +678,10 @@ def phase_voxelize(torch, ds):
     return out, vals
 
 
-def phase_cli(torch, ds):
+def phase_cli(torch, ds, keep):
     """Phase 6: encode_ply --voxelize over the 11-step grid and decode, in
-    process, from a binary PLY in a temporary directory."""
+    process, from a binary PLY in a temporary directory (the raw PLY and the
+    voxel positions' PLY move to ``keep`` for phase 10)."""
     import csv
     import math
     import os
@@ -740,8 +757,10 @@ def phase_cli(torch, ds):
         t0 = time.perf_counter()
         per_step = [codec.encode(vframe, s, coeffs=coeffs, order=order) for s in steps]
         per_step_s = time.perf_counter() - t0
+        channel_bytes = []
         for s, enc, one in zip(steps, sweep, per_step):
             blob = enc.stream.to_bytes()
+            channel_bytes.append([len(c) for c in enc.stream.channels])
             check(blob == one.stream.to_bytes(), f"encode_sweep step {s:g} != encode")
             with open(os.path.join(sdir, f"frame0001_step{s:g}.r3tc"), "rb") as f:
                 check(blob == f.read(), f"the CLI's stream at step {s:g} != encode_sweep")
@@ -780,6 +799,8 @@ def phase_cli(torch, ds):
         t0 = time.perf_counter()
         save_ply_ascii(os.path.join(tmp, "again.ply"), V2, want)
         write_s = time.perf_counter() - t0
+        for name in ("raw.ply", "pos.ply"):
+            os.replace(os.path.join(tmp, name), os.path.join(keep, name))
     for name in SINGLE:
         check(launches[name] >= 1, f"{name} not launched on the CLI path")
     # one forward pack; two weight scans per decode (11 in the sweep, 1 in the CLI)
@@ -793,6 +814,7 @@ def phase_cli(torch, ds):
            "bpp": [float(r["Rate_bpp"]) for r in rows]}
     say("cli", **{k: json.dumps(v) if isinstance(v, (dict, list)) else v
                   for k, v in out.items()})
+    out["channel_bytes"] = channel_bytes   # RLGR, per step and channel (phase 10)
     return out
 
 
@@ -862,8 +884,9 @@ def add_device_ms(torch, ds, row, x) -> None:
         device_ms(torch, lambda: ds.ds_prefix_pack(x))
 
 
-def phase_gs(torch, ds):
-    """Phase 7: the 3DGS path at full width. A 2e6-Gaussian scene voxelized
+def phase_gs(torch, ds, keep):
+    """Phase 7: the 3DGS path at full width (the merged PLY moves to
+    ``keep`` for phase 10). A 2e6-Gaussian scene voxelized
     and merged on the card against the CPU; the CLI chain voxelize_3dgs ->
     encode_3dgs (9 steps, 56 channels) -> decode --color-space 3dgs from a
     PLY in a temporary directory, with the scan launches read around it;
@@ -996,6 +1019,7 @@ def phase_gs(torch, ds):
         with open(os.path.join(tmp, "ck.csv")) as f:
             ck_vox = int(list(csv.DictReader(f))[0]["N_vox"])
         check(0 < ck_vox < N_GS_CKPT, f"voxelize_3dgs --ckpt: {ck_vox} voxels")
+        os.replace(comp, os.path.join(keep, "gs_vox.ply"))
     for name in SINGLE:
         check(launches[name] >= 1, f"{name} not launched on the 3DGS path")
     check(launches == {"ds_cumsum": 1, "ds_cumsum_t": 2 * (len(steps) + 1),
@@ -1565,6 +1589,274 @@ def phase_render(torch, ds):
     return out
 
 
+def host_ms(fn, reps: int = 5) -> float:
+    """Median wall time of a host call in ms (one warm-up first)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_entropy(torch, ds, cli, gs, keep):
+    """Phase 10: the RAC and geometry coders. ``encode_ply --code-geometry
+    --entropy auto`` on phase 6's raw cloud (one ext3 geometry section on
+    every step's stream, every channel no larger than phase 6's RLGR
+    stream, the same PSNRs), ``decode`` of one stream without and with
+    ``--positions`` (the same rows), a wrong positions file and
+    ``--geometry-lod 6``; ``encode_3dgs --code-geometry --entropy rac`` on
+    phase 7's merged scene and its decode without positions against the
+    one given the PLY; the golden fixture's RAC and auto hashes; the
+    coders' host times, with the scan launches read around each CLI run."""
+    import contextlib
+    import csv
+    import io
+    import os
+
+    import numpy as np
+
+    from raht3dgs_tpu_torch.cli import decode, encode_3dgs, encode_ply
+    from raht3dgs_tpu_torch.codec import geometry as tg
+    from raht3dgs_tpu_torch.codec.bitstream import FrameStream
+    from raht3dgs_tpu_torch.codec.rac import (
+        rac_decode,
+        rac_decode_channels,
+        rac_encode,
+        rac_encode_channels,
+    )
+    from raht3dgs_tpu_torch.codec.rlgr import (
+        rlgr_decode,
+        rlgr_decode_channels,
+        rlgr_encode,
+        rlgr_encode_channels,
+    )
+    from raht3dgs_tpu_torch.config import ColorCodecConfig, GsCodecConfig
+    from raht3dgs_tpu_torch.io.ply import read_compressed_3dgs_ply, read_ply, read_ply_8i
+    from raht3dgs_tpu_torch.models import pipeline as tp
+    from raht3dgs_tpu_torch.ops.morton import morton_codes_np
+    from raht3dgs_tpu_torch.utils import synth
+
+    t_phase = time.perf_counter()
+    out = {}
+    launches = {"colour": {name: 0 for name in ds.LAUNCHES},
+                "gs": {name: 0 for name in ds.LAUNCHES}}
+
+    def run(path, fn, *args):
+        """``fn(*args)`` with the scan launches added to ``path``; its wall."""
+        torch.cuda.synchronize()
+        ds.reset_launches()
+        t0 = time.perf_counter()
+        fn(*args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for k, v in ds.LAUNCHES.items():
+            launches[path][k] += v
+        return wall
+
+    def main_of(cli, argv):
+        check(cli.main(argv) == 0, f"{cli.__name__} {argv[-2:]} failed")
+
+    def sorted_rows(V, *cols):
+        order = np.argsort(morton_codes_np(np.asarray(V).astype(np.int64), DEPTH),
+                           kind="stable")
+        return [np.asarray(c)[order] for c in (V, *cols)]
+
+    steps = list(ColorCodecConfig.steps)
+    raw, pos_ply = os.path.join(keep, "raw.ply"), os.path.join(keep, "pos.ply")
+    sdir, csv_path = os.path.join(keep, "auto"), os.path.join(keep, "auto.csv")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        enc_s = run("colour", main_of, encode_ply, [
+            "--input", raw, "--voxelize", "--depth", str(DEPTH), "--dtype", "float32",
+            "--bucket", str(BUCKET), "--save-streams", sdir, "--csv", csv_path,
+            "--code-geometry", "--entropy", "auto", "--steps", *[f"{s:g}" for s in steps]])
+    geo_line = [ln for ln in buf.getvalue().splitlines() if "bits/voxel" in ln]
+    check(len(geo_line) == 1, f"encode_ply printed {geo_line}")
+    check(launches["colour"] == {"ds_cumsum": 1, "ds_cumsum_t": 2 * len(steps),
+                                 "ds_cumsum_batched": 0},
+          f"encode_ply --entropy auto: scan launches {launches['colour']}")
+    with open(csv_path) as f:
+        rows = list(csv.DictReader(f))
+    psnr = [float(r["psnr"]) for r in rows]
+    check(psnr == cli["psnr"], f"auto's PSNR {psnr} != RLGR's {cli['psnr']}")
+    geom, auto_bytes = None, []
+    for k, s in enumerate(steps):
+        with open(os.path.join(sdir, f"frame0001_step{s:g}.r3tc"), "rb") as f:
+            st = FrameStream.from_bytes(f.read())
+        check(st.geometry is not None and st.geometry[0] == 3,
+              f"step {s:g}: geometry section profile "
+              f"{None if st.geometry is None else st.geometry[0]}")
+        check(geom is None or st.geometry == geom, f"step {s:g}: another geometry section")
+        geom = st.geometry
+        got = [len(c) for c in st.channels]
+        check(all(a <= b for a, b in zip(got, cli["channel_bytes"][k])),
+              f"step {s:g}: auto {got} > RLGR {cli['channel_bytes'][k]} bytes")
+        auto_bytes.append(got)
+        if s == STEP:
+            st16 = st
+    nvox = st16.n_voxels
+    out["colour"] = {"nvox": nvox, "geometry_bits_per_voxel": len(geom) * 8.0 / nvox,
+                     "encode_ply_s": enc_s, "psnr_equal_rlgr": len(steps),
+                     "auto_bytes": auto_bytes, "rlgr_bytes": cli["channel_bytes"]}
+
+    # decode of the step-16 stream without and with --positions
+    s16 = os.path.join(sdir, f"frame0001_step{STEP:g}.r3tc")
+    own, given = os.path.join(keep, "own.ply"), os.path.join(keep, "given.ply")
+    dec_argv = ["--stream", s16, "--dtype", "float32", "--bucket", str(BUCKET)]
+    with contextlib.redirect_stdout(io.StringIO()):
+        own_s = run("colour", main_of, decode, dec_argv + ["--output", own])
+        given_s = run("colour", main_of, decode,
+                      dec_argv + ["--positions", pos_ply, "--output", given])
+    Va, Ca, _ = read_ply_8i(own)
+    Vb, Cb = sorted_rows(*read_ply_8i(given)[:2])
+    check(np.array_equal(Va, Vb) and np.array_equal(Ca, Cb),
+          "decode without --positions differs from the decode with them")
+    check(len(Va) == nvox, f"decode without --positions wrote {len(Va)} rows")
+    # a positions file with one voxel moved to a free cell exits
+    V = Va.astype(np.int64)
+    occupied = set(morton_codes_np(V, DEPTH).tolist())
+    free = next(x for x in range(1 << DEPTH)
+                if int(morton_codes_np(np.array([[x, 0, 0]]), DEPTH)[0]) not in occupied)
+    V[0] = [free, 0, 0]
+    wrong = os.path.join(keep, "wrong.ply")
+    synth.write_binary_ply(wrong, V.astype(np.float32))
+    try:
+        decode.main(dec_argv + ["--positions", wrong, "--output", os.path.join(keep, "x.ply")])
+        check(False, "a moved voxel decoded")
+    except SystemExit as e:
+        check("does not match the geometry" in str(e), f"moved voxel: {e}")
+    lod = os.path.join(keep, "lod.ply")
+    with contextlib.redirect_stdout(io.StringIO()):
+        lod_s = run("colour", main_of, decode, ["--stream", s16, "--output", lod,
+                                                "--geometry-lod", "6"])
+    cells = tg.decode_geometry_lod(geom, DEPTH, nvox, 6)
+    check(len(read_ply(lod).vertices) == len(cells), "--geometry-lod 6 cell count")
+    check(launches["colour"] == {"ds_cumsum": 1, "ds_cumsum_t": 2 * (len(steps) + 2),
+                                 "ds_cumsum_batched": 0},
+          f"colour entropy path: scan launches {launches['colour']}")
+    out["colour"].update(decode_without_positions_s=own_s, decode_with_positions_s=given_s,
+                         geometry_lod6_s=lod_s, geometry_lod6_cells=len(cells),
+                         launches=launches["colour"])
+
+    # the coders' host times at this frame: geometry (ext3 and legacy), and
+    # RAC against RLGR on the step-16 symbols, per channel and whole frame
+    codes = tg.decode_geometry(geom, DEPTH, nvox)
+    timing = {}
+    for name, ext3 in (("ext3", True), ("legacy", False)):
+        blob = tg.encode_geometry(codes, DEPTH, ext3=ext3)
+        check(np.array_equal(tg.decode_geometry(blob, DEPTH, nvox), codes),
+              f"geometry {name} round trip")
+        timing[f"geometry_{name}"] = {
+            "bits_per_voxel": len(blob) * 8.0 / nvox,
+            "encode_ms": host_ms(lambda: tg.encode_geometry(codes, DEPTH, ext3=ext3)),
+            "decode_ms": host_ms(lambda: tg.decode_geometry(blob, DEPTH, nvox))}
+    check(tg.encode_geometry(codes, DEPTH) == geom, "the CLI's section != encode_geometry")
+    q = np.zeros((st16.n_channels, nvox), np.int32)
+    tp.decode_entropy_channels(st16, nvox, q)
+    coders = {}
+    for name, enc, dec in (
+            ("rlgr", lambda x: rlgr_encode(x)[0],
+             lambda b, o: rlgr_decode(b, nvox, out=o)),
+            ("rac", lambda x: rac_encode(x)[0], lambda b, o: rac_decode(b, nvox, out=o))):
+        row = {"channel_bytes": [], "channel_encode_ms": [], "channel_decode_ms": []}
+        for d in range(q.shape[0]):
+            blob = enc(q[d])
+            o = np.empty(nvox, np.int32)
+            dec(blob, o)
+            check(np.array_equal(o, q[d]), f"{name} channel {d} round trip")
+            row["channel_bytes"].append(len(blob))
+            row["channel_encode_ms"].append(host_ms(lambda: enc(q[d])))
+            row["channel_decode_ms"].append(host_ms(lambda: dec(blob, o)))
+        coders[name] = row
+    frame_enc = {"rlgr": lambda: rlgr_encode_channels(q, channel_major=True)[0],
+                 "rac": lambda: rac_encode_channels(q, channel_major=True)[0]}
+    for name, fn in frame_enc.items():
+        blobs = fn()
+        o = np.zeros_like(q)
+        dec = ((lambda: rlgr_decode_channels(blobs, nvox, out=o)) if name == "rlgr"
+               else (lambda: rac_decode_channels(blobs, nvox, o)))
+        dec()
+        check(np.array_equal(o, q), f"{name} frame round trip")
+        coders[name].update(frame_encode_ms=host_ms(fn), frame_decode_ms=host_ms(dec),
+                            frame_bytes=sum(len(b) for b in blobs))
+    # RAC alone over the sweep, beside auto's and RLGR's bytes: each step's
+    # symbols from its auto stream, coded again
+    rac_bytes = []
+    for s in steps:
+        with open(os.path.join(sdir, f"frame0001_step{s:g}.r3tc"), "rb") as f:
+            st = FrameStream.from_bytes(f.read())
+        qs = np.zeros((st.n_channels, nvox), np.int32)
+        tp.decode_entropy_channels(st, nvox, qs)
+        rac_bytes.append([len(b) for b in rac_encode_channels(qs, channel_major=True)[0]])
+    check(all(a <= b for ab, rb in zip(auto_bytes, rac_bytes) for a, b in zip(ab, rb)),
+          f"auto {auto_bytes} > RAC {rac_bytes} bytes")
+    out["colour"]["rac_bytes"] = rac_bytes
+    timing["coders"] = coders
+    out["colour"]["timing"] = timing
+    say("entropy_colour", **{k: json.dumps(v) if isinstance(v, (dict, list)) else v
+                             for k, v in out["colour"].items()})
+
+    # 3DGS: encode_3dgs --code-geometry --entropy rac, decode without positions
+    gsteps = list(GsCodecConfig.steps)
+    comp = os.path.join(keep, "gs_vox.ply")
+    gdir, gcsv = os.path.join(keep, "gs_rac"), os.path.join(keep, "gs_rac.csv")
+    with contextlib.redirect_stdout(io.StringIO()):
+        genc_s = run("gs", main_of, encode_3dgs, [
+            "--input", comp, "--depth", str(DEPTH), "--dtype", "float32", "--bucket",
+            str(BUCKET), "--render", "none", "--save-streams", gdir, "--csv", gcsv,
+            "--code-geometry", "--entropy", "rac", "--steps", *[f"{s:g}" for s in gsteps]])
+    with open(gcsv) as f:
+        grows = list(csv.DictReader(f))
+    gpsnr = [float(r["PSNR_all"]) for r in grows]
+    check(gpsnr == gs["cli"]["psnr_all"], f"RAC 3DGS PSNR {gpsnr} != RLGR's")
+    gbpp = [float(r["Rate_bpp"]) for r in grows]
+    gstream = os.path.join(gdir, f"gs_step{min(gsteps):g}.r3tc")
+    with open(gstream, "rb") as f:
+        gst = FrameStream.from_bytes(f.read())
+    check(gst.entropy_map == (True,) * gst.n_channels and gst.geometry[0] == 3,
+          "the 3DGS stream is not RAC with an ext3 geometry section")
+    gown, ggiven = os.path.join(keep, "gs_own.ply"), os.path.join(keep, "gs_given.ply")
+    gargv = ["--stream", gstream, "--color-space", "3dgs", "--dtype", "float32",
+             "--bucket", str(BUCKET)]
+    with contextlib.redirect_stdout(io.StringIO()):
+        gown_s = run("gs", main_of, decode, gargv + ["--output", gown])
+        ggiven_s = run("gs", main_of, decode, gargv + ["--positions", comp, "--output", ggiven])
+    Va, Aa, vsa, vmina = read_compressed_3dgs_ply(gown)
+    Vb, Ab, vsb, vminb = read_compressed_3dgs_ply(ggiven)
+    Vb, Ab = sorted_rows(Vb, Ab)
+    check(np.array_equal(Va, Vb) and np.array_equal(Aa, Ab) and vsa == vsb
+          and np.array_equal(vmina, vminb),
+          "3DGS decode without --positions differs from the decode with them")
+    check(launches["gs"] == {"ds_cumsum": 1, "ds_cumsum_t": 2 * (len(gsteps) + 2),
+                             "ds_cumsum_batched": 0},
+          f"3DGS entropy path: scan launches {launches['gs']}")
+    out["gs"] = {"nvox": gst.n_voxels, "encode_3dgs_s": genc_s,
+                 "geometry_bits_per_voxel": gst.geometry_bpp(), "bpp_rac": gbpp,
+                 "bpp_rlgr": gs["cli"]["bpp"], "decode_without_positions_s": gown_s,
+                 "decode_with_positions_s": ggiven_s, "launches": launches["gs"]}
+    say("entropy_gs", **{k: json.dumps(v) if isinstance(v, (dict, list)) else v
+                         for k, v in out["gs"].items()})
+
+    # the golden fixture under rac and auto, float64, geometry attached
+    pts, attrs = synth.golden_fixture()
+    hashes = {}
+    for entropy in ("rac", "auto"):
+        frame = tp.prepare_voxel_frame(pts, attrs, synth.GOLDEN_DEPTH,
+                                       bucket=synth.GOLDEN_BUCKET, dtype=torch.float64)
+        st = tp.AttributeCodec(synth.GOLDEN_DEPTH, dtype=torch.float64,
+                               entropy=entropy).encode(frame, steps=synth.GOLDEN_STEP).stream
+        st.geometry = tg.geometry_from_positions(pts, synth.GOLDEN_DEPTH)
+        hashes[entropy] = hashlib.sha256(st.to_bytes()).hexdigest()
+        check(hashes[entropy] == synth.GOLDEN_ENTROPY_SHA256[entropy],
+              f"{entropy} golden stream on the card differs from the CPU hash")
+    say("entropy_golden", **{f"{k}_sha256": v for k, v in hashes.items()}, matches_cpu=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    say("entropy", seconds=round(out["seconds"], 1))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1583,15 +1875,20 @@ def main() -> int:
                     for k, v in libs.items()})
     say("build", ptxas=json.dumps(ptxas_summary(libs["nvcc ds_scan.cu"].build_log)))
 
-    vox, vox_vals = phase_voxelize(torch, ds)  # first: host-bound times before any profiler
-    rows = phase_kernels(torch, ds)
-    phase_invariants(torch, ds)
-    results = phase_main(torch, ds)
-    phase_golden(torch)
-    cli = phase_cli(torch, ds)
-    gs = phase_gs(torch, ds)
-    data = phase_dataset(torch, ds)
-    render = phase_render(torch, ds)
+    keep = tempfile.mkdtemp(prefix="chip_smoke_")  # phase 6-7 files read by phase 10
+    try:
+        vox, vox_vals = phase_voxelize(torch, ds)  # first: host-bound times before any profiler
+        rows = phase_kernels(torch, ds)
+        phase_invariants(torch, ds)
+        results = phase_main(torch, ds)
+        phase_golden(torch)
+        cli = phase_cli(torch, ds, keep)
+        gs = phase_gs(torch, ds, keep)
+        data = phase_dataset(torch, ds)
+        render = phase_render(torch, ds)
+        entropy = phase_entropy(torch, ds, cli, gs, keep)
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
     add_device_ms(torch, ds, vox["pack"], vox_vals)
     say("voxelize", **{k: json.dumps(v) if isinstance(v, (dict, list)) else v
                        for k, v in vox["pack"].items()})
@@ -1600,7 +1897,9 @@ def main() -> int:
              "segment_sums_prefix": vox["prefix"]["launches"], "gs_cli": gs["cli"]["launches"],
              "dataset_batch": data["batch"]["launches"], "dataset_loop": data["loop"]["launches"],
              **{f"render_{name}": render[name]["launches"]
-                for name in ("voxelize_3dgs", "encode_3dgs", "encode_3dgs_debug")}}
+                for name in ("voxelize_3dgs", "encode_3dgs", "encode_3dgs_debug")},
+             "entropy_cli": entropy["colour"]["launches"],
+             "entropy_gs_cli": entropy["gs"]["launches"]}
     rows.append(data["row"])
     for row in rows:
         # `launches`: the codec's main path (phase 3) for the single entry,

@@ -48,8 +48,10 @@ def add_runtime_args(p: argparse.ArgumentParser) -> None:
 def add_geometry_arg(p: argparse.ArgumentParser) -> None:
     p.add_argument(
         "--code-geometry", action="store_true",
-        help="attach a lossless geometry section to every saved stream "
-        "(not ported yet: ROADMAP queue A, item 12)",
+        help="attach a lossless geometry section (octree occupancy and an "
+        "adaptive binary range coder) to every saved stream, so that "
+        "cli.decode needs no --positions; its rate is printed apart from "
+        "the attribute bpp (the CSV schema is unchanged)",
     )
 
 
@@ -70,8 +72,10 @@ def add_quant_args(p: argparse.ArgumentParser) -> None:
     )
     p.add_argument(
         "--entropy", choices=("rlgr", "rac", "auto"), default="rlgr",
-        help="attribute entropy coder: 'rlgr' = the reference coder "
-        "('rac' and 'auto' are not ported yet: ROADMAP queue A, item 12)",
+        help="attribute entropy coder: 'rlgr' = the reference coder; 'rac' = "
+        "adaptive binary range coding (the same reconstructions); 'auto' = "
+        "per channel the smallest of both. Recorded per channel in the "
+        "stream, so decode needs no flag",
     )
     p.add_argument(
         "--predict", action="store_true",
@@ -86,6 +90,7 @@ def quant_kwargs(args) -> dict:
         "quant_mode": args.quant_mode,
         "quant_f": args.quant_f,
         "rec_delta": args.rec_delta,
+        "entropy": getattr(args, "entropy", "rlgr"),
     }
 
 

@@ -10,9 +10,13 @@ rasterizer, named ``jax``, when gsplat is absent). Example:
     python -m raht3dgs_tpu_torch.cli.encode_3dgs \\
         --input output_compressed/compressed_Nvox_gaussians.ply --depth 10
 
-``--tiles`` (ROADMAP queue A, item 15), ``--target-bpp`` (item 14),
-``--code-geometry`` and ``--entropy rac|auto`` (item 12) and ``--predict``
-(item 13) are not ported yet and exit naming their item.
+``--entropy rac|auto`` picks the attribute coder per channel, and
+``--code-geometry`` with ``--save-streams`` attaches one lossless geometry
+section to every step's stream (``decode --color-space 3dgs`` then needs
+no ``--positions``: the header's ``width`` and ``vmin`` carry the world
+mapping). ``--tiles`` (ROADMAP queue A, item 15), ``--target-bpp`` (item
+14) and ``--predict`` (item 13) are not ported yet and exit naming their
+item.
 """
 
 from __future__ import annotations
@@ -80,10 +84,6 @@ def main(argv=None) -> int:
         raise not_ported("--tiles", 15, "the tiled .r3tt stream")
     if args.target_bpp is not None:
         raise not_ported("--target-bpp", 14, "rate control")
-    if args.code_geometry:
-        raise not_ported("--code-geometry", 12, "the geometry coder")
-    if args.entropy != "rlgr":
-        raise not_ported(f"--entropy {args.entropy}", 12, "the RAC coder")
     if args.predict:
         raise not_ported("--predict", 13, "predicted RAHT")
     device = resolve_device(args.platform)
@@ -102,6 +102,7 @@ def per_attribute_scales():
 
 
 def _run(args, device) -> int:
+    from raht3dgs_tpu_torch.codec.geometry import geometry_from_positions
     from raht3dgs_tpu_torch.io.ply import read_compressed_3dgs_ply
     from raht3dgs_tpu_torch.models.gs_codec import CSV_HEADER, encode_gs_frame
     from raht3dgs_tpu_torch.models.pipeline import AttributeCodec
@@ -123,6 +124,10 @@ def _run(args, device) -> int:
         keep_streams=bool(args.save_streams or args.render != "none"), codec=codec,
         vmin=vmin, width=float(voxel_size) * (1 << args.depth),
     )
+    geom = None
+    if args.code_geometry and args.save_streams:
+        geom = geometry_from_positions(V_int, args.depth)
+        print(f"geometry {len(geom) * 8.0 / len(V_int):.3f} bits/voxel (lossless)")
     log = CsvLogger(args.csv or "results/runtime_3dgs.csv", CSV_HEADER)
     for pt in points:
         log.row(pt.csv_row())
@@ -135,6 +140,8 @@ def _run(args, device) -> int:
         if args.save_streams and pt.encoded is not None:
             out = Path(args.save_streams)
             out.mkdir(parents=True, exist_ok=True)
+            if geom is not None:
+                pt.encoded.stream.geometry = geom
             (out / f"gs_step{pt.step:g}.r3tc").write_bytes(pt.encoded.stream.to_bytes())
     log.close()
 
@@ -150,7 +157,7 @@ def render_finest(args, points, codec, V_int, attrs, voxel_size, vmin, device) -
 
     from raht3dgs_tpu_torch.eval.render import render_comparison
     from raht3dgs_tpu_torch.models.pipeline import prepare_voxel_frame
-    from raht3dgs_tpu_torch.utils.synth import morton_codes_np
+    from raht3dgs_tpu_torch.ops.morton import morton_codes_np
 
     finest = min(points, key=lambda p: p.step)
     frame = prepare_voxel_frame(V_int, attrs.astype(np.float64), args.depth,

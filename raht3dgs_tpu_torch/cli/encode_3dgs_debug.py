@@ -66,7 +66,7 @@ def _run(args, device) -> int:
         strategy_range_normalized,
     )
     from raht3dgs_tpu_torch.models.pipeline import AttributeCodec, prepare_voxel_frame
-    from raht3dgs_tpu_torch.utils.synth import morton_codes_np
+    from raht3dgs_tpu_torch.ops.morton import morton_codes_np
 
     V_int, attrs, voxel_size, vmin = read_compressed_3dgs_ply(args.input)
     dtype = torch_dtype(args.dtype)

@@ -10,11 +10,13 @@ device. Example:
     python -m raht3dgs_tpu_torch.cli.encode_dataset --dataset 8iVFBv2 \\
         --sequence redandblack --data-root /data --frames 1 10 --batch 4
 
-``--save-sequence`` and ``--tiles`` (ROADMAP queue A, item 15),
-``--target-bpp``, ``--cbr``, ``--two-pass`` and ``--inter`` (item 14),
-``--code-geometry`` and ``--entropy rac|auto`` (item 12) and ``--predict``
-(item 13) are not ported yet and exit naming their item, after the JAX
-CLI's own argument checks.
+``--entropy rac|auto`` picks the attribute coder per channel, in the frame
+loop and under ``--batch``. ``--code-geometry`` is accepted, as in the JAX
+CLI, where it acts only with ``--save-sequence``, ``--tiles`` or
+``--target-bpp``. Those (ROADMAP queue A, item 15: ``--save-sequence``,
+``--tiles``; item 14: ``--target-bpp``, ``--cbr``, ``--two-pass``,
+``--inter``) and ``--predict`` (item 13) are not ported yet and exit
+naming their item, after the JAX CLI's own argument checks.
 """
 
 from __future__ import annotations
@@ -137,10 +139,6 @@ def _refusals(args):
         raise not_ported("--inter", 14, "temporal I/P coding")
     if args.save_sequence:
         raise not_ported("--save-sequence", 15, "the R3TS sequence container")
-    if args.code_geometry:
-        raise not_ported("--code-geometry", 12, "the geometry coder")
-    if args.entropy != "rlgr":
-        raise not_ported(f"--entropy {args.entropy}", 12, "the RAC coder")
     if args.predict:
         raise not_ported("--predict", 13, "predicted RAHT")
     return None

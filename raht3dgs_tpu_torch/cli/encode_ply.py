@@ -7,9 +7,12 @@ Y-PSNR/bpp over a quantization-step sweep, logged in the reference's
     python -m raht3dgs_tpu_torch.cli.encode_ply --input frame.ply --depth 18 \\
         --steps 1 2 4 8 16 --csv results/runtime_ply.csv
 
-``--tiles`` (ROADMAP queue A, item 15), ``--target-bpp`` (item 14),
-``--code-geometry``, ``--entropy rac|auto`` (item 12) and ``--predict``
-(item 13) are not ported yet and exit naming their item.
+``--entropy rac|auto`` picks the attribute coder per channel, and
+``--code-geometry`` with ``--save-streams`` attaches one lossless geometry
+section per frame to every step's stream, so ``cli.decode`` needs no
+``--positions``. ``--tiles`` (ROADMAP queue A, item 15), ``--target-bpp``
+(item 14) and ``--predict`` (item 13) are not ported yet and exit naming
+their item.
 """
 
 from __future__ import annotations
@@ -87,12 +90,8 @@ def main(argv=None) -> int:
         raise not_ported("--tiles", 15, "the tiled .r3tt stream")
     if args.target_bpp is not None:
         raise not_ported("--target-bpp", 14, "rate control")
-    if args.entropy != "rlgr":
-        raise not_ported(f"--entropy {args.entropy}", 12, "the RAC coder")
     if args.predict:
         raise not_ported("--predict", 13, "predicted RAHT")
-    if args.code_geometry:
-        raise not_ported("--code-geometry", 12, "the geometry coder")
     device = resolve_device(args.platform)
     from raht3dgs_tpu_torch.models.color_codec import CSV_HEADER
 
@@ -104,6 +103,7 @@ def main(argv=None) -> int:
 
 
 def _sweep(args, log, device) -> None:
+    from raht3dgs_tpu_torch.codec.geometry import geometry_from_positions
     from raht3dgs_tpu_torch.io.ply import read_ply_8i
     from raht3dgs_tpu_torch.models.color_codec import DEFAULT_DEPTH, encode_color_frame
     from raht3dgs_tpu_torch.models.pipeline import AttributeCodec
@@ -129,6 +129,12 @@ def _sweep(args, log, device) -> None:
             codec=codecs[depth], bucket=args.bucket, dtype=dtype,
             decode=not args.no_decode, keep_streams=bool(args.save_streams),
         )
+        geom = None
+        if args.code_geometry and args.save_streams:
+            # one geometry section per frame, shared by every step's stream
+            geom = geometry_from_positions(V, depth)
+            print(f"frame {idx}: geometry {len(geom) * 8.0 / len(V):.3f} "
+                  "bits/voxel (lossless)")
         for pt in points:
             log.row(pt.csv_row())
             print(f"frame {idx} step {pt.step:g}: {pt.bpp:.4f} bpp, "
@@ -136,6 +142,8 @@ def _sweep(args, log, device) -> None:
             if args.save_streams and pt.encoded is not None:
                 out = Path(args.save_streams)
                 out.mkdir(parents=True, exist_ok=True)
+                if geom is not None:
+                    pt.encoded.stream.geometry = geom
                 fn = out / f"frame{idx:04d}_step{pt.step:g}.r3tc"
                 fn.write_bytes(pt.encoded.stream.to_bytes())
 

@@ -3,8 +3,9 @@
 Counterpart of ``raht3dgs_tpu/codec/_native.py``. Every library the port
 loads through ctypes (the host RLGR coder built with g++, the CUDA kernels
 built with nvcc) follows one lifecycle: compile the repository's source
-into ``raht3dgs_tpu_torch/_build/`` on first use (or when the source is
-newer than the binary), load it, and declare the C signatures.
+into ``raht3dgs_tpu_torch/_build/`` on first use (or when the source, or
+a header it includes, is newer than the binary), load it, and declare the
+C signatures.
 
 Unlike the JAX package, a failed build RAISES: a timing or a stream made
 by a silent pure-Python substitute would describe the wrong code.
@@ -46,8 +47,11 @@ class NativeLib:
 
     def __init__(self, src: str, lib_name: str,
                  configure: Callable[[ctypes.CDLL], None],
-                 command: Callable[[str, str], List[str]]):
+                 command: Callable[[str, str], List[str]],
+                 deps: Sequence[str] = ()):
         self.src = src
+        # headers the source includes: an edit to one rebuilds the library
+        self.deps = tuple(deps)
         self.lib_path = os.path.join(BUILD_DIR, lib_name)
         self._configure = configure
         self._command = command
@@ -58,8 +62,10 @@ class NativeLib:
         self.build_log = ""
 
     def _stale(self) -> bool:
-        return (not os.path.exists(self.lib_path)
-                or os.path.getmtime(self.src) > os.path.getmtime(self.lib_path))
+        if not os.path.exists(self.lib_path):
+            return True
+        built = os.path.getmtime(self.lib_path)
+        return any(os.path.getmtime(s) > built for s in (self.src, *self.deps))
 
     def build(self) -> None:
         """Compile into a temporary name, then rename: concurrent test

@@ -178,6 +178,23 @@ def rlgr_decode(stream: bytes, n: int, signed: bool = True,
     return out, time.perf_counter_ns() - t0
 
 
+_pool = None
+
+
+def _map_tasks(fn, tasks):
+    """Run ``fn`` over ``tasks`` on a shared thread pool when that can help
+    (ctypes releases the GIL inside the native coders, so chunks and
+    channels code in parallel), else serially; results in task order."""
+    global _pool
+    if len(tasks) > 1 and (os.cpu_count() or 1) > 1:
+        if _pool is None:
+            from concurrent.futures import ThreadPoolExecutor
+
+            _pool = ThreadPoolExecutor(max_workers=min(32, os.cpu_count() or 1))
+        return list(_pool.map(fn, tasks))
+    return [fn(t) for t in tasks]
+
+
 def _pack_chunk_header(chunk: int, lens) -> bytes:
     """Chunked framing ``u32 chunk | u32 n_chunks | u32 len[i]...``: the one
     definition the per-stream and batch encoders share."""
@@ -214,8 +231,8 @@ def rlgr_encode_chunked(values: np.ndarray, signed: bool = True,
     chunk = max(int(chunk), 1)
     n_chunks = max((n + chunk - 1) // chunk, 1)
     t0 = time.perf_counter_ns()
-    parts = [rlgr_encode(values[i * chunk:(i + 1) * chunk], signed)[0]
-             for i in range(n_chunks)]
+    parts = _map_tasks(lambda i: rlgr_encode(values[i * chunk:(i + 1) * chunk], signed)[0],
+                       list(range(n_chunks)))
     elapsed = time.perf_counter_ns() - t0
     return _pack_chunk_header(chunk, [len(p) for p in parts]) + b"".join(parts), elapsed
 
@@ -234,10 +251,13 @@ def rlgr_decode_chunked(stream: bytes, n: int, signed: bool = True,
     if out is None:
         out = np.empty(n, dtype=np.int32)
     t0 = time.perf_counter_ns()
-    for i in range(n_chunks):
+
+    def _one(i):
         m = min(chunk, n - i * chunk)
         if m > 0:
             rlgr_decode(stream[offs[i]:offs[i + 1]], m, signed, out=out[i * chunk:])
+
+    _map_tasks(_one, list(range(n_chunks)))
     return out, time.perf_counter_ns() - t0
 
 

@@ -10,9 +10,10 @@ per-frame decode.
 
 Symbols cross to the host as int32 through the pinned-buffer fetch thread
 of ``AttributeCodec.encode_sweep`` (the JAX package's wire-narrowing tiers,
-built for a remote TPU link, are not ported). A ``mesh`` (ROADMAP queue A,
-item 18), ``predict=True`` (item 13) and ``entropy`` ``rac`` / ``auto``
-(item 12) raise, naming their item.
+built for a remote TPU link, are not ported). Every entropy choice
+(``rlgr``, ``rac``, ``auto``) goes through ``build_entropy_stream``. A
+``mesh`` (ROADMAP queue A, item 18) and ``predict=True`` (item 13) raise,
+naming their item.
 """
 
 from __future__ import annotations

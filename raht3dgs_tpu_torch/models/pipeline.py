@@ -3,14 +3,15 @@
 Counterpart of ``raht3dgs_tpu/models/pipeline.py`` on its main path:
 ``prepare_voxel_frame`` -> span forward RAHT -> coefficient order ->
 quantize and pads-last reorder on the device -> one ``.cpu()`` of the
-(D, N) int32 symbol matrix -> host RLGR into an R3TC ``FrameStream``; and
-back: RLGR -> upload -> structure pass and inverse order -> dequantize ->
+(D, N) int32 symbol matrix -> host RLGR (or RAC) into an R3TC
+``FrameStream``; and back: entropy decode -> upload -> structure pass and inverse order -> dequantize ->
 span inverse RAHT.
 
 Covered: ``impl="span"``, quantizers ``mid`` and ``deadzone``, orders
 ``ragft``, ``weight_desc`` and ``morton``, float32 and float64, and the
 pipelined step sweep ``encode_sweep`` (pinned host buffers filled by a
-fetch thread while the host entropy-codes the step before). Options of
+fetch thread while the host entropy-codes the step before), with the
+entropy coders ``rlgr``, ``rac`` and ``auto``. Options of
 the JAX package that later slices bring raise ``NotImplementedError``
 naming their ROADMAP item. The wire-narrowing tiers of the JAX package
 (built for a remote TPU link) are not ported: symbols cross as int32.
@@ -30,9 +31,20 @@ import numpy as np
 import torch
 
 from raht3dgs_tpu_torch.codec.bitstream import FrameStream
+from raht3dgs_tpu_torch.codec.rac import (
+    rac_decode,
+    rac_decode_channels,
+    rac_decode_chunked,
+    rac_encode,
+    rac_encode_channels,
+    rac_encode_chunked,
+    rac_stream_profile,
+)
 from raht3dgs_tpu_torch.codec.rlgr import (
     _parse_chunk_header,
+    rlgr_decode,
     rlgr_decode_channels,
+    rlgr_decode_chunked,
     rlgr_encode_channels,
 )
 from raht3dgs_tpu_torch.ops.morton import code_dtype, morton_encode, pad_code
@@ -206,25 +218,90 @@ def _inverse_device(coeffs, codes, weights, depth: int) -> torch.Tensor:
 
 
 def encode_entropy_channels(q_np: np.ndarray, entropy: str, *, chunk: int, n: int):
-    """Per-channel entropy encode; returns ``(channels, entropy_map, ns)``."""
-    if entropy != "rlgr":
-        raise NotImplementedError(
-            f"entropy={entropy!r} is not ported yet (ROADMAP queue A, item 12)"
-        )
-    channels, enc_ns = rlgr_encode_channels(q_np, signed=True, channel_major=True,
-                                            chunk=chunk, n=n)
-    return channels, None, enc_ns
+    """Per-channel entropy encode under the selected coder; returns
+    ``(channels, entropy_map_or_None, elapsed_ns)``.
+
+    ``rlgr``: the reference coder (no entropy map, pre-v5 bytes). ``rac``:
+    every channel RAC. ``auto``: per channel the smallest of RLGR, RAC and,
+    for channels > 0, RAC conditioned on channel 0's significance (profile
+    1; the decoder derives the same bits from its decoded channel 0,
+    whichever coder that channel used); the v5 entropy map records the
+    choice, and is left out when every channel chose RLGR."""
+    if entropy == "rlgr":
+        channels, enc_ns = rlgr_encode_channels(q_np, signed=True, channel_major=True,
+                                                chunk=chunk, n=n)
+        return channels, None, enc_ns
+    if entropy == "rac":
+        channels, enc_ns = rac_encode_channels(q_np, channel_major=True, chunk=chunk, n=n)
+        return channels, (True,) * len(channels), enc_ns
+    if entropy != "auto":
+        raise ValueError(f"unknown entropy coder {entropy!r}")
+    rl, ns1 = rlgr_encode_channels(q_np, signed=True, channel_major=True, chunk=chunk, n=n)
+    ra, ns2 = rac_encode_channels(q_np, channel_major=True, chunk=chunk, n=n)
+    D = q_np.shape[0]
+    cond = np.ascontiguousarray(q_np[0, :n] != 0, dtype=np.uint8)
+    t0 = time.perf_counter_ns()
+    rows = np.ascontiguousarray(q_np[:, :n], dtype=np.int32)
+    if chunk > 0:
+        rc = [None] + [rac_encode_chunked(rows[d], chunk, cond=cond)[0] for d in range(1, D)]
+    else:
+        rc = [None] + [rac_encode(rows[d], cond=cond)[0] for d in range(1, D)]
+    ns3 = time.perf_counter_ns() - t0
+    channels, emap = [], []
+    for d in range(D):
+        cands = [(rl[d], False), (ra[d], True)]
+        if rc[d] is not None:
+            cands.append((rc[d], True))
+        best = min(cands, key=lambda c: len(c[0]))
+        channels.append(best[0])
+        emap.append(best[1])
+    emap = tuple(emap)
+    return channels, (emap if any(emap) else None), ns1 + ns2 + ns3
 
 
 def decode_entropy_channels(stream: FrameStream, n: int, out: np.ndarray):
-    """Decode the first ``n`` symbols of every channel into the rows of
-    ``out``; returns ``(out, elapsed_ns)``."""
-    if stream.entropy_map is not None and any(stream.entropy_map):
-        raise NotImplementedError(
-            "RAC channel payloads are not ported yet (ROADMAP queue A, item 12)"
+    """Decode the first ``n`` symbols of every channel payload into the
+    rows of ``out``, per channel as the stream's entropy map says (absent
+    or False: RLGR; True: RAC, whose leading profile byte selects plain (0)
+    or channel-0-conditioned (1) contexts: channel 0 decodes first and its
+    significance conditions the profile-1 channels). Returns
+    ``(out, elapsed_ns)``."""
+    emap = stream.entropy_map
+    if emap is None or not any(emap):
+        return rlgr_decode_channels(stream.channels, n, signed=True, out=out,
+                                    chunk=stream.chunk)
+    profiles = [rac_stream_profile(stream.channels[d], stream.chunk) if is_rac else -1
+                for d, is_rac in enumerate(emap)]
+    if emap[0] and profiles[0] == 1:
+        raise ValueError(
+            "corrupt stream: channel 0 cannot use the cross-channel profile "
+            "(it is the conditioning source)"
         )
-    return rlgr_decode_channels(stream.channels, n, signed=True, out=out,
-                                chunk=stream.chunk)
+    if all(emap) and 1 not in profiles:
+        return rac_decode_channels(stream.channels, n, out, chunk=stream.chunk,
+                                   n_total=stream.n_voxels)
+    t0 = time.perf_counter_ns()
+    cond = None
+
+    def _one(d):
+        payload = stream.channels[d]
+        if emap[d]:
+            kw = {"cond": cond} if profiles[d] == 1 else {}
+            if stream.chunk > 0:
+                rac_decode_chunked(payload, n, stream.n_voxels, out=out[d, :n], **kw)
+            else:
+                rac_decode(payload, n, stream.n_voxels, out=out[d, :n], **kw)
+        elif stream.chunk > 0:
+            rlgr_decode_chunked(payload, n, signed=True, out=out[d])
+        else:
+            rlgr_decode(payload, n, signed=True, out=out[d])
+
+    _one(0)
+    if 1 in profiles:
+        cond = np.ascontiguousarray(out[0, :n] != 0, dtype=np.uint8)
+    for d in range(1, len(emap)):
+        _one(d)
+    return out, time.perf_counter_ns() - t0
 
 
 def build_entropy_stream(q_np: np.ndarray, frame: VoxelFrame, steps, *, depth: int,
@@ -353,9 +430,6 @@ class AttributeCodec:
                 f"impl={impl!r} is not ported yet (ROADMAP queue A, item 17)")
         if impl != "span":
             raise ValueError(f"unknown impl {impl!r}")
-        if entropy != "rlgr":
-            raise NotImplementedError(
-                f"entropy={entropy!r} is not ported yet (ROADMAP queue A, item 12)")
         if predict:
             raise NotImplementedError(
                 "predicted RAHT is not ported yet (ROADMAP queue A, item 13)")
@@ -394,7 +468,8 @@ class AttributeCodec:
     def encode(self, frame: VoxelFrame, steps, coeffs=None, order=None,
                timer: Optional[StageTimer] = None) -> EncodedFrame:
         """Full encode: transform (unless given), quantize, reorder, one
-        device-to-host copy of the symbols (timed with Quant_time), RLGR."""
+        device-to-host copy of the symbols (timed with Quant_time), host
+        entropy coding."""
         timer = timer or StageTimer()
         if coeffs is None or order is None:
             coeffs, order, _, timer = self.transform(frame, timer)
@@ -410,7 +485,7 @@ class AttributeCodec:
         The transform (unless given) and the reorder run once; every step's
         quantize is queued up front. A fetch thread copies the symbols of
         each step into one of two host buffers (pinned on the card) and
-        hands them over in order; this thread runs RLGR on each, so step
+        hands them over in order; this thread entropy-codes each, so step
         k's entropy coding overlaps step k+1's copy. Per-step
         ``Quant_time`` is the wait for that step's symbols (on the card the
         quantize itself runs ahead of it)."""
@@ -436,7 +511,7 @@ class AttributeCodec:
 
     def _entropy_frame(self, q_np: np.ndarray, frame: VoxelFrame, steps,
                        timer: StageTimer) -> EncodedFrame:
-        """RLGR-code one step's (D, N) symbols into its FrameStream."""
+        """Entropy-code one step's (D, N) symbols into its FrameStream."""
         stream, enc_ns = build_entropy_stream(
             q_np, frame, steps, depth=self.depth, order_mode=self.order_mode,
             chunk=self.chunk, quant_mode=self.quant_mode, quant_f=self.quant_f,

@@ -10,6 +10,7 @@ so the port stays in signed int64 throughout.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from raht3dgs_tpu_torch.utils.device import DeviceLike, device_of
@@ -103,6 +104,19 @@ def morton_decode(codes, depth: int, *, device: DeviceLike = None) -> torch.Tens
     y = cp(codes >> 1) & lim
     x = cp(codes >> 2) & lim
     return torch.stack([x, y, z], dim=1)
+
+
+def morton_codes_np(Vint: np.ndarray, depth: int) -> np.ndarray:
+    """Morton codes of integer coordinates on the host (numpy int64), the
+    same bit layout: the port's copy of the JAX package's
+    ``ops/prelude.py:morton_codes_np``."""
+    V = np.asarray(Vint).astype(np.int64)
+    M = np.zeros(V.shape[0], dtype=np.int64)
+    for i in range(depth):
+        b = (V >> i) & 1
+        digit = b[:, 2] + (b[:, 1] << 1) + (b[:, 0] << 2)
+        M |= digit << (3 * i)
+    return M
 
 
 def internal_payload_bits(depth: int, n: int) -> int:

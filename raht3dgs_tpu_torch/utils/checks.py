@@ -12,7 +12,7 @@ from typing import Tuple
 
 import numpy as np
 
-from raht3dgs_tpu_torch.utils.synth import morton_codes_np
+from raht3dgs_tpu_torch.ops.morton import morton_codes_np
 
 
 def sanity_check_dc(

@@ -1,26 +1,18 @@
 """Seeded synthetic voxel frames in numpy (no device, no JAX).
 
 The port's own copies of the helpers the JAX package keeps in
-``ops/prelude.py:morton_codes_np``, ``tests/conftest.py:unique_voxel_cloud``
-and ``__graft_entry__.py:_synthetic_frame``, so that tests and
-``chip_smoke.py`` build the same frames from the same seeds.
+``tests/conftest.py:unique_voxel_cloud`` and
+``__graft_entry__.py:_synthetic_frame``, so that tests and
+``chip_smoke.py`` build the same frames from the same seeds
+(``morton_codes_np``, the JAX package's ``ops/prelude.py`` helper, lives
+in ``ops/morton.py``).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-
-def morton_codes_np(Vint: np.ndarray, depth: int) -> np.ndarray:
-    """Morton codes of integer coordinates, digit ``z + 2y + 4x`` per level
-    (bit layout of ``ops/morton.py``), int64."""
-    V = np.asarray(Vint).astype(np.int64)
-    M = np.zeros(V.shape[0], dtype=np.int64)
-    for i in range(depth):
-        b = (V >> i) & 1
-        digit = b[:, 2] + (b[:, 1] << 1) + (b[:, 0] << 2)
-        M |= digit << (3 * i)
-    return M
+from raht3dgs_tpu_torch.ops.morton import morton_codes_np
 
 
 def unique_voxel_cloud(rng: np.random.Generator, n: int, depth: int,
@@ -63,6 +55,13 @@ GOLDEN_STEP = 4.0
 GOLDEN_SHA256 = {
     "float64": "c64b25eb1c839a4b028184f47c785316747ff1c15e31f3ed3fdcd1cd5239d3ce",
     "float32": "a9b2fe7b64c2f6f57a11a548949226564911a643018b97f05d351f3353b09552",
+}
+# The same float64 stream under the RAC and ``auto`` entropy choices, with
+# the fixture's lossless geometry section attached (``auto`` keeps plain
+# RAC on every channel of this fixture, so both give the same bytes).
+GOLDEN_ENTROPY_SHA256 = {
+    "rac": "e7386d762028e004693fd908d71ed2fd3f68973b36cda61f79944727fa0e67fb",
+    "auto": "e7386d762028e004693fd908d71ed2fd3f68973b36cda61f79944727fa0e67fb",
 }
 
 

@@ -306,6 +306,28 @@ def test_batch_codec_sweep_equals_per_step_encode(rng, dtype):
             np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize("chunk", [0, 64])
+@pytest.mark.parametrize("entropy", ["rac", "auto"])
+def test_batch_codec_entropy_matches_per_frame_and_jax(rng, entropy, chunk):
+    jf, tf = _both_batches(rng, jnp.float64)
+    tcodec = tbc.BatchAttributeCodec(DEPTH, entropy=entropy, chunk=chunk, device="cpu")
+    single = tp.AttributeCodec(DEPTH, entropy=entropy, chunk=chunk, device="cpu")
+    steps = [4.0, 16.0]
+    sweep = tcodec.encode_sweep(tf, steps)
+    for s, (streams, _) in zip(steps, sweep):
+        for f, got in zip(tf, streams):
+            if entropy == "rac":  # auto may keep RLGR on every channel
+                assert got.entropy_map == (True,) * 3
+            assert got.to_bytes() == single.encode(f, s).stream.to_bytes()
+    # uniform non-integer attributes in float64: the JAX batch codec's bytes
+    jstreams, _ = jbc.BatchAttributeCodec(DEPTH, entropy=entropy, chunk=chunk).encode(
+        jf, steps=steps[0])
+    assert [s.to_bytes() for s in sweep[0][0]] == [s.to_bytes() for s in jstreams]
+    recs, _ = tcodec.decode(sweep[0][0], tf)
+    for f, st, rec in zip(tf, sweep[0][0], recs):
+        np.testing.assert_array_equal(rec, single.decode(st, f.codes, f.weights)[0])
+
+
 def _symbols(stream, n):
     out = np.zeros((stream.n_channels, n), np.int32)
     rlgr_decode_channels(stream.channels, n, out=out, chunk=stream.chunk)
@@ -342,8 +364,7 @@ def test_batch_codec_matches_jax_batch_codec(rng, jdt, d_attr):
 
 
 def test_batch_codec_refuses_unported_and_mixed(rng):
-    for kw, item in ((dict(mesh=object()), 18), (dict(predict=True), 13),
-                     (dict(entropy="rac"), 12), (dict(entropy="auto"), 12)):
+    for kw, item in ((dict(mesh=object()), 18), (dict(predict=True), 13)):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             tbc.BatchAttributeCodec(DEPTH, device="cpu", **kw)
     with pytest.raises(ValueError):

@@ -77,6 +77,110 @@ def test_encode_sweep_matches_jax_noninteger_f64():
     assert got == want
 
 
+# -- the RAC and auto entropy choices -----------------------------------------
+
+
+def _noninteger_frames():
+    """The golden cloud with non-integer colours in both packages (the f64
+    byte-identity gate of ROADMAP queue A, item 6)."""
+    pts, _, attrs = unique_voxel_cloud(np.random.default_rng(42), 600, 6)
+    jf = jp.prepare_voxel_frame(pts, attrs, 6, bucket=1024)
+    tf = tp.voxel_frame_from_arrays(np.array(jf.codes), np.array(jf.attributes),
+                                    np.array(jf.weights), jf.n_voxels, 6, jf.vmin,
+                                    jf.width, device="cpu")
+    return jf, tf
+
+
+@pytest.mark.parametrize("chunk", [0, 128])
+@pytest.mark.parametrize("entropy", ["rac", "auto"])
+def test_entropy_streams_byte_identical_to_jax(entropy, chunk):
+    jf, tf = _noninteger_frames()
+    jc = jp.AttributeCodec(6, entropy=entropy, chunk=chunk)
+    tc = tp.AttributeCodec(6, entropy=entropy, chunk=chunk, device="cpu")
+    steps = [1.0, 4.0, 16.0]
+    want = [e.stream.to_bytes() for e in jc.encode_sweep(jf, steps)]
+    got = [e.stream.to_bytes() for e in tc.encode_sweep(tf, steps)]
+    assert got == want
+    assert got == [tc.encode(tf, s).stream.to_bytes() for s in steps]
+    for blob in got:
+        ts, js = tp.FrameStream.from_bytes(blob), JaxStream.from_bytes(blob)
+        assert ts.entropy_map is not None and any(ts.entropy_map)
+        rec_t, _ = tc.decode(ts, tf.codes, tf.weights)
+        rec_j, _ = jc.decode(js, jf.codes, jf.weights)
+        assert np.abs(rec_t - np.asarray(rec_j)).max() < 1e-9
+    if entropy == "auto":
+        rl = [tp.FrameStream.from_bytes(e.stream.to_bytes()) for e in
+              tp.AttributeCodec(6, chunk=chunk, device="cpu").encode_sweep(tf, steps)]
+        for blob, r in zip(got, rl):
+            a = tp.FrameStream.from_bytes(blob)
+            assert all(len(x) <= len(y) for x, y in zip(a.channels, r.channels))
+
+
+@pytest.mark.parametrize("chunk", [0, 128])
+@pytest.mark.parametrize("entropy", ["rac", "auto"])
+def test_progressive_entropy_decode_matches_jax(entropy, chunk):
+    jf, tf = _noninteger_frames()
+    blob = jp.AttributeCodec(6, entropy=entropy, chunk=chunk).encode(jf, 2.0).stream.to_bytes()
+    for k in (1, 100, 599, 10_000):
+        rec_t, _ = tp.AttributeCodec(6, device="cpu").decode_progressive(
+            tp.FrameStream.from_bytes(blob), tf.codes, tf.weights, k)
+        rec_j, _ = jp.AttributeCodec(6).decode_progressive(
+            JaxStream.from_bytes(blob), jf.codes, jf.weights, k)
+        assert np.abs(rec_t - np.asarray(rec_j)).max() < 1e-9
+    s = tp.FrameStream.from_bytes(blob)
+    assert tp.progressive_prefix_bytes(s, 100) == jp.progressive_prefix_bytes(
+        JaxStream.from_bytes(blob), 100)
+
+
+def test_auto_conditioned_channels_decode_in_both_packages():
+    # channels 1-2 copy channel 0's zeros: the conditioned profile wins there
+    rng = np.random.default_rng(9)
+    pts, _, attrs = unique_voxel_cloud(rng, 1500, 7)
+    attrs[:, 1] = attrs[:, 0] * 0.5 + rng.normal(0, 0.1, len(attrs))
+    attrs[:, 2] = attrs[:, 0] * 0.25
+    jf = jp.prepare_voxel_frame(pts, attrs, 7, bucket=2048)
+    tf = tp.voxel_frame_from_arrays(np.array(jf.codes), np.array(jf.attributes),
+                                    np.array(jf.weights), jf.n_voxels, 7, jf.vmin,
+                                    jf.width, device="cpu")
+    tc = tp.AttributeCodec(7, entropy="auto", device="cpu")
+    blob = tc.encode(tf, 24.0).stream.to_bytes()
+    s = tp.FrameStream.from_bytes(blob)
+    from raht3dgs_tpu_torch.codec.rac import rac_stream_profile
+
+    profiles = [rac_stream_profile(c) if r else -1 for c, r in zip(s.channels, s.entropy_map)]
+    assert 1 in profiles[1:]
+    assert blob == jp.AttributeCodec(7, entropy="auto").encode(jf, 24.0).stream.to_bytes()
+    rec_t, _ = tc.decode(s, tf.codes, tf.weights)
+    rec_j, _ = jp.AttributeCodec(7).decode(JaxStream.from_bytes(blob), jf.codes, jf.weights)
+    assert np.abs(rec_t - np.asarray(rec_j)).max() < 1e-9
+    # channel 0 is the conditioning source: a stream that claims otherwise raises
+    bad = tp.FrameStream.from_bytes(blob)
+    bad.channels = [s.channels[profiles.index(1)]] + list(s.channels[1:])
+    bad.entropy_map = (True,) + tuple(s.entropy_map[1:])
+    with pytest.raises(ValueError, match="channel 0"):
+        tc.decode(bad, tf.codes, tf.weights)
+
+
+@pytest.mark.parametrize("entropy", ["rac", "auto"])
+def test_entropy_golden_stream_hash(entropy):
+    # chip_smoke.py holds the card's bytes to the same pins
+    import hashlib
+
+    from raht3dgs_tpu_torch.codec.geometry import geometry_from_positions
+
+    pts, attrs = synth.golden_fixture()
+    frame = tp.prepare_voxel_frame(pts, attrs, synth.GOLDEN_DEPTH, bucket=synth.GOLDEN_BUCKET,
+                                   device="cpu")
+    stream = tp.AttributeCodec(synth.GOLDEN_DEPTH, entropy=entropy, device="cpu").encode(
+        frame, steps=synth.GOLDEN_STEP).stream
+    stream.geometry = geometry_from_positions(pts, synth.GOLDEN_DEPTH)
+    blob = stream.to_bytes()
+    assert hashlib.sha256(blob).hexdigest() == synth.GOLDEN_ENTROPY_SHA256[entropy]
+    rec, _ = tp.AttributeCodec(synth.GOLDEN_DEPTH, device="cpu").decode(
+        tp.FrameStream.from_bytes(blob), frame.codes, frame.weights)
+    assert np.sqrt(np.mean((rec - attrs) ** 2)) <= synth.GOLDEN_STEP / 2
+
+
 def test_encode_sweep_entropy_failure_raises_and_joins(rng, monkeypatch):
     pts, attrs, depth = _frame(rng, n=300, depth=6)
     frame = tp.prepare_voxel_frame(pts, attrs, depth, bucket=512, device="cpu")
@@ -278,28 +382,137 @@ def test_cli_encode_ply_subprocess(tmp_path):
     assert (tmp_path / "trace" / "trace.json").stat().st_size > 0
 
 
+def _geometry_streams(tmp_path, entropy="auto"):
+    """encode_ply --voxelize --code-geometry --entropy ENTROPY with both
+    packages on one raw PLY, streams into ``j/`` and ``t/``."""
+    ply = _raw_ply(tmp_path)
+    common = ["--input", str(ply), "--voxelize", "--depth", "6", "--steps", "2", "8",
+              "--platform", "cpu", "--bucket", "512", "--code-geometry",
+              "--entropy", entropy]
+    for name, cli in (("j", jenc), ("t", tenc)):
+        assert cli.main(common + ["--csv", str(tmp_path / f"{name}.csv"),
+                                  "--save-streams", str(tmp_path / name)]) == 0
+
+
+@pytest.mark.parametrize("entropy", ["auto", "rac"])
+def test_cli_code_geometry_streams_and_decode_match_jax(tmp_path, no_jax_cache, capsys,
+                                                        entropy):
+    _geometry_streams(tmp_path, entropy)
+    out = capsys.readouterr().out
+    geo = [ln for ln in out.splitlines() if "bits/voxel (lossless)" in ln]
+    assert len(geo) == 2 and geo[0] == geo[1]
+    (jh, jrows), (th, trows) = _csv_rows(tmp_path / "j.csv"), _csv_rows(tmp_path / "t.csv")
+    for a, b in zip(trows, jrows):
+        assert a[:2] == b[:2] and abs(float(a[2]) - float(b[2])) <= 1e-3 * float(b[2])
+    for step in ("2", "8"):
+        name = f"frame0001_step{step}.r3tc"
+        ts = tp.FrameStream.from_bytes((tmp_path / "t" / name).read_bytes())
+        js = JaxStream.from_bytes((tmp_path / "j" / name).read_bytes())
+        assert ts.geometry == js.geometry and ts.geometry[0] == 0   # < 16384 voxels
+        assert ts.entropy_map is not None and any(ts.entropy_map)
+    # the JAX stream without --positions through both decoders, and with them
+    stream = str(tmp_path / "j" / "frame0001_step2.r3tc")
+    for name, cli in (("j", jdec), ("t", tdec)):
+        assert cli.main(["--stream", stream, "--output", str(tmp_path / f"self_{name}.ply"),
+                         "--platform", "cpu", "--bucket", "512"]) == 0
+    assert (tmp_path / "self_t.ply").read_bytes() == (tmp_path / "self_j.ply").read_bytes()
+    from raht3dgs_tpu_torch.codec.geometry import positions_from_geometry
+    from raht3dgs_tpu_torch.io.ply import read_ply_8i, save_ply_ascii
+
+    js = JaxStream.from_bytes(open(stream, "rb").read())
+    V = positions_from_geometry(js.geometry, 6, js.n_voxels, device="cpu")
+    pos = tmp_path / "pos.ply"
+    perm = np.random.default_rng(0).permutation(len(V))
+    save_ply_ascii(pos, V[perm].astype(float), width=63)
+    assert tdec.main(["--stream", stream, "--positions", str(pos), "--output",
+                      str(tmp_path / "with.ply"), "--platform", "cpu", "--bucket", "512"]) == 0
+    a, ca, _ = read_ply_8i(tmp_path / "self_t.ply")
+    b, cb, _ = read_ply_8i(tmp_path / "with.ply")
+    back = np.argsort(perm)
+    assert np.array_equal(a, V.astype(float)) and np.array_equal(b[back], a)
+    assert np.array_equal(cb[back], ca)
+
+
+@pytest.fixture(scope="module")
+def auto_geometry_dir(tmp_path_factory):
+    """The two packages' --code-geometry --entropy auto streams, made once
+    for the decode tests below."""
+    tmp = tmp_path_factory.mktemp("geometry")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("RAHT3DGS_COMPILE_CACHE", "")
+        _geometry_streams(tmp)
+    return tmp
+
+
+@pytest.mark.parametrize("level", [1, 3, 6])
+def test_cli_geometry_lod_matches_jax(tmp_path, auto_geometry_dir, no_jax_cache, capsys,
+                                      level):
+    stream = str(auto_geometry_dir / "t" / "frame0001_step8.r3tc")
+    for name, cli in (("j", jdec), ("t", tdec)):
+        assert cli.main(["--stream", stream, "--output", str(tmp_path / f"lod_{name}.ply"),
+                         "--geometry-lod", str(level), "--platform", "cpu"]) == 0
+    assert (tmp_path / "lod_t.ply").read_bytes() == (tmp_path / "lod_j.ply").read_bytes()
+    lines = [ln.split(" -> ")[0] for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("geometry LOD")]
+    assert len(lines) == 2 and lines[0] == lines[1]
+
+
+@pytest.mark.parametrize("case", ["moved_voxel", "no_geometry", "temporal_geometry",
+                                  "lod_out_of_range", "lod_with_progressive",
+                                  "lod_no_geometry"])
+def test_cli_decode_geometry_refusals_match_jax(tmp_path, auto_geometry_dir, no_jax_cache,
+                                                case):
+    from raht3dgs_tpu_torch.codec.geometry import encode_geometry, positions_from_geometry
+    from raht3dgs_tpu_torch.io.ply import save_ply_ascii
+
+    src = auto_geometry_dir / "t" / "frame0001_step8.r3tc"
+    s = tp.FrameStream.from_bytes(src.read_bytes())
+    V = positions_from_geometry(s.geometry, 6, s.n_voxels, device="cpu")
+    argv = ["--output", str(tmp_path / "o.ply"), "--platform", "cpu", "--bucket", "512"]
+    match = {"moved_voxel": "does not match the geometry", "no_geometry": "no geometry",
+             "temporal_geometry": "temporal geometry", "lod_out_of_range": "must be in",
+             "lod_with_progressive": "positions-only", "lod_no_geometry": "needs a stream"}
+    if case == "moved_voxel":
+        free = next(x for x in range(64) if not (V == [x, 0, 0]).all(1).any())
+        V = V.copy()
+        V[0] = [free, 0, 0]
+        save_ply_ascii(tmp_path / "wrong.ply", V.astype(float), width=63)
+        argv += ["--positions", str(tmp_path / "wrong.ply")]
+    elif case in ("no_geometry", "lod_no_geometry"):
+        s.geometry = None
+        argv += ["--geometry-lod", "2"] if case == "lod_no_geometry" else []
+    elif case == "temporal_geometry":
+        codes = np.sort(synth.morton_codes_np(V, 6))
+        s.geometry = encode_geometry(codes, 6, prev_codes=codes[::2])
+    else:
+        argv += ["--geometry-lod", "7" if case == "lod_out_of_range" else "2"]
+        argv += ["--progressive", "5"] if case == "lod_with_progressive" else []
+    path = tmp_path / "case.r3tc"
+    path.write_bytes(s.to_bytes())
+    for cli in (tdec, jdec):
+        with pytest.raises(SystemExit, match=match[case]):
+            cli.main(["--stream", str(path)] + argv)
+    if case == "temporal_geometry":
+        with pytest.raises(SystemExit, match="item 15"):
+            tdec.main(["--stream", str(path)] + argv)
+
+
 @pytest.mark.parametrize("cli,extra,item", [
     (tenc, ["--tiles", "3"], 15),
     (tenc, ["--target-bpp", "1.0"], 14),
-    (tenc, ["--entropy", "rac"], 12),
-    (tenc, ["--entropy", "auto"], 12),
     (tenc, ["--predict"], 13),
-    (tenc, ["--code-geometry"], 12),
     (tdec, ["--lod", "3"], 15),
     (tdec, ["--roi", "0", "0", "0", "4", "4", "4"], 15),
     (tdec, ["--all-frames"], 15),
     (tdec, ["--frame-index", "2"], 15),
-    (tdec, ["--geometry-lod", "2"], 12),
     (tdec, ["--color-space", "3dgs", "--lod", "2"], 15),
-    (tdec, ["--no-positions"], 12),
 ])
 def test_cli_unported_options_exit_naming_their_item(tmp_path, cli, extra, item):
     if cli is tenc:
         argv = ["--input", "x.ply", "--platform", "cpu"] + extra
     else:
         argv = ["--stream", "x.r3tc", "--output", str(tmp_path / "o.ply"),
-                "--platform", "cpu"]
-        argv += [] if extra == ["--no-positions"] else ["--positions", "p.ply"] + extra
+                "--platform", "cpu", "--positions", "p.ply"] + extra
     with pytest.raises(SystemExit, match=f"item {item}"):
         cli.main(argv)
 

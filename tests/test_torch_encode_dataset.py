@@ -56,9 +56,9 @@ def trees(tmp_path_factory):
 _RUNS = {}
 
 
-def _run(trees, tmp_path_factory, dataset, pkg, batch):
+def _run(trees, tmp_path_factory, dataset, pkg, batch, extra=()):
     """Rows of one CLI run (cached: each package runs each mode once)."""
-    key = (dataset, pkg, batch)
+    key = (dataset, pkg, batch, tuple(extra))
     if key not in _RUNS:
         out = tmp_path_factory.mktemp("csv") / f"{pkg}.csv"
         argv = ["--dataset", dataset, "--sequence", LAYOUTS[dataset][0],
@@ -66,6 +66,7 @@ def _run(trees, tmp_path_factory, dataset, pkg, batch):
                 "--steps", *STEPS, "--platform", "cpu", "--csv", str(out)]
         if batch:
             argv += ["--batch", "2"]
+        argv += list(extra)
         with pytest.MonkeyPatch.context() as mp, warnings.catch_warnings():
             # the JAX CLI turns on a persistent compile cache unless this is empty
             mp.setenv("RAHT3DGS_COMPILE_CACHE", "")
@@ -92,6 +93,33 @@ def test_cli_rows_match_jax_cli(trees, tmp_path_factory, dataset, batch):
         assert abs(float(a["psnr"]) - float(b["psnr"])) <= 1e-6
     if batch:  # the shared transform's time rides every step's rows
         assert all(float(r["RAHT_transform_time"]) > 0 for r in trows)
+
+
+@pytest.mark.parametrize("batch", [0, 2], ids=["frame_loop", "batch2"])
+@pytest.mark.parametrize("entropy", ["rac", "auto"])
+def test_entropy_rows_match_jax_cli(trees, tmp_path_factory, entropy, batch):
+    extra = ["--entropy", entropy]
+    jrows = _run(trees, tmp_path_factory, "8iVFBv2", "jax", batch, extra)
+    trows = _run(trees, tmp_path_factory, "8iVFBv2", "torch", batch, extra)
+    rlgr = {(r["Frame"], r["Quantization_Step"]): float(r["Rate_bpp"])
+            for r in _run(trees, tmp_path_factory, "8iVFBv2", "torch", batch)}
+    assert len(trows) == len(jrows) == 6
+    for a, b in zip(trows, jrows):
+        assert (a["Frame"], a["Quantization_Step"], a["Rate_bpp"]) == \
+            (b["Frame"], b["Quantization_Step"], b["Rate_bpp"])
+        assert abs(float(a["psnr"]) - float(b["psnr"])) <= 1e-6
+        assert float(a["Rate_bpp"]) <= rlgr[(a["Frame"], a["Quantization_Step"])] \
+            or entropy == "rac"
+
+
+def test_code_geometry_is_accepted_as_in_jax(trees, tmp_path_factory):
+    # without --save-sequence/--tiles/--target-bpp the flag writes nothing
+    # more in either package: the rows are those of a run without it
+    plain = _run(trees, tmp_path_factory, "MVUB", "torch", 0)
+    got = _run(trees, tmp_path_factory, "MVUB", "torch", 0, ["--code-geometry"])
+    want = _run(trees, tmp_path_factory, "MVUB", "jax", 0, ["--code-geometry"])
+    for a, b, c in zip(got, want, plain):
+        assert a["Rate_bpp"] == b["Rate_bpp"] == c["Rate_bpp"]
 
 
 @pytest.mark.parametrize("dataset", list(LAYOUTS))
@@ -171,9 +199,6 @@ def _argv(tmp_path, extra):
     (["--target-bpp", "2.0", "--cbr"], 14),
     (["--target-bpp", "2.0", "--two-pass"], 14),
     (["--inter", "--steps", "4"], 14),
-    (["--code-geometry"], 12),
-    (["--entropy", "rac"], 12),
-    (["--entropy", "auto", "--batch", "2"], 12),
     (["--predict"], 13),
 ])
 def test_unported_flags_exit_naming_their_item(tmp_path, extra, item):

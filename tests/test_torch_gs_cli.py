@@ -120,6 +120,44 @@ def test_ckpt_chain_matches_jax_clis(ckpt, tmp_path, no_jax_cache, dtype):
     assert (a1[:, 4:7] >= 0).all() and (0 <= a1[:, 7]).all() and (a1[:, 7] <= 1).all()
 
 
+@pytest.mark.parametrize("entropy", ["rac", "auto"])
+def test_code_geometry_chain_decodes_without_positions_as_jax(ckpt, tmp_path, no_jax_cache,
+                                                               capsys, entropy):
+    voxply = str(_voxelize_both(tmp_path, "--ckpt", ckpt)["j"])
+    for name, cli in (("j", jenc), ("t", tenc)):
+        assert cli.main(["--input", voxply, "--steps", "0.05", "--platform", "cpu",
+                         "--code-geometry", "--entropy", entropy,
+                         "--save-streams", str(tmp_path / name),
+                         "--csv", str(tmp_path / f"{name}.csv")]) == 0
+    geo = [ln for ln in capsys.readouterr().out.splitlines() if "bits/voxel" in ln]
+    assert len(geo) == 2 and geo[0] == geo[1]
+    (_, jrows), (_, trows) = _csv(tmp_path / "j.csv"), _csv(tmp_path / "t.csv")
+    assert abs(float(trows[0][2]) - float(jrows[0][2])) <= 1e-3 * float(jrows[0][2])
+    blobs = {n: (tmp_path / n / "gs_step0.05.r3tc").read_bytes() for n in "jt"}
+    from raht3dgs_tpu_torch.codec.bitstream import FrameStream
+
+    ts, js = (FrameStream.from_bytes(blobs[n]) for n in "tj")
+    assert ts.geometry == js.geometry and ts.entropy_map is not None
+    # the JAX stream without --positions through both decoders, and the
+    # port's decode given the compressed-3DGS PLY: the same Gaussians
+    stream = str(tmp_path / "j" / "gs_step0.05.r3tc")
+    for name, cli in (("j", jdec), ("t", tdec)):
+        assert cli.main(["--stream", stream, "--output", str(tmp_path / f"self_{name}.ply"),
+                         "--color-space", "3dgs", "--platform", "cpu"]) == 0
+    assert tdec.main(["--stream", stream, "--positions", voxply, "--output",
+                      str(tmp_path / "with.ply"), "--color-space", "3dgs",
+                      "--platform", "cpu"]) == 0
+    a, b, w = (tread(tmp_path / f) for f in ("self_t.ply", "self_j.ply", "with.ply"))
+    np.testing.assert_array_equal(a[0], b[0])
+    assert np.abs(a[1] - b[1]).max() <= 1e-6
+    from raht3dgs_tpu_torch.ops.morton import morton_codes_np
+
+    order = np.argsort(morton_codes_np(w[0], 6))
+    np.testing.assert_array_equal(a[0], w[0][order])
+    np.testing.assert_array_equal(a[1], w[1][order])
+    assert a[2] == w[2] and np.allclose(a[3], w[3])
+
+
 def test_ply_input_and_per_attribute_match_jax(tmp_path, rng, no_jax_cache):
     n = 800
     scene = tmp_path / "scene.ply"
@@ -173,11 +211,7 @@ def test_voxelize_3dgs_subprocess(ckpt, tmp_path):
 @pytest.mark.parametrize("cli,extra,item", [
     (tenc, ["--tiles", "3"], 15),
     (tenc, ["--target-bpp", "1.0"], 14),
-    (tenc, ["--code-geometry"], 12),
-    (tenc, ["--entropy", "rac"], 12),
-    (tenc, ["--entropy", "auto"], 12),
     (tenc, ["--predict"], 13),
-    (tdec, ["--no-positions"], 12),           # 3DGS streams without positions
 ])
 def test_unported_3dgs_options_exit_naming_their_item(tmp_path, cli, extra, item):
     if cli is tvox:

@@ -175,8 +175,7 @@ def test_j18_frame_roundtrip_and_symbols():
 
 
 def test_unported_options_raise():
-    for kw in (dict(impl="dense"), dict(impl="golden"), dict(entropy="rac"),
-               dict(entropy="auto"), dict(predict=True)):
+    for kw in (dict(impl="dense"), dict(impl="golden"), dict(predict=True)):
         with pytest.raises(NotImplementedError):
             tp.AttributeCodec(6, device="cpu", **kw)
     with pytest.raises(ValueError):

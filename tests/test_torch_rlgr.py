@@ -29,9 +29,10 @@ def _patterns(rng):
     ]
 
 
-def test_native_source_is_byte_identical_copy():
-    assert filecmp.cmp(os.path.join(REPO, "raht3dgs_tpu_torch", "native", "rlgr.cpp"),
-                       os.path.join(REPO, "raht3dgs_tpu", "native", "rlgr.cpp"),
+@pytest.mark.parametrize("name", ["rlgr.cpp", "rac.cpp", "geom.cpp", "range_coder.h"])
+def test_native_source_is_byte_identical_copy(name):
+    assert filecmp.cmp(os.path.join(REPO, "raht3dgs_tpu_torch", "native", name),
+                       os.path.join(REPO, "raht3dgs_tpu", "native", name),
                        shallow=False)
 
 
