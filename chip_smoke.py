@@ -6,7 +6,8 @@
 Phases, each printed on its own line, any failure exits nonzero:
 
 1. device and build: the card, torch/CUDA versions, and the seconds nvcc
-   (the scan kernel) and g++ (the RLGR, RAC and geometry coders) took,
+   (the scan kernel) and g++ (the RLGR, RAC, geometry and predicted-RAHT
+   host coders) took,
    built in parallel from the checkout's sources;
 2. kernels against their plain PyTorch version on the card, at the main
    path's shapes (the forward's (2^19, 4) scan through ``ds_prefix_pack``,
@@ -110,7 +111,27 @@ Phases, each printed on its own line, any failure exits nonzero:
    decode given the PLY; the golden fixture's RAC and auto float64 hashes
    against the CPU's; the geometry coder's bits a voxel and host times
    (ext3 and legacy) and RAC against RLGR per channel and per frame; the
-   scan launches around each CLI run, the same as with RLGR.
+   scan launches around each CLI run, the same as with RLGR;
+11. predicted RAHT: the device encoder (``predict_impl`` auto on the card)
+   against the host closed loop on phase 3's J10 frame at float32 and
+   float64 (step 16; the float32 frame's scan launches read around its
+   first encode and decode: one forward pack, no inverse), a J18 frame
+   (int64 codes) and phase 7's 3DGS merge (56 channels, step 1): each
+   stream decodes by the host loop within step / 2 per channel, the
+   encoder's own reconstruction and the non-normative device decode
+   within 1e-3 (float32) / 1e-9 (float64) of that decode over the
+   channel's range; the share of symbols equal to the host encoder's and
+   both masks; the J10 sweep (11 steps) against per-step encode, each
+   step decoded; then ``encode_ply --predict`` on phase 6's raw cloud (11
+   steps, streams equal to ``encode_sweep``'s, each flagged predicted,
+   PSNR ordered by step, bytes against phase 6's plain RLGR), ``decode``
+   of the step-16 stream in full and at half its coefficients, and
+   ``encode_3dgs --predict`` on phase 7's merge (9 steps) with the decode
+   of its finest stream, the scan launches read around each path (one
+   pack, no transposed scan); times: the device encoder per step (CUDA
+   events; kernel time and launches per step from the profiler), the host
+   encoder and decoder (native; the numpy twin's decode at J10), the
+   device decode, and peak device memory.
 
 Needs one CUDA card; imports nothing of JAX or of the JAX package.
 """
@@ -261,10 +282,12 @@ def ptxas_summary(log: str) -> dict:
 def build_all():
     """Build every native library from the checkout's sources, in parallel."""
     from raht3dgs_tpu_torch.codec import geometry, rac, rlgr
+    from raht3dgs_tpu_torch.ops import _praht_native
     from raht3dgs_tpu_torch.ops.ds_scan import KERNEL
 
     libs = {"nvcc ds_scan.cu": KERNEL, "g++ rlgr.cpp": rlgr.NATIVE,
-            "g++ rac.cpp": rac.NATIVE, "g++ geom.cpp": geometry.NATIVE}
+            "g++ rac.cpp": rac.NATIVE, "g++ geom.cpp": geometry.NATIVE,
+            "g++ praht.cpp": _praht_native.NATIVE}
     errors = []
 
     def run(lib):
@@ -1857,6 +1880,284 @@ def phase_entropy(torch, ds, cli, gs, keep):
     return out
 
 
+PREDICT_STEP_J18 = 16.0   # phase 11: the J18 frame's one step
+PREDICT_GS_STEP = 1.0      # phase 11: the 3DGS merge's one step (the sweep's finest)
+PREDICT_REC_TOL = {"float32": 1e-3, "float64": 1e-9}   # encoder rec against the
+# host decode of its stream, relative to the channel's range
+
+
+def rel_err(a, b, ref) -> float:
+    """Largest |a - b| over the channel's range of ``ref``, over channels."""
+    import numpy as np
+
+    span = np.maximum(np.ptp(np.asarray(ref, np.float64), axis=0), 1e-30)
+    return float((np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64)) / span).max())
+
+
+def phase_predict(torch, ds, cli, gs, keep):
+    """Phase 11: predicted RAHT. The device encoder against the host closed
+    loop on phase 3's J10 frame (float32 and float64), a J18 frame (int64
+    codes) and phase 7's 3DGS merge (56 channels): every stream decodes by
+    the host loop within step / 2, the encoder's own reconstruction and the
+    non-normative device decode agree with that decode, the sweep equals
+    per-step encode; then ``encode_ply --predict`` and ``decode`` (full and
+    progressive) on phase 6's raw cloud and ``encode_3dgs --predict`` on
+    phase 7's merge, with the scan launches read around each path, and the
+    encoders' and decoders' times."""
+    import contextlib
+    import csv
+    import io
+    import os
+
+    import numpy as np
+
+    from raht3dgs_tpu_torch.cli import decode, encode_3dgs, encode_ply
+    from raht3dgs_tpu_torch.codec.bitstream import FrameStream
+    from raht3dgs_tpu_torch.config import ColorCodecConfig, GsCodecConfig
+    from raht3dgs_tpu_torch.io.ply import read_compressed_3dgs_ply, read_ply_8i
+    from raht3dgs_tpu_torch.models import pipeline as tp
+    from raht3dgs_tpu_torch.ops import praht as hp
+    from raht3dgs_tpu_torch.ops.color import rgb_to_yuv
+    from raht3dgs_tpu_torch.ops.praht_device import praht_device_decode
+    from raht3dgs_tpu_torch.ops.voxelize import voxelize
+    from raht3dgs_tpu_torch.utils.synth import synthetic_positions
+
+    t_phase = time.perf_counter()
+    out = {}
+    paths = ("predict_codec_j10", "predict_cli", "predict_gs_cli")
+    launches = {p: {name: 0 for name in ds.LAUNCHES} for p in paths}
+
+    def counted(path, fn, *args):
+        """``fn(*args)`` with the scan launches added to ``path``; its wall."""
+        torch.cuda.synchronize()
+        ds.reset_launches()
+        t0 = time.perf_counter()
+        res = fn(*args)
+        torch.cuda.synchronize()
+        for k, v in ds.LAUNCHES.items():
+            if path is not None:
+                launches[path][k] += v
+        return res, time.perf_counter() - t0
+
+    def symbols(stream):
+        q = np.zeros((stream.n_channels, stream.n_voxels), np.int32)
+        tp.decode_entropy_channels(stream, stream.n_voxels, q)
+        return q
+
+    def frame_checks(name, frame, dtype, steps, full=True, path=None):
+        """Device against host encode of one frame at one step (and the
+        sweep when ``full``), the first encode and its decode counted into
+        ``path``; returns the numbers of the phase's line."""
+        n = frame.n_voxels
+        key = "float32" if dtype == torch.float32 else "float64"
+        want = frame.attributes[:n].cpu().numpy()
+        dev = tp.AttributeCodec(frame.depth, dtype=dtype, predict=True)
+        check(dev._predict_on_device(), f"{name}: predict_impl auto is not the device")
+        host = tp.AttributeCodec(frame.depth, dtype=dtype, predict=True, predict_impl="host")
+        step = steps[0]
+        row = {"n": n, "dtype": key, "step": step}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # the first encode builds the frame's device context (the forward
+        # transform and the plan); the decode is the host loop
+        enc_d, row["device_first_encode_s"] = counted(path, dev.encode, frame, step)
+        row["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        st_d = FrameStream.from_bytes(enc_d.stream.to_bytes())
+        (rec_d, _), row["host_decode_first_s"] = counted(path, dev.decode, st_d, frame.codes,
+                                                         frame.weights)
+        t0 = time.perf_counter()
+        st_h = host.encode(frame, step).stream
+        row["host_first_encode_s"] = time.perf_counter() - t0
+        rec_h, _ = host.decode(st_h, frame.codes, frame.weights)
+        for tag, rec in (("device", rec_d), ("host", rec_h)):
+            check(rec.shape == want.shape and np.isfinite(rec).all(), f"{name}: {tag} decode")
+            rmse = np.sqrt(np.mean((rec.astype(np.float64) - want) ** 2, axis=0))
+            check((rmse <= np.broadcast_to(step, rmse.shape) / 2).all(),
+                  f"{name}: {tag} stream RMSE {rmse} above step / 2")
+            row[f"rmse_over_step_max_{tag}"] = float((rmse / step).max())
+        q_d, q_h = symbols(st_d), symbols(st_h)
+        row["symbols_equal_host_share"] = float((q_d == q_h).mean())
+        row["mask_device"], row["mask_host"] = st_d.predict_mask, st_h.predict_mask
+        row["bytes_device"], row["bytes_host"] = st_d.payload_bytes, st_h.payload_bytes
+        q_T, maskbits, rec_enc = dev.praht_device_step(frame, step)
+        check(int(maskbits) == st_d.predict_mask, f"{name}: the step's mask differs")
+        row["encoder_rec_rel_err"] = rel_err(rec_enc[:n].cpu().numpy(), rec_d, want)
+        check(row["encoder_rec_rel_err"] <= PREDICT_REC_TOL[key],
+              f"{name}: encoder rec off its stream's host decode by "
+              f"{row['encoder_rec_rel_err']}")
+        # the non-normative device decode of the same stream
+        vals = np.zeros((st_d.n_channels, frame.codes.shape[0]), np.int32)
+        tp.decode_entropy_channels(st_d, n, vals)
+        inv = tp._inverse_order_device(frame.codes, frame.weights, n, frame.depth, "ragft")
+        plan = dev._praht_dev_context(frame)[2]
+        sym = torch.from_numpy(vals).to(frame.codes.device).T[inv.long()]
+        steps_t = torch.atleast_1d(torch.as_tensor(np.asarray(step, np.float64))).to(dtype)
+
+        def dev_decode():
+            return praht_device_decode(plan, frame.codes, frame.weights, sym,
+                                       st_d.predict_mask, frame.depth, steps_t,
+                                       quant_mode=st_d.quant_mode, rec_delta=st_d.rec_delta,
+                                       fdtype=dtype)
+
+        row["device_decode_rel_err"] = rel_err(dev_decode()[:n].cpu().numpy(), rec_d, want)
+        check(row["device_decode_rel_err"] <= PREDICT_REC_TOL[key],
+              f"{name}: device decode off the host decode by {row['device_decode_rel_err']}")
+        # times: CUDA events first (host-bound), the profiler last
+        row["device_encode_ms"] = cuda_ms(torch, lambda: dev.praht_device_step(frame, step),
+                                          reps=5, warm=1)
+        row["device_decode_ms"] = cuda_ms(torch, dev_decode, reps=3, warm=1)
+        row["host_decode_native_ms"] = host_ms(
+            lambda: host.decode(st_d, frame.codes, frame.weights), reps=3)
+        if full:
+            row["host_encode_native_ms"] = host_ms(lambda: host.encode(frame, step), reps=3)
+            codes_np = frame.codes.cpu().numpy()[:n]
+            w_np = frame.weights.cpu().numpy()[:n]
+            fdt = np.float32 if key == "float32" else np.float64
+            hplan, _ = host._praht_context(codes_np, w_np, fdt)
+            row["host_decode_python_ms"] = host_ms(lambda: hp.praht_decode(
+                q_d, codes_np, w_np, frame.depth, step, predict_mask=st_d.predict_mask,
+                fdtype=fdt, plan=hplan, backend="python"), reps=3)
+            # the sweep: every stream is a per-step encode's and decodes
+            sweep_t0 = time.perf_counter()
+            sweep = dev.encode_sweep(frame, steps)
+            row["device_sweep_s"] = time.perf_counter() - sweep_t0
+            for s, enc in zip(steps, sweep):
+                check(enc.stream.to_bytes() == dev.encode(frame, s).stream.to_bytes(),
+                      f"{name}: encode_sweep step {s:g} != encode")
+                rec, _ = host.decode(enc.stream, frame.codes, frame.weights)
+                check(np.isfinite(rec).all() and rec.shape == want.shape,
+                      f"{name}: sweep step {s:g} does not decode")
+            row["sweep_steps"] = len(steps)
+        ms, per, split = device_ms(torch, lambda: dev.praht_device_step(frame, step), reps=3,
+                                   warm=1)
+        row["device_encode_kernel_ms"], row["device_encode_launches_per_step"] = ms, per
+        row["device_encode_top_kernels_us"] = dict(
+            sorted(split.items(), key=lambda kv: -kv[1])[:6])
+        say("predict_" + name, **{k: json.dumps(v) if isinstance(v, (dict, list)) else v
+                                  for k, v in row.items()})
+        return row
+
+    # 1-2. the J10 colour frame (phase 3's) at float32 and float64; J18
+    csteps = [float(s) for s in ColorCodecConfig.steps]
+    steps16 = [STEP] + [s for s in csteps if s != STEP]
+    pts, attrs = synthetic_positions(N_VOX, DEPTH, D_ATTR, seed=0)
+    for dtype in (torch.float32, torch.float64):
+        frame = tp.prepare_voxel_frame(pts, attrs, DEPTH, bucket=BUCKET, dtype=dtype)
+        key = "j10_" + ("float32" if dtype == torch.float32 else "float64")
+        # the float32 frame is the main path's configuration: its counts,
+        # the sweep and the host encoder's and the numpy twin's times
+        f32 = dtype == torch.float32
+        out[key] = frame_checks(key, frame, dtype, steps16, full=f32,
+                                path="predict_codec_j10" if f32 else None)
+    check(launches["predict_codec_j10"] == {"ds_cumsum": 1, "ds_cumsum_t": 0,
+                                            "ds_cumsum_batched": 0},
+          f"predicted codec: scan launches {launches['predict_codec_j10']}")
+    pts18, attrs18 = synthetic_positions(N_VOX, 18, D_ATTR, seed=1)
+    frame = tp.prepare_voxel_frame(pts18, attrs18, 18, bucket=BUCKET, dtype=torch.float32)
+    check(frame.codes.dtype == torch.int64, "the J18 frame's codes are not int64")
+    out["j18"] = frame_checks("j18", frame, torch.float32, [PREDICT_STEP_J18], full=False)
+
+    # 3. the 3DGS J10 merge, 56 channels, float32
+    comp = os.path.join(keep, "gs_vox.ply")
+    V, A, vsize, vmin = read_compressed_3dgs_ply(comp)
+    gframe = tp.prepare_voxel_frame(V, A.astype(np.float64), DEPTH, bucket=BUCKET,
+                                    dtype=torch.float32, vmin=vmin, width=vsize * (1 << DEPTH))
+    check(gframe.n_voxels == GS_NVOX, f"3DGS merge has {gframe.n_voxels} voxels")
+    out["gs"] = frame_checks("gs", gframe, torch.float32, [PREDICT_GS_STEP], full=False)
+
+    # 4. the CLIs: encode_ply --predict on phase 6's raw cloud, decode
+    raw, pos_ply = os.path.join(keep, "raw.ply"), os.path.join(keep, "pos.ply")
+    sdir, csv_path = os.path.join(keep, "predict"), os.path.join(keep, "predict.csv")
+    argv = ["--input", raw, "--voxelize", "--depth", str(DEPTH), "--dtype", "float32",
+            "--bucket", str(BUCKET), "--save-streams", sdir, "--csv", csv_path,
+            "--predict", "--steps", *[f"{s:g}" for s in csteps]]
+    with contextlib.redirect_stdout(io.StringIO()):
+        _, enc_s = counted("predict_cli", encode_ply.main, argv)
+    with open(csv_path) as f:
+        rows = list(csv.DictReader(f))
+    psnr = [float(r["psnr"]) for r in rows]
+    bpp = [float(r["Rate_bpp"]) for r in rows]
+    check(len(rows) == len(csteps) and all(np.isfinite(psnr)), f"encode_ply --predict: {psnr}")
+    check(all(a >= b for a, b in zip(psnr, psnr[1:])), f"PSNR falls as step falls: {psnr}")
+    V, C, _ = read_ply_8i(raw)
+    res = voxelize(torch.as_tensor(np.concatenate([V, C], 1), device=CARD).float(), DEPTH)
+    nvox = int(res.nvox)
+    yuv = rgb_to_yuv(res.attributes[:nvox], dtype=torch.float32)
+    vframe = tp.prepare_voxel_frame(res.positions[:nvox].cpu().numpy().astype(np.int64),
+                                    yuv.cpu().numpy(), DEPTH, bucket=BUCKET,
+                                    dtype=torch.float32)
+    codec = tp.AttributeCodec(DEPTH, dtype=torch.float32, predict=True)
+    for s, enc in zip(csteps, codec.encode_sweep(vframe, csteps)):
+        with open(os.path.join(sdir, f"frame0001_step{s:g}.r3tc"), "rb") as f:
+            blob = f.read()
+        check(blob == enc.stream.to_bytes(), f"the CLI's predicted stream at step {s:g} "
+              "!= encode_sweep")
+        check(FrameStream.from_bytes(blob).predict, f"step {s:g}: stream not flagged predict")
+    s16 = os.path.join(sdir, f"frame0001_step{STEP:g}.r3tc")
+    dec_argv = ["--stream", s16, "--positions", pos_ply, "--dtype", "float32",
+                "--bucket", str(BUCKET)]
+    with contextlib.redirect_stdout(io.StringIO()):
+        _, dec_s = counted("predict_cli", decode.main,
+                           dec_argv + ["--output", os.path.join(keep, "p_full.ply")])
+        _, prog_s = counted("predict_cli", decode.main,
+                            dec_argv + ["--output", os.path.join(keep, "p_half.ply"),
+                                        "--progressive", str(nvox // 2)])
+    Vf, Cf, _ = read_ply_8i(os.path.join(keep, "p_full.ply"))
+    Vh, Ch, _ = read_ply_8i(os.path.join(keep, "p_half.ply"))
+    check(len(Vf) == len(Vh) == nvox and np.array_equal(Vf, Vh), "predicted decode CLI rows")
+    check(launches["predict_cli"] == {"ds_cumsum": 1, "ds_cumsum_t": 0,
+                                      "ds_cumsum_batched": 0},
+          f"predicted colour CLI path: scan launches {launches['predict_cli']}")
+    k16 = csteps.index(STEP)
+    out["cli"] = {"nvox": nvox, "encode_ply_s": enc_s, "decode_s": dec_s,
+                  "decode_progressive_half_s": prog_s, "psnr": psnr, "bpp": bpp,
+                  "plain_rlgr_bpp": cli["bpp"], "plain_rlgr_psnr": cli["psnr"],
+                  "step16_bytes_ratio_vs_plain": bpp[k16] / cli["bpp"][k16],
+                  "launches": launches["predict_cli"]}
+    say("predict_cli", **{k: json.dumps(v) if isinstance(v, (dict, list)) else v
+                          for k, v in out["cli"].items()})
+
+    # encode_3dgs --predict on phase 7's merge, decode of the finest stream
+    gsteps = [float(s) for s in GsCodecConfig.steps]
+    gdir, gcsv = os.path.join(keep, "gs_predict"), os.path.join(keep, "gs_predict.csv")
+    with contextlib.redirect_stdout(io.StringIO()):
+        _, genc_s = counted("predict_gs_cli", encode_3dgs.main, [
+            "--input", comp, "--depth", str(DEPTH), "--dtype", "float32", "--bucket",
+            str(BUCKET), "--render", "none", "--save-streams", gdir, "--csv", gcsv,
+            "--predict", "--steps", *[f"{s:g}" for s in gsteps]])
+    with open(gcsv) as f:
+        grows = list(csv.DictReader(f))
+    gpsnr = [float(r["PSNR_all"]) for r in grows]
+    gbpp = [float(r["Rate_bpp"]) for r in grows]
+    check(len(grows) == len(gsteps) and all(np.isfinite(gpsnr)), f"encode_3dgs: {gpsnr}")
+    check(all(a > b for a, b in zip(gpsnr, gpsnr[1:])), f"3DGS PSNR not ordered: {gpsnr}")
+    gcodec = tp.AttributeCodec(DEPTH, dtype=torch.float32, predict=True)
+    for s, enc in zip(gsteps, gcodec.encode_sweep(gframe, gsteps)):
+        with open(os.path.join(gdir, f"gs_step{s:g}.r3tc"), "rb") as f:
+            blob = f.read()
+        check(blob == enc.stream.to_bytes(), f"the 3DGS CLI's predicted stream at step "
+              f"{s:g} != encode_sweep")
+        check(FrameStream.from_bytes(blob).predict, f"3DGS step {s:g}: not flagged predict")
+    with contextlib.redirect_stdout(io.StringIO()):
+        _, gdec_s = counted("predict_gs_cli", decode.main, [
+            "--stream", os.path.join(gdir, f"gs_step{min(gsteps):g}.r3tc"), "--positions",
+            comp, "--color-space", "3dgs", "--dtype", "float32", "--bucket", str(BUCKET),
+            "--output", os.path.join(keep, "gs_p.ply")])
+    check(launches["predict_gs_cli"] == {"ds_cumsum": 1, "ds_cumsum_t": 0,
+                                         "ds_cumsum_batched": 0},
+          f"predicted 3DGS CLI path: scan launches {launches['predict_gs_cli']}")
+    out["gs_cli"] = {"nvox": gframe.n_voxels, "encode_3dgs_s": genc_s, "decode_s": gdec_s,
+                     "psnr_all": gpsnr, "bpp": gbpp, "plain_rlgr_bpp": gs["cli"]["bpp"],
+                     "plain_rlgr_psnr_all": gs["cli"]["psnr_all"],
+                     "launches": launches["predict_gs_cli"]}
+    say("predict_gs_cli", **{k: json.dumps(v) if isinstance(v, (dict, list)) else v
+                             for k, v in out["gs_cli"].items()})
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    say("predict", seconds=round(out["seconds"], 1))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1887,6 +2188,7 @@ def main() -> int:
         data = phase_dataset(torch, ds)
         render = phase_render(torch, ds)
         entropy = phase_entropy(torch, ds, cli, gs, keep)
+        predict = phase_predict(torch, ds, cli, gs, keep)
     finally:
         shutil.rmtree(keep, ignore_errors=True)
     add_device_ms(torch, ds, vox["pack"], vox_vals)
@@ -1899,7 +2201,8 @@ def main() -> int:
              **{f"render_{name}": render[name]["launches"]
                 for name in ("voxelize_3dgs", "encode_3dgs", "encode_3dgs_debug")},
              "entropy_cli": entropy["colour"]["launches"],
-             "entropy_gs_cli": entropy["gs"]["launches"]}
+             "entropy_gs_cli": entropy["gs"]["launches"],
+             **predict["launches"]}
     rows.append(data["row"])
     for row in rows:
         # `launches`: the codec's main path (phase 3) for the single entry,
@@ -1912,7 +2215,10 @@ def main() -> int:
             row["gs_pack"] = gs["pack"]
             row["gs_pack_nvox"] = gs["pack_nvox"]
             row["gs_pack_merge"] = gs["pack_merge"]
-    say("done", seconds=round(time.perf_counter() - t_start, 1))
+    # context: the whole run took 351.9-374.5 s before phase 11 (two runs)
+    say("done", seconds=round(time.perf_counter() - t_start, 1),
+        predict_phase_seconds=round(predict["seconds"], 1),
+        whole_before_phase_11_s="351.9-374.5 (earlier runs)")
 
     print(card)
     print(json.dumps({"kernels": rows}))

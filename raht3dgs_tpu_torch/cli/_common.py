@@ -79,18 +79,23 @@ def add_quant_args(p: argparse.ArgumentParser) -> None:
     )
     p.add_argument(
         "--predict", action="store_true",
-        help="inter-depth predicted RAHT (not ported yet: ROADMAP queue A, "
-        "item 13)",
+        help="inter-depth predicted RAHT: code each depth group's "
+        "coefficients as residuals against an upsampled prediction from the "
+        "coarser depth's reconstruction, with a per-depth on/off decision "
+        "signalled in the stream (decode needs no flag). On the card the "
+        "device encoder runs it; decode replays the host closed loop",
     )
 
 
 def quant_kwargs(args) -> dict:
-    """AttributeCodec kwargs from the :func:`add_quant_args` flags."""
+    """AttributeCodec / BatchAttributeCodec kwargs from the
+    :func:`add_quant_args` flags."""
     return {
         "quant_mode": args.quant_mode,
         "quant_f": args.quant_f,
         "rec_delta": args.rec_delta,
         "entropy": getattr(args, "entropy", "rlgr"),
+        "predict": getattr(args, "predict", False),
     }
 
 

@@ -14,9 +14,9 @@ rasterizer, named ``jax``, when gsplat is absent). Example:
 ``--code-geometry`` with ``--save-streams`` attaches one lossless geometry
 section to every step's stream (``decode --color-space 3dgs`` then needs
 no ``--positions``: the header's ``width`` and ``vmin`` carry the world
-mapping). ``--tiles`` (ROADMAP queue A, item 15), ``--target-bpp`` (item
-14) and ``--predict`` (item 13) are not ported yet and exit naming their
-item.
+mapping). ``--predict`` codes inter-depth predicted RAHT (the device
+encoder on the card). ``--tiles`` (ROADMAP queue A, item 15) and
+``--target-bpp`` (item 14) are not ported yet and exit naming their item.
 """
 
 from __future__ import annotations
@@ -84,8 +84,6 @@ def main(argv=None) -> int:
         raise not_ported("--tiles", 15, "the tiled .r3tt stream")
     if args.target_bpp is not None:
         raise not_ported("--target-bpp", 14, "rate control")
-    if args.predict:
-        raise not_ported("--predict", 13, "predicted RAHT")
     device = resolve_device(args.platform)
     with maybe_profile(args, device):
         return _run(args, device)

@@ -10,13 +10,14 @@ device. Example:
     python -m raht3dgs_tpu_torch.cli.encode_dataset --dataset 8iVFBv2 \\
         --sequence redandblack --data-root /data --frames 1 10 --batch 4
 
-``--entropy rac|auto`` picks the attribute coder per channel, in the frame
-loop and under ``--batch``. ``--code-geometry`` is accepted, as in the JAX
-CLI, where it acts only with ``--save-sequence``, ``--tiles`` or
-``--target-bpp``. Those (ROADMAP queue A, item 15: ``--save-sequence``,
-``--tiles``; item 14: ``--target-bpp``, ``--cbr``, ``--two-pass``,
-``--inter``) and ``--predict`` (item 13) are not ported yet and exit
-naming their item, after the JAX CLI's own argument checks.
+``--entropy rac|auto`` picks the attribute coder per channel, and
+``--predict`` codes inter-depth predicted RAHT, in the frame loop and
+under ``--batch`` (where each frame runs its own closed loop).
+``--code-geometry`` is accepted, as in the JAX CLI, where it acts only
+with ``--save-sequence``, ``--tiles`` or ``--target-bpp``. Those (ROADMAP
+queue A, item 15: ``--save-sequence``, ``--tiles``; item 14:
+``--target-bpp``, ``--cbr``, ``--two-pass``, ``--inter``) are not ported
+yet and exit naming their item, after the JAX CLI's own argument checks.
 """
 
 from __future__ import annotations
@@ -139,8 +140,6 @@ def _refusals(args):
         raise not_ported("--inter", 14, "temporal I/P coding")
     if args.save_sequence:
         raise not_ported("--save-sequence", 15, "the R3TS sequence container")
-    if args.predict:
-        raise not_ported("--predict", 13, "predicted RAHT")
     return None
 
 

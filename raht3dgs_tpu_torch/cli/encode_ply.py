@@ -10,9 +10,10 @@ Y-PSNR/bpp over a quantization-step sweep, logged in the reference's
 ``--entropy rac|auto`` picks the attribute coder per channel, and
 ``--code-geometry`` with ``--save-streams`` attaches one lossless geometry
 section per frame to every step's stream, so ``cli.decode`` needs no
-``--positions``. ``--tiles`` (ROADMAP queue A, item 15), ``--target-bpp``
-(item 14) and ``--predict`` (item 13) are not ported yet and exit naming
-their item.
+``--positions``. ``--predict`` codes inter-depth predicted RAHT (the device
+encoder on the card; ``cli.decode`` reads the stream without a flag).
+``--tiles`` (ROADMAP queue A, item 15) and ``--target-bpp`` (item 14) are
+not ported yet and exit naming their item.
 """
 
 from __future__ import annotations
@@ -90,8 +91,6 @@ def main(argv=None) -> int:
         raise not_ported("--tiles", 15, "the tiled .r3tt stream")
     if args.target_bpp is not None:
         raise not_ported("--target-bpp", 14, "rate control")
-    if args.predict:
-        raise not_ported("--predict", 13, "predicted RAHT")
     device = resolve_device(args.platform)
     from raht3dgs_tpu_torch.models.color_codec import CSV_HEADER
 

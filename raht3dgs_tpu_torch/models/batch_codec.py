@@ -11,9 +11,12 @@ per-frame decode.
 Symbols cross to the host as int32 through the pinned-buffer fetch thread
 of ``AttributeCodec.encode_sweep`` (the JAX package's wire-narrowing tiers,
 built for a remote TPU link, are not ported). Every entropy choice
-(``rlgr``, ``rac``, ``auto``) goes through ``build_entropy_stream``. A
-``mesh`` (ROADMAP queue A, item 18) and ``predict=True`` (item 13) raise,
-naming their item.
+(``rlgr``, ``rac``, ``auto``) goes through ``build_entropy_stream``. With
+``predict=True`` every frame goes to the single-frame codec (the
+predicted loop is per frame): the streams are its bytes, ``transform`` and
+``inverse_order`` have nothing to share and return None, and predicted
+streams decode frame by frame. A ``mesh`` (ROADMAP queue A, item 18)
+raises, naming its item.
 """
 
 from __future__ import annotations
@@ -89,11 +92,12 @@ class BatchAttributeCodec:
             raise NotImplementedError(
                 "a device mesh is not ported yet (ROADMAP queue A, item 18)")
         # the single-frame codec checks the options (refusing the unported
-        # ones by item) and assembles every stream
+        # ones by item), assembles every stream and runs every predicted frame
         self._codec = AttributeCodec(
             depth, dtype=dtype, order_mode=order_mode, chunk=chunk,
             quant_mode=quant_mode, quant_f=quant_f, rec_delta=rec_delta,
             entropy=entropy, predict=predict, device=device)
+        self.predict = self._codec.predict
         self.device = self._codec.device
         self.depth = depth
         self.dtype = dtype
@@ -120,9 +124,12 @@ class BatchAttributeCodec:
     def transform(self, frames: Sequence[VoxelFrame],
                   timer: Optional[StageTimer] = None):
         """Step-independent half of the encode (forward RAHT + stream
-        order) for the whole batch: ``(coeffs, orderp, timer)``."""
+        order) for the whole batch: ``(coeffs, orderp, timer)``; None and
+        None for a predicted codec."""
         timer = timer or StageTimer()
         codes, attrs, weights = self._stack(frames)
+        if self.predict:
+            return None, None, timer
         coeffs, orderp = timer.time(
             "RAHT_transform_time", batched_forward,
             codes, attrs, weights, self.depth, self.order_mode, self._nvox(frames))
@@ -132,6 +139,9 @@ class BatchAttributeCodec:
                timer: Optional[StageTimer] = None) -> Tuple[List[FrameStream], StageTimer]:
         """One stream per frame at ``steps``; the transform unless given."""
         timer = timer or StageTimer()
+        if self.predict:
+            streams = [self._codec.encode(f, steps, timer=timer).stream for f in frames]
+            return streams, timer
         if coeffs is None or orderp is None:
             coeffs, orderp, timer = self.transform(frames, timer)
         q_np = timer.time("Quant_time", lambda: batched_quant_reorder(
@@ -170,6 +180,18 @@ class BatchAttributeCodec:
         steps_list = list(steps_list)
         if not steps_list:
             return []
+        if self.predict:
+            # frames outer, steps inner: each frame's plan and coefficients
+            # are built once; the regrouped streams are the per-step bytes
+            per_frame = [self._codec.encode_sweep(f, steps_list) for f in frames]
+            out = []
+            for si in range(len(steps_list)):
+                timer = StageTimer()
+                for encs in per_frame:
+                    for name, sec in encs[si].timer.stages.items():
+                        timer.add(name, sec)
+                out.append(([encs[si].stream for encs in per_frame], timer))
+            return out
         if coeffs is None or orderp is None:
             coeffs, orderp, _ = self.transform(frames)
         coeffs_T = batched_reorder_T(coeffs, orderp)
@@ -188,8 +210,11 @@ class BatchAttributeCodec:
 
     def inverse_order(self, frames: Sequence[VoxelFrame], order_mode=None):
         """Step-independent decode-side stream->transform permutation,
-        reusable across a sweep (``decode(..., inv=...)``)."""
+        reusable across a sweep (``decode(..., inv=...)``); None for a
+        predicted codec, whose streams decode frame by frame."""
         codes, _, weights = self._stack(frames)
+        if self.predict:
+            return None
         return batched_inverse_order(codes, weights, self._nvox(frames), self.depth,
                                      order_mode or self.order_mode)
 
@@ -213,8 +238,12 @@ class BatchAttributeCodec:
                     "— these streams mix predicted and plain RAHT; decode "
                     "them frame by frame (AttributeCodec.decode)"
                 )
-            raise NotImplementedError(
-                "predicted-RAHT streams are not ported yet (ROADMAP queue A, item 13)")
+            # the frozen host loop, frame by frame: the single-frame decode
+            out = []
+            for s, f in zip(streams, frames):
+                rec, _ = self._codec.decode(s, f.codes, f.weights, timer=timer)
+                out.append(rec)
+            return out, timer
         # one step vector and one order mode dequantize the whole stack:
         # mixed-parameter streams would reconstruct with the wrong steps
         for s in streams[1:]:

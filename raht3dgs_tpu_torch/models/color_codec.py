@@ -7,9 +7,10 @@ and Y-PSNR against the 255 peak with the rate in bits per voxel.
 
 Rate: payload bytes * 8 / Nvox. Distortion: Y-channel PSNR of the decoded
 signal, or with ``decode=False`` in the coefficient domain (the transform
-is orthonormal, so coefficient MSE equals signal MSE). The JAX package's
-``impl="golden"`` replay is refused by ``AttributeCodec`` (ROADMAP queue A,
-item 17).
+is orthonormal, so coefficient MSE equals signal MSE; the predicted
+transform has no such shortcut and refuses ``decode=False``). The JAX
+package's ``impl="golden"`` replay is refused by ``AttributeCodec``
+(ROADMAP queue A, item 17).
 """
 
 from __future__ import annotations
@@ -111,7 +112,17 @@ def encode_color_frame(
     )
     timer.add("RAHT_prelude_time", time.perf_counter() - t0)
 
-    coeffs, order, _, timer = codec.transform(frame, timer)
+    if codec.predict:
+        # the predicted transform runs its own closed loop inside
+        # encode_sweep: no coefficients to hoist, no coefficient-domain PSNR
+        if not decode:
+            raise ValueError(
+                "decode=False uses the coefficient-domain PSNR shortcut, "
+                "which does not exist for the predicted transform"
+            )
+        coeffs = order = None
+    else:
+        coeffs, order, _, timer = codec.transform(frame, timer)
     # the coefficients cross to the host only for the coefficient-domain PSNR
     coeffs_np = None if decode else coeffs[: frame.n_voxels].cpu().numpy()
     # reference signal in the codec's (Morton-sorted) order

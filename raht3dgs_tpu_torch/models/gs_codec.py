@@ -5,7 +5,9 @@ whole Gaussian payload [quats(4), scales(3), opacity(1), SH colours(48)]
 of a voxelized scene. RAHT over all 56 channels at once (on the card the
 float32 transform's (N, 57) prefix pack goes through the scan kernel's
 wide path), uniform or per-attribute-group steps, per-channel RLGR, full
-decode, overall and per-group PSNR, and the reference's 19-column CSV.
+decode, overall and per-group PSNR, and the reference's 19-column CSV. A
+predicted codec (``predict=True``) runs its closed loop inside
+``encode_sweep``, step by step.
 """
 
 from __future__ import annotations
@@ -105,9 +107,6 @@ def encode_gs_frame(
     codec = codec or AttributeCodec(depth, dtype=dtype, device=device)
     if device is not None and not same_device(codec.device, resolve_device(device)):
         raise ValueError(f"codec runs on {codec.device}, not {device}")
-    if codec.predict:
-        raise NotImplementedError(
-            "predicted RAHT is not ported yet (ROADMAP queue A, item 13)")
     timer = StageTimer()
     t0 = time.perf_counter()
     frame = prepare_voxel_frame(
@@ -116,7 +115,11 @@ def encode_gs_frame(
     )
     timer.add("RAHT_prelude_time", time.perf_counter() - t0)
 
-    coeffs, order, _, timer = codec.transform(frame, timer)
+    if codec.predict:
+        # the closed loop runs inside encode_sweep: no coefficients to hoist
+        coeffs = order = None
+    else:
+        coeffs, order, _, timer = codec.transform(frame, timer)
     ref_sorted = frame.attributes[:frame.n_voxels].cpu().numpy()
     D = attributes.shape[1]
     step_vecs = [

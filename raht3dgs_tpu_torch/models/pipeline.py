@@ -11,8 +11,11 @@ Covered: ``impl="span"``, quantizers ``mid`` and ``deadzone``, orders
 ``ragft``, ``weight_desc`` and ``morton``, float32 and float64, and the
 pipelined step sweep ``encode_sweep`` (pinned host buffers filled by a
 fetch thread while the host entropy-codes the step before), with the
-entropy coders ``rlgr``, ``rac`` and ``auto``. Options of
-the JAX package that later slices bring raise ``NotImplementedError``
+entropy coders ``rlgr``, ``rac`` and ``auto``, and inter-depth predicted
+RAHT (``predict=True``: the device encoder ``ops/praht_device.py`` on the
+card, the frozen host closed loop ``ops/praht.py`` on the CPU or when
+asked, and the host loop for every decode of a predicted stream). Options
+of the JAX package that later slices bring raise ``NotImplementedError``
 naming their ROADMAP item. The wire-narrowing tiers of the JAX package
 (built for a remote TPU link) are not ported: symbols cross as int32.
 """
@@ -21,6 +24,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import hashlib
 import queue
 import threading
 import time
@@ -48,12 +52,24 @@ from raht3dgs_tpu_torch.codec.rlgr import (
     rlgr_encode_channels,
 )
 from raht3dgs_tpu_torch.ops.morton import code_dtype, morton_encode, pad_code
+from raht3dgs_tpu_torch.ops.praht import (
+    praht_decode,
+    praht_encode,
+    praht_plan,
+    praht_true_coeffs,
+)
+from raht3dgs_tpu_torch.ops.praht_device import (
+    MAX_DEPTH as PRAHT_DEVICE_MAX_DEPTH,
+    praht_device_encode,
+    praht_device_plan,
+)
 from raht3dgs_tpu_torch.ops.quantize import (
     dequantize,
     dequantize_biased,
     quantize,
     quantize_deadzone,
 )
+from raht3dgs_tpu_torch.ops.raht import ieee_sqrt
 from raht3dgs_tpu_torch.ops.raht_span import (
     raht_forward_span,
     raht_inverse_span,
@@ -217,6 +233,13 @@ def _inverse_device(coeffs, codes, weights, depth: int) -> torch.Tensor:
     return raht_inverse_span(coeffs, codes, weights, depth)
 
 
+def _scale_sqrt_w(attributes: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """``attrs * sqrt(w)``: the predicted loop's true coefficients are the
+    standard forward transform of this scaled input (the identity for the
+    common unit-weight voxelized case); see ops/praht_device.py."""
+    return attributes * ieee_sqrt(weights.to(attributes.dtype))[:, None]
+
+
 def encode_entropy_channels(q_np: np.ndarray, entropy: str, *, chunk: int, n: int):
     """Per-channel entropy encode under the selected coder; returns
     ``(channels, entropy_map_or_None, elapsed_ns)``.
@@ -307,7 +330,8 @@ def decode_entropy_channels(stream: FrameStream, n: int, out: np.ndarray):
 def build_entropy_stream(q_np: np.ndarray, frame: VoxelFrame, steps, *, depth: int,
                          order_mode: str, chunk: int, quant_mode: str = "mid",
                          quant_f: float = 0.5, rec_delta: float = 0.0,
-                         dtype32: bool = False, entropy: str = "rlgr"):
+                         dtype32: bool = False, entropy: str = "rlgr",
+                         predict: bool = False, predict_mask: int = 0):
     """Host entropy-code one frame's (D, N) symbol matrix and wrap it as a
     FrameStream: the single place the stream is assembled. Returns
     ``(stream, encode_ns)``."""
@@ -327,6 +351,8 @@ def build_entropy_stream(q_np: np.ndarray, frame: VoxelFrame, steps, *, depth: i
         rec_delta=rec_delta,
         dtype32=dtype32,
         entropy_map=emap,
+        predict=predict,
+        predict_mask=predict_mask,
     )
     return stream, enc_ns
 
@@ -412,6 +438,7 @@ class AttributeCodec:
         rec_delta: float = 0.12,
         entropy: str = "rlgr",
         predict: bool = False,
+        predict_impl: str = "auto",
         *,
         device: DeviceLike = None,
     ):
@@ -430,9 +457,24 @@ class AttributeCodec:
                 f"impl={impl!r} is not ported yet (ROADMAP queue A, item 17)")
         if impl != "span":
             raise ValueError(f"unknown impl {impl!r}")
-        if predict:
-            raise NotImplementedError(
-                "predicted RAHT is not ported yet (ROADMAP queue A, item 13)")
+        # Inter-depth predicted RAHT (ops/praht.py): residuals against an
+        # upsampled prediction in the same stream layout. Decode is
+        # flag-driven (any codec decodes a predicted stream, always through
+        # the frozen host loop), so `predict` only steers the encoder.
+        if predict and order_mode != "ragft":
+            raise ValueError(
+                "predict=True needs the RA-GFT coefficient order (the depth "
+                f"groups must be stream-sequential), got {order_mode!r}")
+        # the predicted encoder: "host" (the frozen closed loop), "device"
+        # (ops/praht_device.py, the same stream format) or "auto" (device on
+        # the card for depth <= 20, host on the CPU)
+        if predict_impl not in ("host", "device", "auto"):
+            raise ValueError(
+                f"unknown predict_impl {predict_impl!r} (choose host, device or auto)")
+        if predict_impl == "device" and depth > PRAHT_DEVICE_MAX_DEPTH:
+            raise ValueError(
+                "predict_impl='device' covers the int32/int64 code tiers "
+                f"(depth <= {PRAHT_DEVICE_MAX_DEPTH}), got depth={depth}; use 'host'")
         self.depth = depth
         self.dtype = dtype
         self.order_mode = order_mode
@@ -443,6 +485,14 @@ class AttributeCodec:
         self.rec_delta = float(rec_delta)
         self.entropy = entropy
         self.predict = bool(predict)
+        self.predict_impl = predict_impl
+        # step-independent predicted-loop state, shared across a sweep's
+        # steps and decodes: host plans and true coefficients keyed by
+        # content hash, device (coeffs, order, plan) keyed by the frame's
+        # tensors (each entry pins its frame, so an id is never reused)
+        self._praht_plans: dict = {}
+        self._praht_tcs: dict = {}
+        self._praht_dev_cache: dict = {}
 
     def _on_device(self, x) -> torch.Tensor:
         t = torch.as_tensor(x)
@@ -471,6 +521,10 @@ class AttributeCodec:
         device-to-host copy of the symbols (timed with Quant_time), host
         entropy coding."""
         timer = timer or StageTimer()
+        if self.predict:
+            if self._predict_on_device():
+                return self._praht_encode_device(frame, steps, timer)
+            return self._praht_encode(frame, steps, timer)
         if coeffs is None or order is None:
             coeffs, order, _, timer = self.transform(frame, timer)
         q_np = timer.time("Quant_time", lambda: self._quantize(
@@ -488,10 +542,17 @@ class AttributeCodec:
         hands them over in order; this thread entropy-codes each, so step
         k's entropy coding overlaps step k+1's copy. Per-step
         ``Quant_time`` is the wait for that step's symbols (on the card the
-        quantize itself runs ahead of it)."""
+        quantize itself runs ahead of it). A predicted codec ignores
+        ``coeffs`` and ``order``: every step is its own closed loop."""
         steps_list = list(steps_list)
         if not steps_list:
             return []
+        if self.predict:
+            if self._predict_on_device():
+                return self._praht_sweep_device(frame, steps_list)
+            # the step-independent plan and true coefficients come from the
+            # per-frame cache (_praht_context): the first step builds them
+            return [self.encode(frame, s) for s in steps_list]
         if coeffs is None or order is None:
             coeffs, order, _, _ = self.transform(frame)
         coeffs_T = _reorder_T_device(coeffs, order, frame.n_voxels)
@@ -510,16 +571,137 @@ class AttributeCodec:
                                self._scalar(self.quant_f))
 
     def _entropy_frame(self, q_np: np.ndarray, frame: VoxelFrame, steps,
-                       timer: StageTimer) -> EncodedFrame:
-        """Entropy-code one step's (D, N) symbols into its FrameStream."""
+                       timer: StageTimer,
+                       predict_mask: Optional[int] = None) -> EncodedFrame:
+        """Entropy-code one step's (D, N) symbols into its FrameStream (a
+        predicted one when ``predict_mask`` is given)."""
         stream, enc_ns = build_entropy_stream(
             q_np, frame, steps, depth=self.depth, order_mode=self.order_mode,
             chunk=self.chunk, quant_mode=self.quant_mode, quant_f=self.quant_f,
             rec_delta=self.rec_delta, dtype32=self.dtype == torch.float32,
-            entropy=self.entropy,
+            entropy=self.entropy, predict=predict_mask is not None,
+            predict_mask=predict_mask or 0,
         )
         timer.add("Entropy_enc_time", enc_ns / 1e9)
         return EncodedFrame(stream=stream, timer=timer)
+
+    # -- predicted RAHT (ops/praht.py, ops/praht_device.py) ----------------
+
+    def _praht_fdtype(self, stream: Optional[FrameStream] = None):
+        """The predicted loop's numpy dtype: decode replays the encoder's
+        recorded precision (the closed loop depends on it), encode uses the
+        codec's own."""
+        dtype32 = stream.dtype32 if stream is not None else self.dtype == torch.float32
+        return np.float32 if dtype32 else np.float64
+
+    def _praht_context(self, codes_np: np.ndarray, w_np: np.ndarray, fdtype,
+                       attrs_np: Optional[np.ndarray] = None):
+        """(plan, true coefficients or None) of one frame's real rows, cached
+        by content hash (a sweep re-enters per step; the praht call checks
+        the plan against the codes, so a collision cannot decode the wrong
+        stream)."""
+        gkey = (codes_np.shape[0], self.depth, np.dtype(fdtype).name,
+                hashlib.sha1(np.ascontiguousarray(codes_np).tobytes()).hexdigest(),
+                hashlib.sha1(np.ascontiguousarray(w_np).tobytes()).hexdigest())
+        plan = self._praht_plans.get(gkey)
+        if plan is None:
+            plan = praht_plan(codes_np, w_np, self.depth, fdtype=fdtype)
+            while len(self._praht_plans) >= 2:
+                self._praht_plans.pop(next(iter(self._praht_plans)))
+            self._praht_plans[gkey] = plan
+        if attrs_np is None:
+            return plan, None
+        tkey = gkey + (hashlib.sha1(np.ascontiguousarray(attrs_np).tobytes()).hexdigest(),)
+        tc = self._praht_tcs.get(tkey)
+        if tc is None:
+            tc = praht_true_coeffs(plan, attrs_np)
+            while len(self._praht_tcs) >= 4:
+                self._praht_tcs.pop(next(iter(self._praht_tcs)))
+            self._praht_tcs[tkey] = tc
+        return plan, tc
+
+    def _praht_encode(self, frame: VoxelFrame, steps, timer: StageTimer) -> EncodedFrame:
+        """Host closed-loop predicted-RAHT encode (ops/praht.py); the plan
+        and the true coefficients come from the per-frame cache."""
+        n = frame.n_voxels
+        codes_np = self._on_device(frame.codes).cpu().numpy()[:n]
+        attrs_np = frame.attributes.cpu().numpy()[:n]
+        w_np = frame.weights.cpu().numpy()[:n]
+        fdtype = self._praht_fdtype()
+
+        def _run():
+            plan, tc = self._praht_context(codes_np, w_np, fdtype, attrs_np)
+            return praht_encode(
+                codes_np, attrs_np, w_np, self.depth,
+                np.atleast_1d(np.asarray(steps, dtype=np.float64)),
+                quant_mode=self.quant_mode, quant_f=self.quant_f,
+                rec_delta=self.rec_delta, fdtype=fdtype, plan=plan, true_coeffs=tc)
+
+        sym_T, mask, _ = timer.time("RAHT_transform_time", _run)
+        return self._entropy_frame(sym_T, frame, steps, timer, predict_mask=mask)
+
+    def _predict_on_device(self) -> bool:
+        """The device encoder for "device", and for "auto" on the card at
+        depth <= 20; the frozen host loop otherwise. Decode is host either
+        way."""
+        if self.predict_impl == "auto":
+            return self.device.type == "cuda" and self.depth <= PRAHT_DEVICE_MAX_DEPTH
+        return self.predict_impl == "device"
+
+    def _praht_dev_context(self, frame: VoxelFrame):
+        """(true coefficients, RA-GFT order, device plan) of one frame,
+        cached by the identity of its tensors (the entry pins the frame)."""
+        key = (id(frame.codes), id(frame.weights), id(frame.attributes))
+        ent = self._praht_dev_cache.get(key)
+        if ent is None:
+            codes = self._on_device(frame.codes)
+            coeffs, order, structure = _transform_device(
+                codes, _scale_sqrt_w(frame.attributes, frame.weights), frame.weights,
+                self.depth, "ragft")
+            plan = praht_device_plan(codes, frame.weights, self.depth,
+                                     structure.drop_level, structure.subtree_w)
+            while len(self._praht_dev_cache) >= 2:
+                self._praht_dev_cache.pop(next(iter(self._praht_dev_cache)))
+            ent = (frame, coeffs, order, plan)
+            self._praht_dev_cache[key] = ent
+        return ent[1], ent[2], ent[3]
+
+    def praht_device_step(self, frame: VoxelFrame, steps):
+        """One step's device closed loop, queued on the device: ``(q_T (D,
+        Np) int32 stream-order symbols, predict mask device scalar, rec
+        (Np, D) the encoder's own reconstruction)``. Nothing crosses to the
+        host."""
+        coeffs, order, plan = self._praht_dev_context(frame)
+        steps_t = torch.atleast_1d(self._scalar(np.asarray(steps, dtype=np.float64)))
+        sym, maskbits, rec = praht_device_encode(
+            plan, frame.codes, frame.weights, coeffs, self.depth, steps_t,
+            quant_mode=self.quant_mode, qf=self.quant_f, rec_delta=self.rec_delta)
+        return _reorder_T_device(sym, order, frame.n_voxels), maskbits, rec
+
+    def _praht_encode_device(self, frame: VoxelFrame, steps,
+                             timer: StageTimer) -> EncodedFrame:
+        """Device predicted-RAHT encode: the host encoder's stream format
+        (see ops/praht_device.py on why encoder-side float drift cannot
+        break it); one copy of the symbols, then the mask."""
+        q_T, maskbits, _ = timer.time("RAHT_transform_time", self.praht_device_step,
+                                      frame, steps)
+        q_np, mask = timer.time("Quant_time", lambda: (q_T.cpu().numpy(), int(maskbits)))
+        return self._entropy_frame(q_np, frame, steps, timer, predict_mask=mask)
+
+    def _praht_sweep_device(self, frame: VoxelFrame, steps_list) -> List[EncodedFrame]:
+        """Device predicted sweep: every step's closed loop queued up front
+        (the plan shared), the symbols drained through the fetch thread of
+        :meth:`encode_sweep` while this thread entropy-codes the step
+        before; byte-identical to per-step :meth:`encode`."""
+        pend = [self.praht_device_step(frame, s)[:2] for s in steps_list]
+        out: List[EncodedFrame] = []
+        with contextlib.closing(_fetched_symbols([q for q, _ in pend])) as fetched:
+            for s, (_, maskbits), (q_np, wait_s) in zip(steps_list, pend, fetched):
+                timer = StageTimer()
+                timer.add("Quant_time", wait_s)
+                out.append(self._entropy_frame(q_np, frame, s, timer,
+                                               predict_mask=int(maskbits)))
+        return out
 
     # -- decoding ---------------------------------------------------------
 
@@ -550,8 +732,7 @@ class AttributeCodec:
                 "match this stream"
             )
         if stream.predict:
-            raise NotImplementedError(
-                "predicted-RAHT streams are not ported yet (ROADMAP queue A, item 13)")
+            return self._praht_decode(stream, codes, weights, k, timer)
         inv = timer.time("Coeff_reorder_dec_time", _inverse_order_device, codes,
                          weights, nvox, self.depth, stream.order_mode)
         # zeros beyond the decoded prefix ARE the truncated coefficients
@@ -569,6 +750,36 @@ class AttributeCodec:
         attrs = timer.time("iRAHT_time", _inverse_device, coeffs, codes, weights,
                            self.depth)
         return attrs.cpu().numpy()[:nvox], timer
+
+    def _praht_decode(self, stream: FrameStream, codes, weights, k: int,
+                      timer: StageTimer):
+        """Host decode of a predicted-RAHT stream (flag-driven: any codec
+        decodes one; the loop replays the encoder's recorded dtype). Symbols
+        past the ``k``-prefix stay zero residuals, so a cut stream
+        reconstructs as the prediction cascade. Codes and weights cross to
+        the host once; the plan comes from the per-frame cache."""
+        if stream.order_mode != "ragft":
+            raise ValueError(
+                "corrupt stream: predicted transform requires the RA-GFT "
+                f"coefficient order, stream has {stream.order_mode!r}")
+        nvox = stream.n_voxels
+        vals_T = np.zeros((stream.n_channels, nvox), dtype=np.int32)
+        _, dec_ns = decode_entropy_channels(stream, k, vals_T)
+        timer.add("Entropy_dec_time", dec_ns / 1e9)
+        codes_np = codes.cpu().numpy()[:nvox]
+        w_np = weights.cpu().numpy()[:nvox]
+        fdtype = self._praht_fdtype(stream)
+
+        def _run():
+            plan, _ = self._praht_context(codes_np, w_np, fdtype)
+            return praht_decode(
+                vals_T, codes_np, w_np, self.depth,
+                stream.steps if stream.steps.shape[0] > 1 else stream.steps[0],
+                predict_mask=stream.predict_mask, quant_mode=stream.quant_mode,
+                quant_f=stream.quant_f, rec_delta=stream.rec_delta, fdtype=fdtype,
+                plan=plan)
+
+        return timer.time("iRAHT_time", _run), timer
 
 
 def progressive_prefix_bytes(stream: FrameStream, n_coeffs: int) -> int:

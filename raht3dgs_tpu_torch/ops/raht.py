@@ -2,8 +2,11 @@
 
 Counterpart of the shared part of ``raht3dgs_tpu/ops/raht.py``
 (``num_levels``, ``RahtStructure``, ``RahtForwardResult``,
-``_butterfly_ab``, ``_code_lanes`` / ``_lanes_code``). The dense level loop of that module is not ported yet
-(ROADMAP queue A, item 17); the codec's transform is ``ops/raht_span.py``.
+``_butterfly_ab``, ``_code_lanes`` / ``_lanes_code``), and the level-loop
+helpers that the device predicted encoder runs (``_succ_active``,
+``_pred_active``, ``_neighbor_pack``, ``_level_mask``). The dense level
+loop of that module is not ported yet (ROADMAP queue A, item 17); the
+codec's transform is ``ops/raht_span.py``.
 """
 
 from __future__ import annotations
@@ -80,3 +83,61 @@ def _butterfly_ab(w0: torch.Tensor, w1: torch.Tensor):
     a = torch.where(safe, ieee_sqrt(w0 / d), torch.ones_like(denom))
     b = torch.where(safe, ieee_sqrt(w1 / d), torch.zeros_like(denom))
     return a, b
+
+
+def _active_neighbors(active: torch.Tensor):
+    """``(succ, pred)``: for each position the next strictly-greater active
+    index (N if none) and the previous strictly-smaller one (-1 if none),
+    int32.
+
+    The JAX package takes a reversed ``cummin`` and a ``cummax``; PyTorch's
+    scans with indices took ~1.3 ms each at 2^19 rows on an H100, 76 of the
+    device encoder's 91 ms a step (``chip_smoke.py`` phase 11's profile),
+    so the same integers come from one ``cumsum`` of the active flags (each
+    active position's rank), a scatter of the active positions by rank, and
+    two gathers."""
+    N = active.shape[0]
+    ar = torch.arange(N, dtype=torch.int32, device=active.device)
+    cnt = torch.cumsum(active, 0, dtype=torch.int32)       # active in [0, i]
+    # by rank; slot N stays N (past the last active), slot N + 1 takes the
+    # writes of the inactive positions
+    pos = torch.full((N + 2,), N, dtype=torch.int32, device=active.device)
+    pos.scatter_(0, torch.where(active, cnt - 1, N + 1).long(), ar)
+    succ = pos[cnt.long()]
+    before = cnt - active.to(torch.int32)                  # active in [0, i)
+    pred = torch.where(before > 0, pos[(before - 1).clamp(min=0).long()],
+                       torch.full_like(before, -1))
+    return succ, pred
+
+
+def _succ_active(active: torch.Tensor) -> torch.Tensor:
+    """For each position, the next strictly-greater active index (N if none)."""
+    return _active_neighbors(active)[0]
+
+
+def _pred_active(active: torch.Tensor) -> torch.Tensor:
+    """For each position, the previous strictly-smaller active index (-1 if none)."""
+    return _active_neighbors(active)[1]
+
+
+def _neighbor_pack(active: torch.Tensor, codes: torch.Tensor, fields):
+    """succ/pred indices of every position among the active ones, and the
+    fields (each (N,) or (N, D)) followed by the code at both.
+
+    Returns ``(succ, pred, at_succ, at_pred)``. The JAX package packs the
+    fields and the codes (as float digits, ``_code_lanes``) into one wide
+    row gather, a TPU gather workaround; here each is gathered directly,
+    with the same values."""
+    N = active.shape[0]
+    succ, pred = _active_neighbors(active)
+    succ_c = succ.clamp(max=N - 1).long()
+    pred_c = pred.clamp(min=0).long()
+    at_succ = [f[succ_c] for f in fields] + [codes[succ_c]]
+    at_pred = [f[pred_c] for f in fields] + [codes[pred_c]]
+    return succ, pred, at_succ, at_pred
+
+
+def _level_mask(j: int, levels: int) -> int:
+    """``2^levels - 2^j``: the code bits above level ``j``. Below 2^31 for
+    the int32 code tier (``levels <= 31``), so it fits the codes' dtype."""
+    return (1 << levels) - (1 << j)

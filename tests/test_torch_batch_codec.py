@@ -328,6 +328,30 @@ def test_batch_codec_entropy_matches_per_frame_and_jax(rng, entropy, chunk):
         np.testing.assert_array_equal(rec, single.decode(st, f.codes, f.weights)[0])
 
 
+@pytest.mark.parametrize("jdt", [jnp.float64, jnp.float32])
+def test_batch_codec_predict_matches_per_frame_and_jax(rng, jdt):
+    """predict=True: every frame through the single-frame codec's closed
+    loop; the per-frame bytes, the JAX batch codec's bytes, and decodes
+    equal to the per-frame decode (the host loop)."""
+    jf, tf = _both_batches(rng, jdt)
+    tcodec = tbc.BatchAttributeCodec(DEPTH, dtype=_TORCH[jdt], predict=True, device="cpu")
+    single = tp.AttributeCodec(DEPTH, dtype=_TORCH[jdt], predict=True, device="cpu")
+    assert tcodec.transform(tf)[:2] == (None, None) and tcodec.inverse_order(tf) is None
+    steps = [2.0, 8.0]
+    sweep = tcodec.encode_sweep(tf, steps)
+    jsweep = jbc.BatchAttributeCodec(DEPTH, dtype=jdt, predict=True).encode_sweep(jf, steps)
+    for s, (streams, timer), (jstreams, _) in zip(steps, sweep, jsweep):
+        assert timer.stages["RAHT_transform_time"] > 0
+        got = [st.to_bytes() for st in streams]
+        assert got == [e.to_bytes() for e in tcodec.encode(tf, s)[0]]
+        assert got == [single.encode(f, s).stream.to_bytes() for f in tf]
+        assert got == [st.to_bytes() for st in jstreams]
+        assert all(st.predict for st in streams)
+        recs, _ = tcodec.decode(streams, tf)
+        for f, st, rec in zip(tf, streams, recs):
+            np.testing.assert_array_equal(rec, single.decode(st, f.codes, f.weights)[0])
+
+
 def _symbols(stream, n):
     out = np.zeros((stream.n_channels, n), np.int32)
     rlgr_decode_channels(stream.channels, n, out=out, chunk=stream.chunk)
@@ -364,9 +388,8 @@ def test_batch_codec_matches_jax_batch_codec(rng, jdt, d_attr):
 
 
 def test_batch_codec_refuses_unported_and_mixed(rng):
-    for kw, item in ((dict(mesh=object()), 18), (dict(predict=True), 13)):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            tbc.BatchAttributeCodec(DEPTH, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="item 18"):
+        tbc.BatchAttributeCodec(DEPTH, device="cpu", mesh=object())
     with pytest.raises(ValueError):
         tbc.BatchAttributeCodec(DEPTH, quant_mode="bogus", device="cpu")
     pos, attrs = _cloud(rng, (100, 120))
@@ -382,9 +405,6 @@ def test_batch_codec_refuses_unported_and_mixed(rng):
     streams[1].inter = False
     streams[1].predict = True
     with pytest.raises(ValueError, match="homogeneous transform"):
-        bc.decode(streams, frames)
-    streams[0].predict = True
-    with pytest.raises(NotImplementedError, match="item 13"):
         bc.decode(streams, frames)
     # frames of two padded sizes do not stack
     lone = tp.prepare_voxel_frame(pos[0], attrs[0], DEPTH, bucket=256, device="cpu")

@@ -364,6 +364,33 @@ def test_cli_decode_options_match_jax(tmp_path, no_jax_cache, capsys, dec_extra)
     assert (tmp_path / "rec_t.ply").read_bytes() == (tmp_path / "rec_j.ply").read_bytes()
 
 
+@pytest.mark.parametrize("dtype,dec_extra", [("float64", []), ("float32", []),
+                                             ("float64", ["--progressive", "16"])])
+def test_cli_predict_streams_and_decode_match_jax(tmp_path, no_jax_cache, capsys, dtype,
+                                                  dec_extra):
+    """encode_ply --predict (the host loop on the CPU in both packages):
+    the same streams, CSV rows and decoded PLYs, full and progressive."""
+    (jh, jrows), (th, trows) = _run_both_clis(tmp_path, ["--predict"], dec_extra, dtype)
+    assert th == jh and len(trows) == len(jrows) == 2
+    for a, b in zip(trows, jrows):
+        assert a[:3] == b[:3]   # the same bytes; the reference YUV may differ in ulps
+        assert abs(float(a[-1]) - float(b[-1])) <= _PSNR_TOL[dtype]
+    for step in ("2", "8"):
+        name = f"frame0001_step{step}.r3tc"
+        blob = (tmp_path / "t" / name).read_bytes()
+        assert blob == (tmp_path / "j" / name).read_bytes()
+        assert tp.FrameStream.from_bytes(blob).predict
+    assert (tmp_path / "rec_t.ply").read_bytes() == (tmp_path / "rec_j.ply").read_bytes()
+    if dec_extra:
+        lines = [ln for ln in capsys.readouterr().out.splitlines()
+                 if ln.startswith("progressive preview")]
+        assert len(lines) == 2 and lines[0] == lines[1]
+    with pytest.raises(ValueError, match="predicted transform"):
+        tcc.encode_color_frame(np.eye(3)[:2], np.ones((2, 3)), depth=3, steps=(1,),
+                               decode=False,
+                               codec=tp.AttributeCodec(3, predict=True, device="cpu"))
+
+
 def test_cli_encode_ply_subprocess(tmp_path):
     ply = _raw_ply(tmp_path, n=2000)
     csv = tmp_path / "log.csv"
@@ -500,7 +527,6 @@ def test_cli_decode_geometry_refusals_match_jax(tmp_path, auto_geometry_dir, no_
 @pytest.mark.parametrize("cli,extra,item", [
     (tenc, ["--tiles", "3"], 15),
     (tenc, ["--target-bpp", "1.0"], 14),
-    (tenc, ["--predict"], 13),
     (tdec, ["--lod", "3"], 15),
     (tdec, ["--roi", "0", "0", "0", "4", "4", "4"], 15),
     (tdec, ["--all-frames"], 15),

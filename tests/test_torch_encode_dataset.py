@@ -112,6 +112,24 @@ def test_entropy_rows_match_jax_cli(trees, tmp_path_factory, entropy, batch):
             or entropy == "rac"
 
 
+@pytest.mark.parametrize("batch", [0, 2], ids=["frame_loop", "batch2"])
+def test_predict_rows_match_jax_cli(trees, tmp_path_factory, batch):
+    """--predict in the frame loop and under --batch: each frame its own
+    closed loop, the JAX CLI's rates and PSNRs, the same in both modes."""
+    jrows = _run(trees, tmp_path_factory, "8iVFBv2", "jax", batch, ["--predict"])
+    trows = _run(trees, tmp_path_factory, "8iVFBv2", "torch", batch, ["--predict"])
+    plain = _run(trees, tmp_path_factory, "8iVFBv2", "torch", batch)
+    assert len(trows) == len(jrows) == 6
+    for a, b in zip(trows, jrows):
+        assert (a["Frame"], a["Quantization_Step"], a["Rate_bpp"], a["psnr"]) == \
+            (b["Frame"], b["Quantization_Step"], b["Rate_bpp"], b["psnr"])
+    assert [r["Rate_bpp"] for r in trows] != [r["Rate_bpp"] for r in plain]
+    if batch:
+        loop = _run(trees, tmp_path_factory, "8iVFBv2", "torch", 0, ["--predict"])
+        assert sorted((r["Frame"], r["Quantization_Step"], r["Rate_bpp"]) for r in trows) \
+            == sorted((r["Frame"], r["Quantization_Step"], r["Rate_bpp"]) for r in loop)
+
+
 def test_code_geometry_is_accepted_as_in_jax(trees, tmp_path_factory):
     # without --save-sequence/--tiles/--target-bpp the flag writes nothing
     # more in either package: the rows are those of a run without it
@@ -199,7 +217,6 @@ def _argv(tmp_path, extra):
     (["--target-bpp", "2.0", "--cbr"], 14),
     (["--target-bpp", "2.0", "--two-pass"], 14),
     (["--inter", "--steps", "4"], 14),
-    (["--predict"], 13),
 ])
 def test_unported_flags_exit_naming_their_item(tmp_path, extra, item):
     with pytest.raises(SystemExit, match=f"item {item}"):
@@ -223,7 +240,7 @@ def test_argument_errors_match_jax(tmp_path, monkeypatch, extra):
 def test_unknown_sequence_returns_1(tmp_path):
     # before any other check, and before the device is asked for
     with pytest.warns(UserWarning, match="unknown sequence"):
-        assert tcli.main(["--dataset", "MVUB", "--sequence", "loot", "--predict",
+        assert tcli.main(["--dataset", "MVUB", "--sequence", "loot", "--inter",
                           "--csv", str(tmp_path / "x.csv")]) == 1
     assert not (tmp_path / "x.csv").exists()
 

@@ -249,6 +249,36 @@ def test_encode_gs_frame_matches_jax(jdt, per_attribute):
     assert got[0].times["RAHT_prelude_time"] == got[1].times["RAHT_prelude_time"] > 0
 
 
+@pytest.mark.parametrize("impl", ["host", "device"])
+def test_encode_gs_frame_predict_matches_jax(impl):
+    """The 56-channel sweep with predict: the JAX host encoder's streams
+    and CSV rows (the device encoder, run on the CPU, gives its bytes on
+    this fixture), and decodes equal across packages."""
+    res = jgv.compress_to_nvox(_scene(np.random.default_rng(3), 1500), depth=5)
+    r = slice(0, res.n_voxels)
+    V = np.asarray(res.positions_int)[r]
+    attrs = np.concatenate([res.quats[r], res.scales[r], res.opacities[r][:, None],
+                            res.colors[r]], axis=1)
+    attrs[:, 8:] += (V @ np.linspace(0.01, 0.05, 3))[:, None]  # smooth colours
+    kw = dict(depth=5, steps=(0.01, 0.1), bucket=512, keep_streams=True)
+    want = jgc.encode_gs_frame(V, attrs, codec=jp.AttributeCodec(
+        5, predict=True, predict_impl="host"), **kw)
+    codec = tp.AttributeCodec(5, predict=True, predict_impl=impl, device="cpu")
+    got = tgc.encode_gs_frame(V, attrs, codec=codec, **kw)
+    tf = tp.prepare_voxel_frame(V, attrs, 5, bucket=512, device="cpu")
+    jf = jp.prepare_voxel_frame(V, attrs, 5, bucket=512)
+    for a, b in zip(got, want):
+        assert a.encoded.stream.predict and a.encoded.stream.predict_mask != 0
+        assert a.encoded.stream.to_bytes() == b.encoded.stream.to_bytes()
+        ra, rb = a.csv_row().split(","), b.csv_row().split(",")
+        assert ra[:3] == rb[:3] and ra[15:] == rb[15:]
+        blob = a.encoded.stream.to_bytes()
+        rec_t, _ = codec.decode(FrameStream.from_bytes(blob), tf.codes, tf.weights)
+        rec_j, _ = jp.AttributeCodec(5).decode(JaxStream.from_bytes(blob), jf.codes,
+                                              jf.weights)
+        np.testing.assert_array_equal(rec_t, np.asarray(rec_j))
+
+
 def test_gs_codec_schema_matches_jax():
     assert tgc.CSV_HEADER == jgc.CSV_HEADER
     assert (tgc.DEFAULT_DEPTH, tuple(tgc.DEFAULT_STEPS)) == \
@@ -266,11 +296,11 @@ def test_gs_codec_schema_matches_jax():
 
 
 def test_encode_gs_frame_refuses_predict_and_other_device():
-    codec = tp.AttributeCodec(3, device="cpu")
     V = np.array([[0, 0, 0], [1, 0, 0]])
-    codec.predict = True  # as a predicted-RAHT codec would be (item 13)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tgc.encode_gs_frame(V, np.zeros((2, 56)), depth=3, codec=codec)
+    # a predicted codec is no longer refused: it codes the frame (item 13)
+    pts = tgc.encode_gs_frame(V, np.ones((2, 56)), depth=3, steps=(0.5,),
+                              codec=tp.AttributeCodec(3, predict=True, device="cpu"))
+    assert pts[0].encoded is None and pts[0].psnr["psnr_all"] > 0
     codec = tp.AttributeCodec(3, device="cpu")
     codec.device = torch.device("cuda")  # as a CUDA codec would see it
     with pytest.raises(ValueError, match="codec runs on"):

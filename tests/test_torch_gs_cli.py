@@ -211,7 +211,6 @@ def test_voxelize_3dgs_subprocess(ckpt, tmp_path):
 @pytest.mark.parametrize("cli,extra,item", [
     (tenc, ["--tiles", "3"], 15),
     (tenc, ["--target-bpp", "1.0"], 14),
-    (tenc, ["--predict"], 13),
 ])
 def test_unported_3dgs_options_exit_naming_their_item(tmp_path, cli, extra, item):
     if cli is tvox:
@@ -223,6 +222,33 @@ def test_unported_3dgs_options_exit_naming_their_item(tmp_path, cli, extra, item
         argv = ["--input", "x.ply", "--platform", "cpu"] + extra
     with pytest.raises(SystemExit, match=f"item {item}"):
         cli.main(argv)
+
+
+def test_predict_chain_matches_jax_clis(ckpt, tmp_path, no_jax_cache):
+    """encode_3dgs --predict -> decode --color-space 3dgs in both packages:
+    the same streams, CSV rows and decoded attributes."""
+    voxply = str(_voxelize_both(tmp_path, "--ckpt", ckpt)["j"])
+    for name, cli in (("j", jenc), ("t", tenc)):
+        assert cli.main(["--input", voxply, "--steps", "0.01", "0.1", "--platform", "cpu",
+                         "--predict", "--save-streams", str(tmp_path / name),
+                         "--csv", str(tmp_path / f"{name}.csv")]) == 0
+    (jh, jrows), (th, trows) = _csv(tmp_path / "j.csv"), _csv(tmp_path / "t.csv")
+    assert th == jh and len(trows) == len(jrows) == 2
+    for a, b in zip(trows, jrows):
+        assert a[:3] == b[:3] and a[15:] == b[15:]
+    assert float(trows[0][15]) > float(trows[1][15])
+    for step in ("0.01", "0.1"):
+        blob = (tmp_path / "t" / f"gs_step{step}.r3tc").read_bytes()
+        assert blob == (tmp_path / "j" / f"gs_step{step}.r3tc").read_bytes()
+    stream = str(tmp_path / "t" / "gs_step0.01.r3tc")
+    for name, cli in (("j", jdec), ("t", tdec)):
+        assert cli.main(["--stream", stream, "--positions", voxply, "--output",
+                         str(tmp_path / f"rec_{name}.ply"), "--color-space", "3dgs",
+                         "--platform", "cpu"]) == 0
+    a, b = tread(tmp_path / "rec_t.ply"), tread(tmp_path / "rec_j.ply")
+    np.testing.assert_array_equal(a[0], b[0])
+    np.testing.assert_array_equal(a[1], b[1])
+    assert np.abs(a[1] - tread(voxply)[1]).max() < 0.02  # the step 0.01 bound
 
 
 def _scene_ply(tmp_path, rng, n=800):

@@ -175,7 +175,7 @@ def test_j18_frame_roundtrip_and_symbols():
 
 
 def test_unported_options_raise():
-    for kw in (dict(impl="dense"), dict(impl="golden"), dict(predict=True)):
+    for kw in (dict(impl="dense"), dict(impl="golden")):
         with pytest.raises(NotImplementedError):
             tp.AttributeCodec(6, device="cpu", **kw)
     with pytest.raises(ValueError):
@@ -184,8 +184,9 @@ def test_unported_options_raise():
     frame = tp.prepare_voxel_frame(np.zeros((1, 3), np.int64), np.ones((1, 3)), 6,
                                    device="cpu")
     stream = codec.encode(frame, 1.0).stream
-    stream.predict = True  # a predicted-RAHT stream (item 13)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    stream.predict = True  # a predicted-RAHT stream needs the RA-GFT order
+    stream.order_mode = "morton"
+    with pytest.raises(ValueError, match="RA-GFT"):
         codec.decode(stream, frame.codes, frame.weights)
     with pytest.raises(NotImplementedError, match="item 2"):  # uint64 codes (J=21)
         tp.voxel_frame_from_arrays(np.zeros(4, np.uint64), np.zeros((4, 3)), np.ones(4),

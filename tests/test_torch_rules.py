@@ -37,7 +37,8 @@ def _port_sources():
 
 def test_every_module_imports_without_jax():
     mods = _port_modules()
-    assert "raht3dgs_tpu_torch.ops.ds_scan" in mods
+    for m in ("ds_scan", "praht", "_praht_native", "praht_device"):
+        assert f"raht3dgs_tpu_torch.ops.{m}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -127,6 +128,37 @@ def test_entry_points_refuse_silent_cpu(monkeypatch):
     frames = prepare_frame_batch([np.zeros((1, 3), np.int64)], [np.zeros((1, 3))], 6,
                                  device="cpu")
     assert frames[0].codes.device.type == "cpu"
+
+
+def test_predicted_entry_points_follow_the_device_rule(monkeypatch):
+    """predict=True codecs and the CLIs' --predict run on CUDA unless given
+    the CPU, and raise without a card; the device encoder runs on its
+    tensors' device."""
+    monkeypatch.setattr(tdev, "cuda_available", lambda: False)
+    from raht3dgs_tpu_torch.cli import encode_3dgs, encode_dataset, encode_ply
+    from raht3dgs_tpu_torch.models.batch_codec import BatchAttributeCodec
+
+    for make in (lambda **k: tp.AttributeCodec(6, predict=True, **k),
+                 lambda **k: tp.AttributeCodec(6, predict=True, predict_impl="device", **k),
+                 lambda **k: BatchAttributeCodec(6, predict=True, **k)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+        assert make(device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        encode_ply.main(["--input", "missing.ply", "--predict"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        encode_3dgs.main(["--input", "missing.ply", "--predict"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        encode_dataset.main(["--dataset", "8iVFBv2", "--sequence", "loot", "--predict"])
+    # a CUDA predicted codec would take the device encoder, a CPU one the host loop
+    codec = tp.AttributeCodec(6, predict=True, device="cpu")
+    assert not codec._predict_on_device()
+    codec.device = torch.device("cuda")  # as a CUDA codec would see it
+    assert codec._predict_on_device()
+    frame = tp.prepare_voxel_frame(np.eye(3, dtype=np.int64), np.ones((3, 3)), 6,
+                                   device="cpu")
+    with pytest.raises(ValueError, match="codec runs on"):
+        codec.encode(frame, 1.0)
 
 
 def test_codec_refuses_frame_on_other_device():
