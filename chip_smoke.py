@@ -70,7 +70,7 @@ Phases, each printed on its own line, any failure exits nonzero:
    to run, then timed; the 3DGS golden fixture's float64 hash;
 8. the dataset path: eight seeded 8iVFBv2 frames of about 0.8 M voxels
    at J=10 (``utils/synth.py:dataset_frame``, counts differing by frame)
-   as binary PLYs in a temporary tree, through ``cli.encode_dataset`` with
+   as binary PLYs in a tree kept for phase 12, through ``cli.encode_dataset`` with
    ``--batch 4`` (two batches, each padded to 2^20 rows) and as a frame
    loop (float32, bucket 2^19, the reference's 11 steps), the scan launches
    read around each run and held to 13 batched launches a batch (forward,
@@ -131,7 +131,24 @@ Phases, each printed on its own line, any failure exits nonzero:
    pack, no transposed scan); times: the device encoder per step (CUDA
    events; kernel time and launches per step from the profiler), the host
    encoder and decoder (native; the numpy twin's decode at J10), the
-   device decode, and peak device memory.
+   device decode, and peak device memory;
+12. rate control: the rate model on the card against the same call on the
+   CPU (relative error ``RATE_REL_TOL``) on phase 3's J10 frame at step 16
+   and phase 7's 3DGS merge at step 1, with the 64-step grid's time (CUDA
+   events), launches (profiler) and peak memory above the frame;
+   ``search_step_for_bpp`` on phase 6's raw cloud at 1.1x its step-16
+   rate, plain (in budget, its stream equal to ``encode`` at its step) and
+   predicted (the device encoder; its stream decoded by the host loop
+   within step / 2), and on a 20 000-voxel ``eval/synth.py`` frame with
+   the same step, bytes and true encodes on the card and the CPU; then
+   ``encode_ply --target-bpp --code-geometry`` on the raw cloud and
+   ``decode`` without positions, ``encode_3dgs --target-bpp`` on the merge
+   and its decode, and ``encode_dataset`` on 4 of phase 8's frames
+   (its tree is kept) independent, ``--cbr``, ``--cbr --cbr-gop 2`` and
+   ``--two-pass``: every frame within its budget, every prefix (a GOP's
+   under ``--cbr-gop``) at or under the target, ``--cbr`` spending at
+   least the independent mean, one step and the total in budget under
+   ``--two-pass``; the scan launches read around each path.
 
 Needs one CUDA card; imports nothing of JAX or of the JAX package.
 """
@@ -1164,9 +1181,10 @@ def check_batched_scan(torch, ds, x):
     return rel, max_abs
 
 
-def phase_dataset(torch, ds):
+def phase_dataset(torch, ds, keep):
     """Phase 8: the dataset path. Eight seeded 8iVFBv2 frames (about 0.8 M
-    voxels each at J=10) as binary PLYs in a temporary tree, through
+    voxels each at J=10) as binary PLYs in a tree under ``keep`` (phase 12
+    reads it again), through
     ``cli.encode_dataset.main`` with ``--batch 4`` (two batches) and then
     as a frame loop, float32, bucket 2^19, the reference's 11 steps, with
     the scan launches read around each run; the two CSVs against each
@@ -1176,10 +1194,10 @@ def phase_dataset(torch, ds):
     kernel's batched entry at the path's (4, 2^20, 4) pack, on the wide
     path at (2, 2^19, 9) and (3, 2^19, 57), and past the one-block carry,
     then timed."""
+    import contextlib
     import csv
     import math
     import os
-    import tempfile
 
     import numpy as np
 
@@ -1195,7 +1213,7 @@ def phase_dataset(torch, ds):
     steps = list(ColorCodecConfig.steps)
     n_batches = -(-N_FRAMES // BATCH)
     out = {}
-    with tempfile.TemporaryDirectory() as tmp:
+    with contextlib.nullcontext(os.path.join(keep, "dataset")) as tmp:
         t0 = time.perf_counter()
         nvox = []
         for f in range(N_FRAMES):
@@ -1331,6 +1349,10 @@ def phase_dataset(torch, ds):
                              for k, v in row.items()})
     out["row"] = row
     out["nvox"] = nvox
+    # the frame loop's rate at each step, by frame (phase 12's targets)
+    out["loop_bpp"] = {fr: [float(runs["loop"][(fr, s)]["Rate_bpp"]) for s in steps]
+                       for fr in range(1, N_FRAMES + 1)}
+    out["root"] = tmp
     return out
 
 
@@ -2158,6 +2180,279 @@ def phase_predict(torch, ds, cli, gs, keep):
     return out
 
 
+RATE_REL_TOL = 1e-12      # phase 12: the rate model, card against CPU, relative
+RATE_SYNTH_N = 20_000     # phase 12: the frame searched on the card and on the CPU
+RATE_FRAMES = 4           # phase 12: phase 8's frames under encode_dataset's rate modes
+
+
+def phase_rate(torch, ds, cli, gs, data, keep):
+    """Phase 12: rate control at full width. The rate model on the card
+    against the same call on the CPU, on phase 3's J10 frame at step 16
+    ((2^19, 3)) and phase 7's 3DGS merge at step 1 ((2^19, 56)), with the
+    64-step grid's time, launches and peak memory; ``search_step_for_bpp``
+    on phase 6's raw cloud (plain and predicted) and on a 20 000-voxel
+    synthetic frame on the card and the CPU; then ``encode_ply
+    --target-bpp`` -> ``decode`` without positions, ``encode_3dgs
+    --target-bpp`` -> ``decode --color-space 3dgs`` and ``encode_dataset``
+    in four rate modes on phase 8's tree, with the scan launches read
+    around each path."""
+    import contextlib
+    import csv
+    import io
+    import os
+
+    import numpy as np
+
+    from raht3dgs_tpu_torch.cli import decode, encode_3dgs, encode_dataset, encode_ply
+    from raht3dgs_tpu_torch.codec.bitstream import FrameStream
+    from raht3dgs_tpu_torch.config import ColorCodecConfig, GsCodecConfig
+    from raht3dgs_tpu_torch.eval.synth import synthetic_color_frame
+    from raht3dgs_tpu_torch.io.ply import read_compressed_3dgs_ply, read_ply_8i
+    from raht3dgs_tpu_torch.models import pipeline as tp
+    from raht3dgs_tpu_torch.models.rate_control import RateController
+    from raht3dgs_tpu_torch.models.rd_search import _estimate_bpp_grid, search_step_for_bpp
+    from raht3dgs_tpu_torch.ops.color import rgb_to_yuv
+    from raht3dgs_tpu_torch.ops.quantize import quantize
+    from raht3dgs_tpu_torch.ops.rate_model import estimate_rlgr_bits
+    from raht3dgs_tpu_torch.ops.voxelize import voxelize
+    from raht3dgs_tpu_torch.utils.synth import morton_codes_np, synthetic_positions
+
+    t_phase = time.perf_counter()
+    out = {}
+    modes = {"independent": [], "cbr": ["--cbr"], "cbr_gop2": ["--cbr", "--cbr-gop", "2"],
+             "two_pass": ["--two-pass"]}
+    paths = ("rate_cli", "rate_gs_cli", *[f"rate_dataset_{m}" for m in modes])
+    launches = {p: {name: 0 for name in ds.LAUNCHES} for p in paths}
+
+    def counted(path, fn, *args):
+        """``fn(*args)`` with its stdout held back and the scan launches added
+        to ``path``; ``(result, wall, stdout)``."""
+        torch.cuda.synchronize()
+        ds.reset_launches()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res = fn(*args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for k, v in ds.LAUNCHES.items():
+            launches[path][k] += v
+        return res, wall, buf.getvalue()
+
+    # 1. the rate model, card against CPU, and the 64-step grid on the card
+    pts, attrs = synthetic_positions(N_VOX, DEPTH, D_ATTR, seed=0)
+    V, A, vsize, vmin = read_compressed_3dgs_ply(os.path.join(keep, "gs_vox.ply"))
+    gframe = tp.prepare_voxel_frame(V, A.astype(np.float64), DEPTH, bucket=BUCKET,
+                                    dtype=torch.float32, vmin=vmin, width=vsize * (1 << DEPTH))
+    grid = np.geomspace(0.25, 4096.0, 64)
+    for name, frame, step in (
+            ("j10", tp.prepare_voxel_frame(pts, attrs, DEPTH, bucket=BUCKET,
+                                           dtype=torch.float32), STEP),
+            ("gs", gframe, 1.0)):
+        codec = tp.AttributeCodec(DEPTH, dtype=torch.float32)
+        coeffs = codec.transform(frame)[0]
+        n = frame.n_voxels
+        valid = torch.arange(coeffs.shape[0], device=coeffs.device) < n
+        q = quantize(coeffs, torch.tensor(step, device=coeffs.device))
+        got = estimate_rlgr_bits(q, valid)
+        t0 = time.perf_counter()
+        want = estimate_rlgr_bits(q.cpu(), valid.cpu())
+        cpu_s = time.perf_counter() - t0
+        rel = float(((got.cpu() - want).abs() / want.abs()).max())
+        check(rel <= RATE_REL_TOL, f"rate model {name}: card off the CPU by {rel}")
+        steps_t = torch.as_tensor(grid[:, None], device=coeffs.device).to(coeffs.dtype)
+        ests = _estimate_bpp_grid(coeffs, steps_t, valid, n).cpu().numpy()
+        check(np.isfinite(ests).all() and (np.diff(ests) <= 0).all(),
+              f"rate model {name}: the grid's estimates do not fall with the step")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        grid_ms = cuda_ms(torch, lambda: _estimate_bpp_grid(coeffs, steps_t, valid, n),
+                          reps=5, warm=1)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        kms, per, split = device_ms(torch, lambda: _estimate_bpp_grid(coeffs, steps_t, valid, n),
+                                    reps=1, warm=0)
+        out[f"model_{name}"] = {
+            "shape": list(q.shape), "step": step, "rel_err": rel, "bits": got.sum().item(),
+            "grid_ms": grid_ms, "grid_kernel_ms": kms, "grid_launches": per,
+            "grid_peak_above_frame_gib": peak, "cpu_estimate_s": cpu_s,
+            "grid_top_kernels_us": dict(sorted(split.items(), key=lambda kv: -kv[1])[:4])}
+        say(f"rate_model_{name}", **{k: json.dumps(v) if isinstance(v, (dict, list)) else v
+                                     for k, v in out[f"model_{name}"].items()})
+        del coeffs, q, valid, steps_t
+
+    # 2. search_step_for_bpp on phase 6's raw cloud, plain and predicted
+    csteps = [float(s) for s in ColorCodecConfig.steps]
+    raw = os.path.join(keep, "raw.ply")
+    V, C, _ = read_ply_8i(raw)
+    res = voxelize(torch.as_tensor(np.concatenate([V, C], 1), device=CARD).float(), DEPTH)
+    nvox = int(res.nvox)
+    cols = res.attributes[:nvox]
+    rgb_ref = cols.cpu().numpy()
+    vpos = res.positions[:nvox].cpu().numpy().astype(np.int64)
+    yuv = rgb_to_yuv(cols, dtype=torch.float32).cpu().numpy()
+    vframe = tp.prepare_voxel_frame(vpos, yuv, DEPTH, bucket=BUCKET, dtype=torch.float32)
+    target = 1.1 * cli["bpp"][csteps.index(STEP)]
+    row = {"nvox": nvox, "target_bpp": target}
+    for tag, codec in (("plain", tp.AttributeCodec(DEPTH, dtype=torch.float32)),
+                       ("predict", tp.AttributeCodec(DEPTH, dtype=torch.float32, predict=True))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = search_step_for_bpp(vframe, target, codec=codec)
+        torch.cuda.synchronize()
+        row[f"{tag}_wall_s"] = time.perf_counter() - t0
+        check(0.4 * target <= r.bpp <= target * 1.001,
+              f"search ({tag}): {r.bpp} bpp against a {target} target")
+        row.update({f"{tag}_step": r.step, f"{tag}_bpp": r.bpp, f"{tag}_probes": r.probes,
+                    f"{tag}_true_encodes": r.true_encodes})
+        if tag == "plain":
+            check(r.encoded.stream.to_bytes() == codec.encode(vframe, r.step).stream.to_bytes(),
+                  "the search's stream differs from encode at its step")
+        else:
+            check(codec._predict_on_device() and r.encoded.stream.predict,
+                  "the predicted search did not run the device encoder")
+            rec, _ = codec.decode(FrameStream.from_bytes(r.encoded.stream.to_bytes()),
+                                  vframe.codes, vframe.weights)
+            want = vframe.attributes[:nvox].cpu().numpy().astype(np.float64)
+            rmse = np.sqrt(np.mean((rec.astype(np.float64) - want) ** 2, axis=0))
+            check((rmse <= r.step / 2).all(), f"predicted search: RMSE {rmse} above step / 2")
+            row["predict_rmse_over_step_max"] = float((rmse / r.step).max())
+    # the same search on the card and on the CPU, float64
+    Vs, rgb = synthetic_color_frame(n=RATE_SYNTH_N, depth=DEPTH, seed=0)
+    found = {}
+    for dev in (CARD, "cpu"):
+        f = tp.prepare_voxel_frame(Vs.astype(np.int64), rgb, DEPTH, device=dev)
+        c = tp.AttributeCodec(DEPTH, device=dev)
+        t = 1.1 * c.encode(f, STEP).stream.bpp()
+        t0 = time.perf_counter()
+        r = search_step_for_bpp(f, t, codec=c)
+        found[dev] = (r.step, r.encoded.stream.to_bytes(), r.true_encodes, t)
+        row[f"synth_{dev}_wall_s"] = time.perf_counter() - t0
+    check(found[CARD] == found["cpu"], "the search differs between the card and the CPU "
+          f"(steps {found[CARD][0]} / {found['cpu'][0]}, true encodes {found[CARD][2]} / "
+          f"{found['cpu'][2]})")
+    row.update({"synth_nvox": RATE_SYNTH_N, "synth_step": found["cpu"][0],
+                "synth_true_encodes": found["cpu"][2]})
+    out["search"] = row
+    say("rate_search", **row)
+
+    # 3. the CLIs: encode_ply --target-bpp, decode without positions
+    sdir = os.path.join(keep, "rate_streams")
+    argv = ["--input", raw, "--voxelize", "--depth", str(DEPTH), "--dtype", "float32",
+            "--bucket", str(BUCKET), "--target-bpp", f"{target:g}", "--save-streams", sdir,
+            "--code-geometry", "--csv", os.path.join(keep, "rate_ply.csv")]
+    rc, enc_s, _ = counted("rate_cli", encode_ply.main, argv)
+    check(rc == 0, "encode_ply --target-bpp failed")
+    spath = os.path.join(sdir, f"frame0001_bpp{target:g}.r3tc")
+    with open(spath, "rb") as f:
+        stream = FrameStream.from_bytes(f.read())
+    check(stream.bpp() <= target * 1.001 and stream.geometry is not None,
+          f"encode_ply --target-bpp: {stream.bpp()} bpp, geometry {stream.geometry is not None}")
+    dec_ply = os.path.join(keep, "rate_rec.ply")
+    rc, dec_s, _ = counted("rate_cli", decode.main, [
+        "--stream", spath, "--output", dec_ply, "--dtype", "float32", "--bucket", str(BUCKET)])
+    check(rc == 0, "decode of the rate-targeted stream failed")
+    V2, C2, _ = read_ply_8i(dec_ply)
+    order = np.argsort(morton_codes_np(vpos, DEPTH), kind="stable")
+    check(np.array_equal(V2, vpos[order].astype(float)), "decoded positions (Morton order)")
+    mse = float(np.mean((C2.astype(np.float64) - rgb_ref[order]) ** 2))
+    psnr = 10 * np.log10(255.0**2 / mse)
+    check(np.isfinite(psnr), f"rate-targeted decode PSNR {psnr}")
+    check(launches["rate_cli"] == {"ds_cumsum": 1, "ds_cumsum_t": 2, "ds_cumsum_batched": 0},
+          f"rate-targeted colour CLI path: scan launches {launches['rate_cli']}")
+    out["cli"] = {"target_bpp": target, "bpp": stream.bpp(), "geometry_bpp":
+                  stream.geometry_bpp(), "rgb_psnr": psnr, "encode_ply_s": enc_s,
+                  "decode_s": dec_s, "launches": launches["rate_cli"]}
+    say("rate_cli", **{k: json.dumps(v) if isinstance(v, dict) else v
+                       for k, v in out["cli"].items()})
+
+    # encode_3dgs --target-bpp, decode --color-space 3dgs
+    comp = os.path.join(keep, "gs_vox.ply")
+    gsteps = [float(s) for s in GsCodecConfig.steps]
+    t3 = 1.1 * gs["cli"]["bpp"][len(gsteps) // 2]
+    gdir = os.path.join(keep, "rate_gs")
+    rc, genc_s, _ = counted("rate_gs_cli", encode_3dgs.main, [
+        "--input", comp, "--depth", str(DEPTH), "--dtype", "float32", "--bucket", str(BUCKET),
+        "--target-bpp", f"{t3:g}", "--save-streams", gdir,
+        "--csv", os.path.join(keep, "rate_gs.csv")])
+    check(rc == 0, "encode_3dgs --target-bpp failed")
+    gpath = os.path.join(gdir, f"gs_bpp{t3:g}.r3tc")
+    with open(gpath, "rb") as f:
+        gstream = FrameStream.from_bytes(f.read())
+    check(gstream.bpp() <= t3 * 1.001 and gstream.n_channels == 56,
+          f"encode_3dgs --target-bpp: {gstream.bpp()} bpp against {t3}")
+    rc, gdec_s, _ = counted("rate_gs_cli", decode.main, [
+        "--stream", gpath, "--positions", comp, "--color-space", "3dgs", "--dtype", "float32",
+        "--bucket", str(BUCKET), "--output", os.path.join(keep, "rate_gs_rec.ply")])
+    check(rc == 0, "decode --color-space 3dgs of the rate-targeted stream failed")
+    Vg, Ag, _, _ = read_compressed_3dgs_ply(os.path.join(keep, "rate_gs_rec.ply"))
+    check(len(Vg) == GS_NVOX and np.isfinite(Ag).all(), "rate-targeted 3DGS decode")
+    check(launches["rate_gs_cli"] == {"ds_cumsum": 1, "ds_cumsum_t": 2, "ds_cumsum_batched": 0},
+          f"rate-targeted 3DGS CLI path: scan launches {launches['rate_gs_cli']}")
+    out["gs_cli"] = {"target_bpp": t3, "bpp": gstream.bpp(), "step": float(gstream.steps[0]),
+                     "encode_3dgs_s": genc_s, "decode_s": gdec_s,
+                     "launches": launches["rate_gs_cli"]}
+    say("rate_gs_cli", **{k: json.dumps(v) if isinstance(v, dict) else v
+                          for k, v in out["gs_cli"].items()})
+
+    # encode_dataset on phase 8's first frames in four rate modes
+    mid = len(csteps) // 2
+    frames = range(1, RATE_FRAMES + 1)
+    td = 1.1 * float(np.mean([data["loop_bpp"][fr][mid] for fr in frames]))
+    nv = np.array(data["nvox"][:RATE_FRAMES], dtype=np.float64)
+    means = {}
+    for mode, extra in modes.items():
+        csv_path = os.path.join(keep, f"rate_{mode}.csv")
+        rc, wall, text = counted(f"rate_dataset_{mode}", encode_dataset.main, [
+            "--dataset", "8iVFBv2", "--sequence", "loot", "--data-root", data["root"],
+            "--frames", "1", str(RATE_FRAMES), "--dtype", "float32", "--bucket", str(BUCKET),
+            "--target-bpp", f"{td:g}", "--csv", csv_path, *extra])
+        check(rc == 0, f"encode_dataset --target-bpp ({mode}) failed")
+        with open(csv_path) as f:
+            rows = list(csv.DictReader(f))
+        check([int(r["Frame"]) for r in rows] == list(frames), f"{mode}: CSV frames")
+        bpp = [float(r["Rate_bpp"]) for r in rows]
+        check(all(np.isfinite(float(r["psnr"])) for r in rows), f"{mode}: PSNR")
+        tol = td * 1e-3
+        if mode == "two_pass":
+            check(len({r["Quantization_Step"] for r in rows}) == 1, f"{mode}: not one step")
+            total = float(np.dot(bpp, nv) / nv.sum())
+            check(total <= td * 1.001, f"{mode}: sequence {total} bpp against {td}")
+        else:
+            rcl = RateController(td) if mode != "independent" else None
+            for k, b in enumerate(bpp):
+                if rcl is not None and mode == "cbr_gop2" and k % 2 == 0:
+                    rcl.reset_credit()
+                budget = rcl.frame_budget() if rcl is not None else td
+                check(b <= budget + tol, f"{mode}: frame {k + 1} spent {b} of {budget}")
+                if rcl is not None:
+                    rcl.update(b)
+            gop = 2 if mode == "cbr_gop2" else len(bpp)
+            for g0 in range(0, len(bpp), gop):
+                seg = bpp[g0:g0 + gop]
+                for k in range(len(seg)):
+                    check(np.mean(seg[:k + 1]) <= td * 1.001,
+                          f"{mode}: prefix mean {np.mean(seg[:k + 1])} over {td}")
+        means[mode] = float(np.mean(bpp))
+        # a forward pack and a decode (two one-column scans) a frame
+        want = {"ds_cumsum": RATE_FRAMES, "ds_cumsum_t": 2 * RATE_FRAMES, "ds_cumsum_batched": 0}
+        check(launches[f"rate_dataset_{mode}"] == want,
+              f"rate dataset path ({mode}): scan launches {launches[f'rate_dataset_{mode}']}")
+        out[f"dataset_{mode}"] = {"target_bpp": td, "bpp": bpp, "mean_bpp": means[mode],
+                                  "steps": [float(r["Quantization_Step"]) for r in rows],
+                                  "psnr": [float(r["psnr"]) for r in rows], "wall_s": wall,
+                                  "launches": launches[f"rate_dataset_{mode}"]}
+        say("rate_dataset", mode=mode, **{k: json.dumps(v) if isinstance(v, (dict, list))
+                                          else v for k, v in out[f"dataset_{mode}"].items()})
+    check(means["cbr"] >= means["independent"] - 1e-9,
+          f"--cbr spent {means['cbr']} bpp, less than independent budgets' "
+          f"{means['independent']}")
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    say("rate", seconds=round(out["seconds"], 1))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2176,7 +2471,7 @@ def main() -> int:
                     for k, v in libs.items()})
     say("build", ptxas=json.dumps(ptxas_summary(libs["nvcc ds_scan.cu"].build_log)))
 
-    keep = tempfile.mkdtemp(prefix="chip_smoke_")  # phase 6-7 files read by phase 10
+    keep = tempfile.mkdtemp(prefix="chip_smoke_")  # phase 6-8 files read by phases 10-12
     try:
         vox, vox_vals = phase_voxelize(torch, ds)  # first: host-bound times before any profiler
         rows = phase_kernels(torch, ds)
@@ -2185,10 +2480,11 @@ def main() -> int:
         phase_golden(torch)
         cli = phase_cli(torch, ds, keep)
         gs = phase_gs(torch, ds, keep)
-        data = phase_dataset(torch, ds)
+        data = phase_dataset(torch, ds, keep)
         render = phase_render(torch, ds)
         entropy = phase_entropy(torch, ds, cli, gs, keep)
         predict = phase_predict(torch, ds, cli, gs, keep)
+        rate = phase_rate(torch, ds, cli, gs, data, keep)
     finally:
         shutil.rmtree(keep, ignore_errors=True)
     add_device_ms(torch, ds, vox["pack"], vox_vals)
@@ -2202,7 +2498,7 @@ def main() -> int:
                 for name in ("voxelize_3dgs", "encode_3dgs", "encode_3dgs_debug")},
              "entropy_cli": entropy["colour"]["launches"],
              "entropy_gs_cli": entropy["gs"]["launches"],
-             **predict["launches"]}
+             **predict["launches"], **rate["launches"]}
     rows.append(data["row"])
     for row in rows:
         # `launches`: the codec's main path (phase 3) for the single entry,
@@ -2215,10 +2511,9 @@ def main() -> int:
             row["gs_pack"] = gs["pack"]
             row["gs_pack_nvox"] = gs["pack_nvox"]
             row["gs_pack_merge"] = gs["pack_merge"]
-    # context: the whole run took 351.9-374.5 s before phase 11 (two runs)
     say("done", seconds=round(time.perf_counter() - t_start, 1),
         predict_phase_seconds=round(predict["seconds"], 1),
-        whole_before_phase_11_s="351.9-374.5 (earlier runs)")
+        rate_phase_seconds=round(rate["seconds"], 1))
 
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -15,8 +15,12 @@ rasterizer, named ``jax``, when gsplat is absent). Example:
 section to every step's stream (``decode --color-space 3dgs`` then needs
 no ``--positions``: the header's ``width`` and ``vmin`` carry the world
 mapping). ``--predict`` codes inter-depth predicted RAHT (the device
-encoder on the card). ``--tiles`` (ROADMAP queue A, item 15) and
-``--target-bpp`` (item 14) are not ported yet and exit naming their item.
+encoder on the card). ``--target-bpp T`` replaces the sweep by a search for
+the step that meets the rate (``models/rd_search.py``; the
+``--per-attribute`` multipliers apply to the searched step), written as
+``gs_bppT.r3tc`` with ``--save-streams``. ``--tiles`` (ROADMAP queue A,
+item 15) is not ported yet and exits naming its item, before any other
+option is looked at.
 """
 
 from __future__ import annotations
@@ -64,8 +68,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--target-bpp", type=float, default=None,
-        help="search the step that hits this rate (not ported yet: ROADMAP "
-        "queue A, item 14)",
+        help="instead of --steps, search the quantization step hitting this "
+        "rate budget (honors --per-attribute multipliers)",
     )
     p.add_argument(
         "--tiles", type=int, default=0, metavar="D",
@@ -82,8 +86,6 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.tiles:
         raise not_ported("--tiles", 15, "the tiled .r3tt stream")
-    if args.target_bpp is not None:
-        raise not_ported("--target-bpp", 14, "rate control")
     device = resolve_device(args.platform)
     with maybe_profile(args, device):
         return _run(args, device)
@@ -116,6 +118,8 @@ def _run(args, device) -> int:
     dtype = torch_dtype(args.dtype)
     codec = AttributeCodec(args.depth, dtype=dtype, chunk=args.entropy_chunk,
                            device=device, **quant_kwargs(args))
+    if args.target_bpp is not None:
+        return _search(args, codec, V_int, attrs, voxel_size, vmin, group_scales, device)
     points = encode_gs_frame(
         V_int, attrs, depth=args.depth, steps=args.steps,
         group_step_scales=group_scales, bucket=args.bucket, dtype=dtype,
@@ -145,6 +149,45 @@ def _run(args, device) -> int:
 
     if args.render != "none":
         render_finest(args, points, codec, V_int, attrs, voxel_size, vmin, device)
+    return 0
+
+
+def _search(args, codec, V_int, attrs, voxel_size, vmin, group_scales, device) -> int:
+    """--target-bpp: the step that meets the budget, printed, and its
+    stream saved (with the geometry under --code-geometry)."""
+    import numpy as np
+
+    from raht3dgs_tpu_torch.codec.geometry import geometry_from_positions
+    from raht3dgs_tpu_torch.models.pipeline import prepare_voxel_frame
+    from raht3dgs_tpu_torch.models.rd_search import search_step_for_bpp
+    from raht3dgs_tpu_torch.ops.quantize import channel_steps
+
+    if tuple(args.steps) != tuple(GsCodecConfig.steps):
+        print("note: --steps ignored in --target-bpp mode", file=sys.stderr)
+    frame = prepare_voxel_frame(V_int, attrs.astype(np.float64), args.depth,
+                                bucket=args.bucket, dtype=codec.dtype, vmin=vmin,
+                                width=float(voxel_size) * (1 << args.depth), device=device)
+    D = attrs.shape[1]
+
+    def steps_fn(step):
+        if group_scales:
+            return channel_steps(D, float(step),
+                                 {k: float(step) * m for k, m in group_scales.items()})
+        return float(step)
+
+    res = search_step_for_bpp(frame, args.target_bpp, codec=codec, steps_fn=steps_fn)
+    print(f"target {args.target_bpp:.3f} bpp -> step {res.step:.4f}, "
+          f"actual {res.bpp:.3f} bpp ({res.probes} device probes)")
+    if args.save_streams:
+        out = Path(args.save_streams)
+        out.mkdir(parents=True, exist_ok=True)
+        st = res.encoded.stream
+        if args.code_geometry:
+            st.geometry = geometry_from_positions(V_int, args.depth)
+            print(f"geometry {st.geometry_bpp():.3f} bits/voxel (lossless)")
+        dest = out / f"gs_bpp{args.target_bpp:g}.r3tc"
+        dest.write_bytes(st.to_bytes())
+        print(f"stream -> {dest}")
     return 0
 
 

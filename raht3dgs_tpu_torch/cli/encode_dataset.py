@@ -13,11 +13,14 @@ device. Example:
 ``--entropy rac|auto`` picks the attribute coder per channel, and
 ``--predict`` codes inter-depth predicted RAHT, in the frame loop and
 under ``--batch`` (where each frame runs its own closed loop).
-``--code-geometry`` is accepted, as in the JAX CLI, where it acts only
-with ``--save-sequence``, ``--tiles`` or ``--target-bpp``. Those (ROADMAP
-queue A, item 15: ``--save-sequence``, ``--tiles``; item 14:
-``--target-bpp``, ``--cbr``, ``--two-pass``, ``--inter``) are not ported
-yet and exit naming their item, after the JAX CLI's own argument checks.
+``--target-bpp T`` searches each frame's step for a rate budget
+(``models/rd_search.py``, one CSV row a frame); ``--cbr`` (with
+``--cbr-burst`` and ``--cbr-gop``) carries each frame's unspent budget
+forward (``models/rate_control.py``), and ``--two-pass`` finds one step for
+the whole range. ``--code-geometry`` is accepted, as in the JAX CLI, where
+it acts only with ``--save-sequence`` or ``--tiles``. Those (ROADMAP queue
+A, item 15) and ``--inter`` (item 14) are not ported yet and exit naming
+their item, after the JAX CLI's own argument checks.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import sys
+import time
 
 import numpy as np
 import torch
@@ -71,17 +75,32 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--target-bpp", type=float, default=None,
-        help="search each frame's step for this rate (not ported yet: "
-        "ROADMAP queue A, item 14)",
+        help="instead of a step sweep, search each frame's quantization step "
+        "for this rate budget (the device rate model and true-encode "
+        "refinement, models/rd_search.py); not with --batch",
     )
-    p.add_argument("--cbr", action="store_true",
-                   help="with --target-bpp: leaky-bucket allocation (item 14)")
-    p.add_argument("--cbr-burst", type=float, default=None,
-                   help="with --cbr: bucket depth in bpp (item 14)")
-    p.add_argument("--cbr-gop", type=int, default=0,
-                   help="with --cbr: reset the carried credit every K frames (item 14)")
-    p.add_argument("--two-pass", action="store_true",
-                   help="with --target-bpp: one shared step for the sequence (item 14)")
+    p.add_argument(
+        "--cbr", action="store_true",
+        help="with --target-bpp: leaky-bucket allocation — carry each frame's "
+        "unspent budget forward as credit (capped at --cbr-burst), keeping "
+        "cumulative spend <= n*target at every prefix (models/rate_control.py)",
+    )
+    p.add_argument(
+        "--cbr-burst", type=float, default=None,
+        help="with --cbr: bucket depth in bpp, the most credit carried across "
+        "frames (default: one frame's budget)",
+    )
+    p.add_argument(
+        "--cbr-gop", type=int, default=0,
+        help="with --cbr: reset the carried credit every K frames, so each GOP "
+        "meets the prefix invariant on its own",
+    )
+    p.add_argument(
+        "--two-pass", action="store_true",
+        help="with --target-bpp: one shared step for the whole range, the "
+        "finest whose total rate fits sum(n)*target "
+        "(search_global_step_for_bpp); not with --cbr/--inter/--batch",
+    )
     p.add_argument(
         "--tiles", type=int, default=0, metavar="D",
         help="tiled .r3tt frames inside the .r3ts (not ported yet: ROADMAP "
@@ -105,9 +124,9 @@ def _err(msg: str) -> int:
 
 
 def _refusals(args):
-    """The JAX CLI's argument errors (``2``) in its order, with the exits
-    of the modes that are not ported yet where it would enter them; None
-    when the run may go on."""
+    """The JAX CLI's argument errors (``2``) in its dispatch order, with the
+    exits of the modes that are not ported yet where it would enter them;
+    None when the run may go on."""
     if args.save_sequence and args.target_bpp is None and len(args.steps) != 1:
         return _err("--save-sequence requires exactly one --steps value")
     if (args.cbr or args.cbr_burst is not None or args.cbr_gop) and args.target_bpp is None:
@@ -126,13 +145,13 @@ def _refusals(args):
             return _err("--two-pass allocates the whole sequence at once; it "
                         "composes with --save-sequence/--code-geometry but not "
                         "with --cbr/--inter/--batch")
-        raise not_ported("--two-pass", 14, "rate control")
-    if args.target_bpp is not None:
+    elif args.target_bpp is not None:
         if args.batch:
             return _err("--target-bpp composes with the frame loop or --inter "
                         "(drop --batch)")
-        raise not_ported("--target-bpp", 14, "rate control")
-    if args.inter:
+        if args.inter:
+            raise not_ported("--target-bpp --inter", 14, "temporal I/P coding")
+    elif args.inter:
         if len(args.steps) != 1:
             return _err("--inter requires exactly one --steps value")
         if args.batch:
@@ -160,7 +179,11 @@ def main(argv=None) -> int:
     log = CsvLogger(args.csv or "results/runtime_dataset.csv", CSV_HEADER)
     # context managers: the trace and the CSV finish even when a frame raises
     with maybe_profile(args, device), contextlib.closing(log):
-        if args.batch > 0:
+        if args.two_pass:
+            return _run_two_pass(args, first, last, log, device)
+        if args.target_bpp is not None:
+            _run_target(args, first, last, log, device)
+        elif args.batch > 0:
             _run_batched(args, first, last, log, device)
         else:
             _run_frames(args, first, last, log, device)
@@ -227,6 +250,7 @@ def _encode_depth_batch(args, members, depth: int, log, codecs, device) -> None:
     from raht3dgs_tpu_torch.models.batch_codec import BatchAttributeCodec, prepare_frame_batch
     from raht3dgs_tpu_torch.models.color_codec import RDPoint, y_psnr_db
     from raht3dgs_tpu_torch.ops.color import rgb_to_yuv
+    from raht3dgs_tpu_torch.utils.timing import StageTimer
 
     dtype = torch_dtype(args.dtype)
     pos = [np.floor(np.asarray(v)).astype(np.int64) for _, (v, _, _) in members]
@@ -238,12 +262,17 @@ def _encode_depth_batch(args, members, depth: int, log, codecs, device) -> None:
         codecs[depth] = BatchAttributeCodec(depth, dtype=dtype, chunk=args.entropy_chunk,
                                             device=device, **quant_kwargs(args))
     bc = codecs[depth]
-    coeffs, orderp, t_timer = bc.transform(frames)
+    # a predicted codec runs each frame's own closed loop and decodes frame
+    # by frame: the batched transform and inverse order would go unused
+    coeffs = orderp = inv = None
+    t_timer = StageTimer()
+    if not bc.predict:
+        coeffs, orderp, t_timer = bc.transform(frames)
+        inv = None if args.no_decode else bc.inverse_order(frames)
     # the shared transform is amortized across the sweep: each step's rows
     # carry transform_time / n_steps, so summed stage columns still account
     # for the whole pipeline (the reporting scripts' contract)
     transform_share = {k: v / len(args.steps) for k, v in t_timer.stages.items()}
-    inv = None if args.no_decode else bc.inverse_order(frames)
     refs = [f.attributes[:f.n_voxels, 0].cpu().numpy() for f in frames]
     sweep = bc.encode_sweep(frames, [float(s) for s in args.steps], coeffs=coeffs,
                             orderp=orderp)
@@ -262,6 +291,124 @@ def _encode_depth_batch(args, members, depth: int, log, codecs, device) -> None:
                 n_voxels=streams[i].n_voxels, stream_bytes=streams[i].payload_bytes,
                 times=per_frame,
             ).csv_row())
+
+
+def _make_controller(args):
+    """The sequence-global allocator for --cbr, else None (independent
+    per-frame budgets)."""
+    if not (args.cbr or args.cbr_burst is not None or args.cbr_gop):
+        return None
+    from raht3dgs_tpu_torch.models.rate_control import RateController
+
+    return RateController(args.target_bpp, burst=args.cbr_burst)
+
+
+def _yuv_frame(args, V, C, depth: int, device):
+    """A loaded frame as the rate paths code it: YUV attributes on the
+    floored voxel grid, at the CLI's bucket and dtype."""
+    from raht3dgs_tpu_torch.models.pipeline import prepare_voxel_frame
+    from raht3dgs_tpu_torch.ops.color import rgb_to_yuv
+
+    dtype = torch_dtype(args.dtype)
+    yuv = rgb_to_yuv(torch.as_tensor(np.asarray(C), device=device), dtype=dtype).cpu().numpy()
+    return prepare_voxel_frame(np.floor(np.asarray(V)).astype(np.int64), yuv, depth,
+                               bucket=args.bucket, dtype=dtype, device=device)
+
+
+def _y_psnr(codec, stream, fr) -> float:
+    from raht3dgs_tpu_torch.models.color_codec import y_psnr_db
+
+    rec, _ = codec.decode(stream, fr.codes, fr.weights)
+    return y_psnr_db(fr.attributes[:fr.n_voxels, 0].cpu().numpy(), rec[:, 0])
+
+
+def _run_target(args, first: int, last: int, log, device) -> None:
+    """Constant-rate sequence encoding: search each frame's step for the
+    --target-bpp budget (or the --cbr controller's), decode it for its
+    Y-PSNR, and log one CSV row a frame."""
+    from raht3dgs_tpu_torch.io.datasets import get_pointcloud
+    from raht3dgs_tpu_torch.models.color_codec import RDPoint
+    from raht3dgs_tpu_torch.models.pipeline import AttributeCodec
+    from raht3dgs_tpu_torch.models.rd_search import search_step_for_bpp
+
+    dtype = torch_dtype(args.dtype)
+    codecs = {}
+    rc = _make_controller(args)
+    for frame_idx in range(first, last + 1):
+        out = get_pointcloud(args.dataset, args.sequence, frame_idx, args.data_root)
+        if out is None:
+            print(f"frame {frame_idx}: load failed, skipping", file=sys.stderr)
+            continue
+        V, C, depth = out
+        if depth not in codecs:
+            codecs[depth] = AttributeCodec(depth, dtype=dtype, chunk=args.entropy_chunk,
+                                           device=device, **quant_kwargs(args))
+        codec = codecs[depth]
+        t0 = time.perf_counter()
+        fr = _yuv_frame(args, V, C, depth, device)
+        if rc is not None and args.cbr_gop > 0 and (frame_idx - first) % args.cbr_gop == 0:
+            rc.reset_credit()
+        budget = rc.frame_budget() if rc is not None else args.target_bpp
+        res = search_step_for_bpp(fr, budget, codec=codec)
+        if rc is not None:
+            rc.update(res.bpp)
+        search_s = time.perf_counter() - t0
+        psnr = _y_psnr(codec, res.encoded.stream, fr)
+        cbr = f", cum {rc.mean_bpp:.4f}, credit {rc.credit:.4f}" if rc is not None else ""
+        print(f"frame {frame_idx}: budget {budget:.3f} bpp -> step {res.step:.4f}, "
+              f"actual {res.bpp:.4f} bpp{cbr}, Y-PSNR {psnr:.2f} dB ({res.probes} device "
+              f"probes, {search_s:.2f}s)")
+        log.row(RDPoint(
+            frame=frame_idx, step=float(res.step), bpp=res.bpp, psnr=psnr,
+            n_voxels=fr.n_voxels, stream_bytes=res.encoded.stream.payload_bytes,
+            times={"Quant_time": search_s},
+        ).csv_row())
+
+
+def _run_two_pass(args, first: int, last: int, log, device) -> int:
+    """Constant-quality sequence allocation under a total-rate cap: one
+    shared step for every frame (``search_global_step_for_bpp``). Loads and
+    prepares the whole range first: the allocator needs every frame's rate
+    curve before the first byte is spent."""
+    from raht3dgs_tpu_torch.io.datasets import get_pointcloud
+    from raht3dgs_tpu_torch.models.color_codec import RDPoint
+    from raht3dgs_tpu_torch.models.pipeline import AttributeCodec
+    from raht3dgs_tpu_torch.models.rd_search import search_global_step_for_bpp
+
+    t0 = time.perf_counter()
+    frames, metas = [], []
+    for frame_idx in range(first, last + 1):
+        out = get_pointcloud(args.dataset, args.sequence, frame_idx, args.data_root)
+        if out is None:
+            print(f"frame {frame_idx}: load failed, skipping", file=sys.stderr)
+            continue
+        V, C, depth = out
+        frames.append(_yuv_frame(args, V, C, depth, device))
+        metas.append((frame_idx, depth))
+    if not frames:
+        print("no frames loaded", file=sys.stderr)
+        return 1
+    depths = {d for _, d in metas}
+    if len(depths) > 1:
+        return _err(f"--two-pass needs one octree depth across the range, got "
+                    f"{sorted(depths)} (encode per-depth subranges, or use the "
+                    "per-frame --target-bpp search)")
+    codec = AttributeCodec(metas[0][1], dtype=torch_dtype(args.dtype),
+                           chunk=args.entropy_chunk, device=device, **quant_kwargs(args))
+    res = search_global_step_for_bpp(frames, args.target_bpp, codec=codec)
+    search_s = time.perf_counter() - t0
+    print(f"two-pass: step {res.step:.4f} for {len(frames)} frames, sequence "
+          f"{res.total_bpp:.4f} bpp vs target {args.target_bpp:.3f} ({res.probes} "
+          f"device probes, {search_s:.2f}s)")
+    for (frame_idx, _), fr, enc in zip(metas, frames, res.encoded):
+        psnr = _y_psnr(codec, enc.stream, fr)
+        print(f"frame {frame_idx}: {enc.stream.bpp():.4f} bpp, Y-PSNR {psnr:.2f} dB")
+        log.row(RDPoint(
+            frame=frame_idx, step=float(res.step), bpp=enc.stream.bpp(), psnr=psnr,
+            n_voxels=fr.n_voxels, stream_bytes=enc.stream.payload_bytes,
+            times={"Quant_time": search_s / len(frames)},
+        ).csv_row())
+    return 0
 
 
 if __name__ == "__main__":

@@ -12,8 +12,10 @@ Y-PSNR/bpp over a quantization-step sweep, logged in the reference's
 section per frame to every step's stream, so ``cli.decode`` needs no
 ``--positions``. ``--predict`` codes inter-depth predicted RAHT (the device
 encoder on the card; ``cli.decode`` reads the stream without a flag).
-``--tiles`` (ROADMAP queue A, item 15) and ``--target-bpp`` (item 14) are
-not ported yet and exit naming their item.
+``--target-bpp T`` replaces the sweep by a search for the step that meets
+the rate (``models/rd_search.py``); with ``--save-streams`` it writes
+``frameNNNN_bppT.r3tc``. ``--tiles`` (ROADMAP queue A, item 15) is not
+ported yet and exits naming its item.
 """
 
 from __future__ import annotations
@@ -58,8 +60,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--target-bpp", type=float, default=None,
-        help="search the step that hits this rate (not ported yet: ROADMAP "
-        "queue A, item 14)",
+        help="instead of a step sweep, search the quantization step hitting "
+        "this rate budget (device-side rate model + refinement)",
     )
     p.add_argument(
         "--voxelize", action="store_true",
@@ -89,8 +91,6 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.tiles:
         raise not_ported("--tiles", 15, "the tiled .r3tt stream")
-    if args.target_bpp is not None:
-        raise not_ported("--target-bpp", 14, "rate control")
     device = resolve_device(args.platform)
     from raht3dgs_tpu_torch.models.color_codec import CSV_HEADER
 
@@ -123,6 +123,9 @@ def _sweep(args, log, device) -> None:
         if depth not in codecs:
             codecs[depth] = AttributeCodec(depth, dtype=dtype, chunk=args.entropy_chunk,
                                            device=device, **quant_kwargs(args))
+        if args.target_bpp is not None:
+            _search(args, idx, V, C, depth, codecs[depth], device)
+            continue
         points = encode_color_frame(
             V, C, depth=depth, steps=args.steps, frame_index=idx,
             codec=codecs[depth], bucket=args.bucket, dtype=dtype,
@@ -145,6 +148,34 @@ def _sweep(args, log, device) -> None:
                     pt.encoded.stream.geometry = geom
                 fn = out / f"frame{idx:04d}_step{pt.step:g}.r3tc"
                 fn.write_bytes(pt.encoded.stream.to_bytes())
+
+
+def _search(args, idx: int, V, C, depth: int, codec, device) -> None:
+    """--target-bpp: the step that meets the budget for one frame, printed,
+    and its stream saved (with the frame's geometry under
+    --code-geometry)."""
+    from raht3dgs_tpu_torch.codec.geometry import geometry_from_positions
+    from raht3dgs_tpu_torch.models.pipeline import prepare_voxel_frame
+    from raht3dgs_tpu_torch.models.rd_search import search_step_for_bpp
+    from raht3dgs_tpu_torch.ops.color import rgb_to_yuv
+
+    yuv = rgb_to_yuv(torch.as_tensor(np.asarray(C), device=device),
+                     dtype=codec.dtype).cpu().numpy()
+    frame = prepare_voxel_frame(np.floor(np.asarray(V)).astype(np.int64), yuv, depth,
+                                bucket=args.bucket, dtype=codec.dtype, device=device)
+    res = search_step_for_bpp(frame, args.target_bpp, codec=codec)
+    print(f"frame {idx}: target {args.target_bpp:.3f} bpp -> step {res.step:.4f}, "
+          f"actual {res.bpp:.3f} bpp ({res.probes} device probes)")
+    if args.save_streams:
+        out = Path(args.save_streams)
+        out.mkdir(parents=True, exist_ok=True)
+        s = res.encoded.stream
+        if args.code_geometry:
+            s.geometry = geometry_from_positions(V, depth)
+            print(f"frame {idx}: geometry {s.geometry_bpp():.3f} bits/voxel (lossless)")
+        dest = out / f"frame{idx:04d}_bpp{args.target_bpp:g}.r3tc"
+        dest.write_bytes(s.to_bytes())
+        print(f"frame {idx}: stream -> {dest}")
 
 
 if __name__ == "__main__":

@@ -13,10 +13,10 @@ of ``AttributeCodec.encode_sweep`` (the JAX package's wire-narrowing tiers,
 built for a remote TPU link, are not ported). Every entropy choice
 (``rlgr``, ``rac``, ``auto``) goes through ``build_entropy_stream``. With
 ``predict=True`` every frame goes to the single-frame codec (the
-predicted loop is per frame): the streams are its bytes, ``transform`` and
-``inverse_order`` have nothing to share and return None, and predicted
-streams decode frame by frame. A ``mesh`` (ROADMAP queue A, item 18)
-raises, naming its item.
+predicted loop is per frame): the streams are its bytes, and predicted
+streams decode frame by frame; ``transform`` and ``inverse_order`` still
+return the plain batched outputs, as in the JAX package. A ``mesh``
+(ROADMAP queue A, item 18) raises, naming its item.
 """
 
 from __future__ import annotations
@@ -124,12 +124,11 @@ class BatchAttributeCodec:
     def transform(self, frames: Sequence[VoxelFrame],
                   timer: Optional[StageTimer] = None):
         """Step-independent half of the encode (forward RAHT + stream
-        order) for the whole batch: ``(coeffs, orderp, timer)``; None and
-        None for a predicted codec."""
+        order) for the whole batch: ``(coeffs, orderp, timer)``. A
+        predicted codec's encodes do not use them (each frame runs its own
+        closed loop)."""
         timer = timer or StageTimer()
         codes, attrs, weights = self._stack(frames)
-        if self.predict:
-            return None, None, timer
         coeffs, orderp = timer.time(
             "RAHT_transform_time", batched_forward,
             codes, attrs, weights, self.depth, self.order_mode, self._nvox(frames))
@@ -210,11 +209,9 @@ class BatchAttributeCodec:
 
     def inverse_order(self, frames: Sequence[VoxelFrame], order_mode=None):
         """Step-independent decode-side stream->transform permutation,
-        reusable across a sweep (``decode(..., inv=...)``); None for a
-        predicted codec, whose streams decode frame by frame."""
+        reusable across a sweep (``decode(..., inv=...)``). Predicted
+        streams decode frame by frame and do not use it."""
         codes, _, weights = self._stack(frames)
-        if self.predict:
-            return None
         return batched_inverse_order(codes, weights, self._nvox(frames), self.depth,
                                      order_mode or self.order_mode)
 

@@ -336,7 +336,14 @@ def test_batch_codec_predict_matches_per_frame_and_jax(rng, jdt):
     jf, tf = _both_batches(rng, jdt)
     tcodec = tbc.BatchAttributeCodec(DEPTH, dtype=_TORCH[jdt], predict=True, device="cpu")
     single = tp.AttributeCodec(DEPTH, dtype=_TORCH[jdt], predict=True, device="cpu")
-    assert tcodec.transform(tf)[:2] == (None, None) and tcodec.inverse_order(tf) is None
+    # transform and inverse_order are the plain batched outputs, as in JAX
+    jcodec = jbc.BatchAttributeCodec(DEPTH, dtype=jdt, predict=True)
+    (tc, to, _), (jc, jo, _) = tcodec.transform(tf), jcodec.transform(jf)
+    jc = np.asarray(jc)
+    assert np.abs(tc.numpy() - jc).max() <= _COEFF_TOL[jdt] * np.abs(jc).max()
+    np.testing.assert_array_equal(to.numpy(), np.asarray(jo))
+    np.testing.assert_array_equal(tcodec.inverse_order(tf).numpy(),
+                                  np.asarray(jcodec.inverse_order(jf)))
     steps = [2.0, 8.0]
     sweep = tcodec.encode_sweep(tf, steps)
     jsweep = jbc.BatchAttributeCodec(DEPTH, dtype=jdt, predict=True).encode_sweep(jf, steps)

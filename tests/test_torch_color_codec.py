@@ -526,7 +526,7 @@ def test_cli_decode_geometry_refusals_match_jax(tmp_path, auto_geometry_dir, no_
 
 @pytest.mark.parametrize("cli,extra,item", [
     (tenc, ["--tiles", "3"], 15),
-    (tenc, ["--target-bpp", "1.0"], 14),
+    (tenc, ["--tiles", "3", "--target-bpp", "1.0"], 15),   # --tiles is checked first
     (tdec, ["--lod", "3"], 15),
     (tdec, ["--roi", "0", "0", "0", "4", "4", "4"], 15),
     (tdec, ["--all-frames"], 15),

@@ -130,6 +130,25 @@ def test_predict_rows_match_jax_cli(trees, tmp_path_factory, batch):
             == sorted((r["Frame"], r["Quantization_Step"], r["Rate_bpp"]) for r in loop)
 
 
+def test_batch_predict_runs_no_batched_transform(trees, tmp_path, monkeypatch):
+    """--batch --predict: every frame runs its own closed loop and decodes
+    frame by frame, so the CLI skips the batch codec's transform and
+    inverse order (whose scans the card would launch for nothing)."""
+    from raht3dgs_tpu_torch.models import batch_codec
+
+    def refuse(*a, **k):
+        raise AssertionError("a batched transform ran under --predict")
+
+    monkeypatch.setattr(batch_codec, "batched_forward", refuse)
+    monkeypatch.setattr(batch_codec, "batched_inverse_order", refuse)
+    argv = ["--dataset", "MVUB", "--sequence", "sarah9", "--data-root", str(trees["MVUB"]),
+            "--frames", "1", "2", "--steps", "8", "--batch", "2", "--predict",
+            "--platform", "cpu", "--csv", str(tmp_path / "p.csv")]
+    assert tcli.main(argv) == 0
+    with open(tmp_path / "p.csv") as f:
+        assert len(list(csv.DictReader(f))) == 2
+
+
 def test_code_geometry_is_accepted_as_in_jax(trees, tmp_path_factory):
     # without --save-sequence/--tiles/--target-bpp the flag writes nothing
     # more in either package: the rows are those of a run without it
@@ -213,9 +232,10 @@ def _argv(tmp_path, extra):
 @pytest.mark.parametrize("extra,item", [
     (["--save-sequence", "s.r3ts", "--steps", "4"], 15),
     (["--tiles", "3", "--save-sequence", "s.r3ts", "--steps", "4"], 15),
-    (["--target-bpp", "2.0"], 14),
-    (["--target-bpp", "2.0", "--cbr"], 14),
-    (["--target-bpp", "2.0", "--two-pass"], 14),
+    (["--target-bpp", "2.0", "--inter"], 14),
+    (["--target-bpp", "2.0", "--save-sequence", "s.r3ts"], 15),
+    (["--target-bpp", "2.0", "--two-pass", "--save-sequence", "s.r3ts"], 15),
+    (["--target-bpp", "2.0", "--cbr", "--save-sequence", "s.r3ts"], 15),
     (["--inter", "--steps", "4"], 14),
 ])
 def test_unported_flags_exit_naming_their_item(tmp_path, extra, item):

@@ -210,7 +210,7 @@ def test_voxelize_3dgs_subprocess(ckpt, tmp_path):
 
 @pytest.mark.parametrize("cli,extra,item", [
     (tenc, ["--tiles", "3"], 15),
-    (tenc, ["--target-bpp", "1.0"], 14),
+    (tenc, ["--tiles", "3", "--target-bpp", "1.0"], 15),   # --tiles is checked first
 ])
 def test_unported_3dgs_options_exit_naming_their_item(tmp_path, cli, extra, item):
     if cli is tvox:

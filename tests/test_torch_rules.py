@@ -188,3 +188,24 @@ def test_encode_color_frame_refuses_other_device():
     with pytest.raises(ValueError, match="codec runs on"):
         encode_color_frame(np.zeros((1, 3)), np.zeros((1, 3)), depth=3, steps=(1,),
                            codec=codec, device="cpu")
+
+
+def test_rate_entry_points_follow_the_device_rule(monkeypatch):
+    """The rate CLIs run on CUDA unless given the CPU and raise without a
+    card; the searches and the rate model run on their tensors' device."""
+    monkeypatch.setattr(tdev, "cuda_available", lambda: False)
+    from raht3dgs_tpu_torch.cli import encode_3dgs, encode_dataset, encode_ply
+    from raht3dgs_tpu_torch.models.rd_search import search_step_for_bpp
+    from raht3dgs_tpu_torch.ops.rate_model import estimate_rlgr_bits
+
+    for cli, argv in ((encode_ply, ["--input", "missing.ply"]),
+                      (encode_3dgs, ["--input", "missing.ply"]),
+                      (encode_dataset, ["--dataset", "8iVFBv2", "--sequence", "loot"]),
+                      (encode_dataset, ["--dataset", "8iVFBv2", "--sequence", "loot",
+                                        "--two-pass"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cli.main(argv + ["--target-bpp", "1.0"])
+    assert estimate_rlgr_bits(torch.zeros(4, 2, dtype=torch.int32)).device.type == "cpu"
+    frame = tp.prepare_voxel_frame(np.eye(3, dtype=np.int64), np.ones((3, 3)), 6,
+                                   device="cpu")
+    assert search_step_for_bpp(frame, 50.0).encoded.stream.n_voxels == 3
