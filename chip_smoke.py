@@ -148,7 +148,24 @@ Phases, each printed on its own line, any failure exits nonzero:
    ``--two-pass``: every frame within its budget, every prefix (a GOP's
    under ``--cbr-gop``) at or under the target, ``--cbr`` spending at
    least the independent mean, one step and the total in budget under
-   ``--two-pass``; the scan launches read around each path.
+   ``--two-pass``; the scan launches read around each path;
+13. sequences on phase 8's tree (8 frames, each shifted one voxel along
+   x): the temporal ops (global and block motion, the strided search, the
+   27-probe prediction) on the card against the CPU on frames 1 -> 2
+   through both joins, each join timed (CUDA events, median of 5) with its
+   peak memory; ``SequenceCodec(adaptive=False, gop=4)`` over the 8 frames
+   in float32 (every encoder reconstruction bitwise ``decode_sequence``'s
+   on the card; P-frame bytes against intra bytes at the same step, the
+   signalled global motion, ``Predict_time``); ``encode_dataset --inter
+   --gop 4 --code-geometry --save-sequence``, then ``decode --all-frames``
+   without positions and ``decode --frame-index 5`` (a P-frame, replayed
+   from frame 4: bitwise frame 5 of ``--all-frames``); ``--save-sequence``
+   from the frame loop and from ``--batch 4`` (the same bytes); ``decode
+   --frame-index 0 --lod 6`` against the CPU's ``decode_lod``;
+   ``--target-bpp --inter`` on 4 frames (every frame within budget); the
+   scan launches read around each path and held to PERF.md's counts.
+   Every scan row also times ``torch.cumsum`` in float64 on the transposed
+   (K, N) layout, with and without the transpose's copy.
 
 Needs one CUDA card; imports nothing of JAX or of the JAX package.
 """
@@ -200,7 +217,7 @@ ABLATION_SIZE = 256
 RENDER_DENSE_TOL = 2e-5    # tiled against dense, the same device
 RENDER_CPU_TOL = 1e-4      # the card against the CPU (exp, log, sqrt and scans round apart)
 PIXEL_TOL = 1e-5           # a pixel over its scene's largest colour (or the white background)
-CARD = "cuda"              # the device phase 9 renders on
+CARD = "cuda"              # the device phases 9 and 13 run on
 DEPTH = 10
 D_ATTR = 3
 BUCKET = 1 << 19
@@ -273,6 +290,41 @@ def device_ms(torch, fn, reps: int = 50, warm: int = 3):
         split[short] = split.get(short, 0.0) + e.time_range.elapsed_us() / reps
     ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / reps
     return ms, len(kernels) / reps, split
+
+
+def run_counted(torch, ds, counts: dict, fn, *args):
+    """``fn(*args)`` with its stdout held back and the scan launches it made
+    added to ``counts``; ``(result, wall seconds, stdout)``."""
+    import contextlib
+    import io
+
+    torch.cuda.synchronize()
+    ds.reset_launches()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = fn(*args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for k, v in ds.LAUNCHES.items():
+        counts[k] += v
+    return res, wall, buf.getvalue()
+
+
+def fair_library_ms(torch, xr, reps: int = 20) -> dict:
+    """The fastest single library call for a scan row: ``torch.cumsum`` in
+    float64 along the contiguous axis of the transposed layout ((K, N), or
+    (B, K, N) for a stack), timed from the row's (N, K) input with the
+    transpose and its copy counted (``library_t_ms``) and from a prepared
+    float32 (K, N) copy (``library_t_nocopy_ms``)."""
+    a, b = xr.dim() - 2, xr.dim() - 1
+    xt = xr.transpose(a, b).contiguous()
+    return {
+        "library_t_ms": cuda_ms(torch, lambda: torch.cumsum(
+            xr.transpose(a, b).contiguous().to(torch.float64), dim=b), reps=reps),
+        "library_t_nocopy_ms": cuda_ms(torch, lambda: torch.cumsum(
+            xt.to(torch.float64), dim=b), reps=reps),
+    }
 
 
 def ptxas_summary(log: str) -> dict:
@@ -409,6 +461,7 @@ def phase_kernels(torch, ds):
             "call": call, "shape": list(x.shape), "kernel_ms": ms,
             "bound_us": max(bytes_ms, ops_ms) * 1e3,
         }
+        row.update(fair_library_ms(torch, xr, reps=100))
         if call == "ds_prefix_pack":
             # the same input through ds_cumsum, (hi, lo) without the pack
             row["ds_cumsum_ms"] = cuda_ms(torch, lambda: ds.ds_cumsum(x), reps=100)
@@ -713,7 +766,8 @@ def phase_voxelize(torch, ds):
     out["pack"] = {"call": "ds_prefix_pack", "shape": [N_RAW, K], "ms": pack_ms,
                    "plain_ms": plain_ms, "library_ms": lib_ms, "max_abs_err": max_abs,
                    "bound_ms": max(bytes_ms, ops_ms),
-                   "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+                   "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                   **fair_library_ms(torch, vals)}
     say("voxelize", rel_err=rel, **out["pack"])
     return out, vals
 
@@ -914,7 +968,8 @@ def wide_pack_row(torch, ds, body, reps=100):
     return {"call": "ds_prefix_pack", "shape": [N, K], "ms": ms, "plain_ms": plain_ms,
             "library_ms": lib_ms, "max_abs_err": max_abs, "rel_err": rel,
             "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            **fair_library_ms(torch, body, reps=min(reps, 20))}
 
 
 def add_device_ms(torch, ds, row, x) -> None:
@@ -1339,7 +1394,7 @@ def phase_dataset(torch, ds, keep):
         "ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "library_ms": lib_ms,
         "call": "ds_prefix_pack_batched", "shape": [B, N, K], "rel_err": rel,
-        "single_entry_ms": single_ms,
+        "single_entry_ms": single_ms, **fair_library_ms(torch, body, reps=5),
     }
     row["device_ms"], row["device_launches_per_call"], row["device_us_by_kernel"] = \
         device_ms(torch, lambda: ds.ds_prefix_pack_batched(body))
@@ -2196,9 +2251,7 @@ def phase_rate(torch, ds, cli, gs, data, keep):
     --target-bpp`` -> ``decode --color-space 3dgs`` and ``encode_dataset``
     in four rate modes on phase 8's tree, with the scan launches read
     around each path."""
-    import contextlib
     import csv
-    import io
     import os
 
     import numpy as np
@@ -2225,19 +2278,7 @@ def phase_rate(torch, ds, cli, gs, data, keep):
     launches = {p: {name: 0 for name in ds.LAUNCHES} for p in paths}
 
     def counted(path, fn, *args):
-        """``fn(*args)`` with its stdout held back and the scan launches added
-        to ``path``; ``(result, wall, stdout)``."""
-        torch.cuda.synchronize()
-        ds.reset_launches()
-        buf = io.StringIO()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(buf):
-            res = fn(*args)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        for k, v in ds.LAUNCHES.items():
-            launches[path][k] += v
-        return res, wall, buf.getvalue()
+        return run_counted(torch, ds, launches[path], fn, *args)
 
     # 1. the rate model, card against CPU, and the 64-step grid on the card
     pts, attrs = synthetic_positions(N_VOX, DEPTH, D_ATTR, seed=0)
@@ -2453,6 +2494,284 @@ def phase_rate(torch, ds, cli, gs, data, keep):
     return out
 
 
+SEQ_STEP = 16.0            # phase 13: the sequences' one quantization step
+SEQ_GOP = 4                # phase 13: an I-frame every 4 frames
+SEQ_LOD = 6                # phase 13: the --lod level of the I-frame decode
+SEQ_LOD_TOL = 1e-4         # phase 13: --lod on the card against the CPU, over the range
+SEQ_TARGET_FRAMES = 4      # phase 13: frames of --target-bpp --inter
+JOIN_REPS = 5              # phase 13: CUDA-event repeats of each join's timing
+
+
+def phase_sequence(torch, ds, data, keep):
+    """Phase 13: sequences on phase 8's tree (8 frames of ~0.81 M voxels at
+    J=10, each shifted one voxel along x). (a) The temporal ops on the card
+    against the CPU on frames 1 -> 2, both joins, each timed; (b)
+    ``SequenceCodec(adaptive=False, gop=4)`` over the 8 frames in float32,
+    its reconstructions against ``decode_sequence`` on the card; (c)
+    ``encode_dataset --inter --gop 4 --code-geometry --save-sequence``, then
+    ``decode --all-frames`` without positions and ``decode --frame-index 5``
+    (a P-frame, replayed); (d) ``--save-sequence`` from the frame loop and
+    from ``--batch 4``; (e) ``decode --frame-index 0 --lod 6`` against the
+    CPU's ``decode_lod``; (f) ``--target-bpp --inter`` on 4 frames. The
+    scan launches are read around each path and held to the counts
+    predicted in PERF.md."""
+    import csv
+    import os
+
+    import numpy as np
+
+    from raht3dgs_tpu_torch.cli import decode, encode_dataset
+    from raht3dgs_tpu_torch.codec.bitstream import SequenceReader
+    from raht3dgs_tpu_torch.codec.geometry import decode_geometry
+    from raht3dgs_tpu_torch.io.datasets import get_pointcloud
+    from raht3dgs_tpu_torch.io.ply import read_ply
+    from raht3dgs_tpu_torch.models import pipeline as tp
+    from raht3dgs_tpu_torch.models.temporal import SequenceCodec, signalled_global_motion
+    from raht3dgs_tpu_torch.ops import temporal as tt
+    from raht3dgs_tpu_torch.ops.color import rgb_to_yuv
+    from raht3dgs_tpu_torch.ops.morton import morton_decode
+
+    t_phase = time.perf_counter()
+    root = data["root"]
+    n = N_FRAMES
+    out = {}
+    paths = ("seq_codec", "seq_inter_cli", "seq_all_frames", "seq_frame_index", "seq_loop",
+             "seq_batch", "seq_lod", "seq_target_inter")
+    launches = {p: {name: 0 for name in ds.LAUNCHES} for p in paths}
+
+    def counted(path, fn, *args):
+        return run_counted(torch, ds, launches[path], fn, *args)
+
+    def frame_of(i, device):
+        V, C, depth = get_pointcloud("8iVFBv2", "loot", i + 1, root)
+        yuv = rgb_to_yuv(torch.as_tensor(np.asarray(C), device=device),
+                         dtype=torch.float32).cpu().numpy()
+        return tp.prepare_voxel_frame(np.floor(V).astype(np.int64), yuv, depth,
+                                      bucket=BUCKET, dtype=torch.float32, device=device)
+
+    def cli_argv(*extra):
+        return ["--dataset", "8iVFBv2", "--sequence", "loot", "--data-root", root,
+                "--dtype", "float32", "--bucket", str(BUCKET), *extra]
+
+    # (a) the temporal ops, card against CPU, frame 2 predicted from frame 1
+    cur, prev = frame_of(1, CARD), frame_of(0, CARD)
+    cur_c, prev_c = frame_of(1, "cpu"), frame_of(0, "cpu")
+    args = (cur.codes, cur.attributes, cur.weights, prev.codes, prev.attributes, prev.weights)
+    args_c = (cur_c.codes, cur_c.attributes, cur_c.weights, prev_c.codes,
+              prev_c.attributes, prev_c.weights)
+
+    def ops(a, join):
+        ct, at, wt, cp, ap, wp = a
+        m = tt.estimate_global_motion(ct, wt, cp, wp, DEPTH, join=join)
+        r = tt.refine_block_motion(ct, wt, cp, wp, DEPTH, m, join=join)
+        mv = tt.search_block_motion(ct, at, wt, cp, ap, wp, DEPTH, m, stride=4, join=join)
+        pred, found = tt.predict_from_previous(ct, cp, ap, wp, DEPTH, 27, mv, join=join)
+        return m, r, mv, pred, found
+
+    t0 = time.perf_counter()
+    want = [x.numpy() for x in ops(args_c, "search")]
+    cpu_s = time.perf_counter() - t0
+    check(want[0].tolist() == [1, 0, 0], f"global motion on the CPU {want[0].tolist()}")
+    joins = {}
+    for join in tt.JOINS:
+        got = [x.cpu().numpy() for x in ops(args, join)]
+        for name, g, w in zip(("motion", "refine", "search", "pred", "found"), got, want):
+            check(g.dtype == w.dtype and np.array_equal(g, w),
+                  f"{join} join: {name} on the card differs from the CPU")
+        pm = args[3], args[4], args[5]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        joins[join] = {
+            "predict_ms": cuda_ms(torch, lambda: tt.predict_from_previous(
+                cur.codes, *pm, DEPTH, 27, torch.as_tensor(got[2], device=CARD),
+                join=join), reps=JOIN_REPS, warm=1),
+            "search_ms": cuda_ms(torch, lambda: tt.search_block_motion(
+                *args, DEPTH, torch.as_tensor(got[0], device=CARD), stride=4, join=join),
+                reps=JOIN_REPS, warm=1),
+            "peak_mem_gib": (torch.cuda.max_memory_allocated() - base) / 2**30,
+        }
+    faster = min(tt.JOINS, key=lambda j: joins[j]["predict_ms"] + joins[j]["search_ms"])
+    out["ops"] = {"nvox": [cur.n_voxels, prev.n_voxels], "motion": want[0].tolist(),
+                  "found_share": float(want[4][:cur.n_voxels].mean()), "cpu_s": cpu_s,
+                  "joins": joins, "faster_join": faster,
+                  "default_join": tt.DEFAULT_JOIN}
+    say("sequence_ops", **{k: json.dumps(v) if isinstance(v, (dict, list)) else v
+                           for k, v in out["ops"].items()})
+    del cur_c, prev_c, args_c, want
+
+    # (b) the sequence codec on the card, its closed loop against its decode
+    frames = [frame_of(i, CARD) for i in range(n)]
+    sc = SequenceCodec(DEPTH, gop=SEQ_GOP, adaptive=False, dtype=torch.float32,
+                       device=CARD)
+    timers = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    (streams, recs), enc_s, _ = counted("seq_codec", sc.encode_sequence, frames, SEQ_STEP,
+                                        timers)
+    dec, dec_s, _ = counted("seq_codec", SequenceCodec(DEPTH, dtype=torch.float32, device=CARD)
+                            .decode_sequence, streams, frames)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check([s.inter for s in streams] == [i % SEQ_GOP != 0 for i in range(n)],
+          "sequence codec: I/P pattern")
+    for i, (a, b) in enumerate(zip(recs, dec)):
+        check(a.dtype == b.dtype and np.array_equal(a, b),
+              f"frame {i}: the encoder's reconstruction differs from decode_sequence")
+    check(launches["seq_codec"] == {"ds_cumsum": n, "ds_cumsum_t": 4 * n,
+                                    "ds_cumsum_batched": 0},
+          f"sequence codec: scan launches {launches['seq_codec']}")
+    p_bytes, i_bytes, gmv = [], [], []
+    for i, (f, s) in enumerate(zip(frames, streams)):
+        if s.inter:
+            p_bytes.append(s.payload_bytes)
+            i_bytes.append(sc.codec.encode(f, SEQ_STEP).stream.payload_bytes)
+            gmv.append(signalled_global_motion(s).tolist())
+    check(all(g == [1, 0, 0] for g in gmv), f"signalled global motion {gmv}")
+    rmse = [float(np.sqrt(np.mean((r - f.attributes[:f.n_voxels].cpu().numpy()) ** 2)))
+            for r, f in zip(recs, frames)]
+    check(max(rmse) < SEQ_STEP, f"sequence RMSE {rmse}")
+    out["codec"] = {"encode_s": enc_s, "decode_s": dec_s, "peak_mem_gib": peak,
+                    "p_bytes": p_bytes, "intra_bytes_same_step": i_bytes,
+                    "p_over_intra": float(sum(p_bytes) / sum(i_bytes)),
+                    "global_motion": gmv, "rmse": rmse,
+                    "predict_s": [t.stages.get("Predict_time", 0.0) for t in timers],
+                    "launches": launches["seq_codec"]}
+    say("sequence_codec", **{k: json.dumps(v) if isinstance(v, (dict, list)) else v
+                             for k, v in out["codec"].items()})
+    del frames, recs, dec, sc
+
+    # (c) encode_dataset --inter --code-geometry --save-sequence, then decode
+    seq = os.path.join(keep, "inter.r3ts")
+    rc, inter_s, text = counted("seq_inter_cli", encode_dataset.main, cli_argv(
+        "--frames", "1", str(n), "--steps", f"{SEQ_STEP:g}", "--inter", "--gop",
+        str(SEQ_GOP), "--code-geometry", "--save-sequence", seq,
+        "--csv", os.path.join(keep, "inter.csv")))
+    check(rc == 0, "encode_dataset --inter failed")
+    reader = SequenceReader(seq)
+    kinds = [reader.frame(i).inter for i in range(len(reader))]
+    check(len(kinds) == n and not kinds[0] and not kinds[SEQ_GOP],
+          f"--inter: frame kinds {kinds}")
+    n_p = sum(kinds)
+    check(n_p >= 1, "--inter: no P-frame chosen")
+    check(launches["seq_inter_cli"] == {"ds_cumsum": n + n - n // SEQ_GOP,
+                                        "ds_cumsum_t": 2 * n, "ds_cumsum_batched": 0},
+          f"--inter CLI: scan launches {launches['seq_inter_cli']}")
+    with open(os.path.join(keep, "inter.csv")) as f:
+        rows = list(csv.DictReader(f))
+    all_out = os.path.join(keep, "all_{i}.ply")
+    rc, all_s, _ = counted("seq_all_frames", decode.main, [
+        "--stream", seq, "--all-frames", "--output", all_out, "--color-space", "raw",
+        "--bucket", str(BUCKET)])
+    check(rc == 0, "decode --all-frames failed")
+    one = os.path.join(keep, "one5.ply")
+    rc, one_s, text = counted("seq_frame_index", decode.main, [
+        "--stream", seq, "--frame-index", "5", "--output", one, "--color-space", "raw",
+        "--bucket", str(BUCKET)])
+    check(rc == 0 and "replaying the chain from frame 4" in text,
+          "decode --frame-index 5 did not replay from frame 4")
+    a5 = np.load(all_out.format(i=5) + ".attrs.npy")
+    check(np.array_equal(np.load(one + ".attrs.npy"), a5)
+          and open(one, "rb").read() == open(all_out.format(i=5), "rb").read(),
+          "decode --frame-index 5 differs from frame 5 of --all-frames")
+    check(kinds[5], "frame 5 is not a P-frame")
+    v = read_ply(all_out.format(i=5)).vertices
+    check(len(v["x"]) == reader.frame(5).n_voxels and np.isfinite(a5).all(),
+          "decoded frame 5")
+    check(launches["seq_all_frames"] == {"ds_cumsum": 0, "ds_cumsum_t": 2 * n,
+                                         "ds_cumsum_batched": 0}
+          and launches["seq_frame_index"] == {"ds_cumsum": 0, "ds_cumsum_t": 4,
+                                              "ds_cumsum_batched": 0},
+          f"decode: scan launches {launches['seq_all_frames']} / "
+          f"{launches['seq_frame_index']}")
+    sizes = [len(reader.frame_bytes(i)) for i in range(n)]
+    nvox = [reader.frame(i).n_voxels for i in range(n)]
+    out["inter_cli"] = {
+        "encode_s": inter_s, "all_frames_s": all_s, "frame_index_s": one_s,
+        "kinds": "".join("P" if k else "I" for k in kinds), "inter_share": n_p / n,
+        "frame_bytes": sizes, "bpp": [float(r["Rate_bpp"]) for r in rows],
+        "psnr": [float(r["psnr"]) for r in rows],
+        "sequence_bits_per_voxel": 8.0 * os.path.getsize(seq) / sum(nvox),
+        "geometry_profiles": [reader.frame(i).geometry[0] for i in range(n)]}
+    say("sequence_cli", **{k: json.dumps(v) if isinstance(v, (dict, list)) else v
+                           for k, v in out["inter_cli"].items()})
+
+    # (d) --save-sequence from the frame loop and from --batch 4
+    blobs = {}
+    for mode, extra in (("loop", []), ("batch", ["--batch", str(BATCH)])):
+        path = os.path.join(keep, f"{mode}.r3ts")
+        rc, wall, _ = counted(f"seq_{mode}", encode_dataset.main, cli_argv(
+            "--frames", "1", str(n), "--steps", f"{SEQ_STEP:g}", "--save-sequence", path,
+            "--csv", os.path.join(keep, f"{mode}_seq.csv"), *extra))
+        check(rc == 0, f"encode_dataset --save-sequence ({mode}) failed")
+        blobs[mode] = (open(path, "rb").read(), wall)
+    check(blobs["loop"][0] == blobs["batch"][0],
+          "--save-sequence: the frame loop and --batch 4 wrote different sequences")
+    check(launches["seq_loop"] == {"ds_cumsum": n, "ds_cumsum_t": 2 * n,
+                                   "ds_cumsum_batched": 0}
+          and launches["seq_batch"] == {"ds_cumsum": 0, "ds_cumsum_t": 0,
+                                        "ds_cumsum_batched": 3 * (-(-n // BATCH))},
+          f"--save-sequence: scan launches {launches['seq_loop']} / {launches['seq_batch']}")
+    out["save_sequence"] = {"bytes": len(blobs["loop"][0]), "loop_s": blobs["loop"][1],
+                            "batch_s": blobs["batch"][1]}
+    say("sequence_save", **out["save_sequence"])
+
+    # (e) --lod of the I-frame against the CPU's decode_lod
+    lod_out = os.path.join(keep, "lod.ply")
+    rc, lod_s, text = counted("seq_lod", decode.main, [
+        "--stream", seq, "--frame-index", "0", "--lod", str(SEQ_LOD), "--output", lod_out,
+        "--color-space", "raw", "--dtype", "float32", "--bucket", str(BUCKET)])
+    check(rc == 0, "decode --lod failed")
+    s0 = reader.frame(0)
+    codes = decode_geometry(s0.geometry, DEPTH, s0.n_voxels)
+    V = morton_decode(torch.as_tensor(codes.astype(np.int64)), DEPTH).numpy()
+    f0 = tp.prepare_voxel_frame(V, np.zeros((len(V), 3)), DEPTH, bucket=BUCKET,
+                                dtype=torch.float32, device="cpu")
+    pos, att, cw = tp.AttributeCodec(DEPTH, dtype=torch.float32, device="cpu").decode_lod(
+        s0, f0.codes, f0.weights, SEQ_LOD)
+    v = read_ply(lod_out).vertices
+    got_pos = np.stack([v["x"], v["y"], v["z"]], axis=1)
+    got_att = np.load(lod_out + ".attrs.npy")
+    span = float(np.ptp(att))
+    lod_err = float(np.abs(got_att - att).max()) / span
+    check(np.array_equal(got_pos, pos.astype(np.float32))
+          and np.array_equal(np.load(lod_out + ".cellw.npy"), cw) and lod_err <= SEQ_LOD_TOL,
+          f"--lod {SEQ_LOD}: the card differs from the CPU (err {lod_err})")
+    check(launches["seq_lod"] == {"ds_cumsum": 0, "ds_cumsum_t": 2, "ds_cumsum_batched": 0},
+          f"--lod: scan launches {launches['seq_lod']}")
+    out["lod"] = {"cells": len(pos), "nvox": s0.n_voxels, "rel_err": lod_err, "wall_s": lod_s}
+    say("sequence_lod", **out["lod"])
+
+    # (f) --target-bpp --inter on the first frames, a budget of 1.1x the
+    # first P-frame's rate at SEQ_STEP
+    m = SEQ_TARGET_FRAMES
+    target = 1.1 * out["inter_cli"]["bpp"][1]
+    csv_t = os.path.join(keep, "target_inter.csv")
+    rc, tgt_s, text = counted("seq_target_inter", encode_dataset.main, cli_argv(
+        "--frames", "1", str(m), "--inter", "--target-bpp", f"{target:g}", "--csv", csv_t))
+    check(rc == 0, "encode_dataset --target-bpp --inter failed")
+    with open(csv_t) as f:
+        rows = list(csv.DictReader(f))
+    bpp = [float(r["Rate_bpp"]) for r in rows]
+    check(len(rows) == m and all(b <= target * 1.001 for b in bpp)
+          and all(np.isfinite(float(r["psnr"])) for r in rows),
+          f"--target-bpp --inter: {bpp} against {target}")
+    check(launches["seq_target_inter"] == {"ds_cumsum": 2 * m - 1, "ds_cumsum_t": 2 * m,
+                                           "ds_cumsum_batched": 0},
+          f"--target-bpp --inter: scan launches {launches['seq_target_inter']}")
+    # the frame each candidate won ("[I]" or "[P]" in the CLI's frame lines)
+    won = "".join(ln.split("[")[1][0] for ln in text.splitlines()
+                  if ln.startswith("frame ") and "[" in ln)
+    out["target_inter"] = {"target_bpp": target, "bpp": bpp, "wall_s": tgt_s,
+                           "steps": [float(r["Quantization_Step"]) for r in rows],
+                           "kinds": won}
+    say("sequence_target", **{k: json.dumps(v) if isinstance(v, list) else v
+                              for k, v in out["target_inter"].items()})
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    say("sequence", seconds=round(out["seconds"], 1), launches=json.dumps(launches))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2485,6 +2804,7 @@ def main() -> int:
         entropy = phase_entropy(torch, ds, cli, gs, keep)
         predict = phase_predict(torch, ds, cli, gs, keep)
         rate = phase_rate(torch, ds, cli, gs, data, keep)
+        seq = phase_sequence(torch, ds, data, keep)
     finally:
         shutil.rmtree(keep, ignore_errors=True)
     add_device_ms(torch, ds, vox["pack"], vox_vals)
@@ -2498,7 +2818,7 @@ def main() -> int:
                 for name in ("voxelize_3dgs", "encode_3dgs", "encode_3dgs_debug")},
              "entropy_cli": entropy["colour"]["launches"],
              "entropy_gs_cli": entropy["gs"]["launches"],
-             **predict["launches"], **rate["launches"]}
+             **predict["launches"], **rate["launches"], **seq["launches"]}
     rows.append(data["row"])
     for row in rows:
         # `launches`: the codec's main path (phase 3) for the single entry,
@@ -2513,7 +2833,8 @@ def main() -> int:
             row["gs_pack_merge"] = gs["pack_merge"]
     say("done", seconds=round(time.perf_counter() - t_start, 1),
         predict_phase_seconds=round(predict["seconds"], 1),
-        rate_phase_seconds=round(rate["seconds"], 1))
+        rate_phase_seconds=round(rate["seconds"], 1),
+        sequence_phase_seconds=round(seq["seconds"], 1))
 
     print(card)
     print(json.dumps({"kernels": rows}))

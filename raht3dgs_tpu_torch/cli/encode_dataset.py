@@ -17,10 +17,14 @@ under ``--batch`` (where each frame runs its own closed loop).
 (``models/rd_search.py``, one CSV row a frame); ``--cbr`` (with
 ``--cbr-burst`` and ``--cbr-gop``) carries each frame's unspent budget
 forward (``models/rate_control.py``), and ``--two-pass`` finds one step for
-the whole range. ``--code-geometry`` is accepted, as in the JAX CLI, where
-it acts only with ``--save-sequence`` or ``--tiles``. Those (ROADMAP queue
-A, item 15) and ``--inter`` (item 14) are not ported yet and exit naming
-their item, after the JAX CLI's own argument checks.
+the whole range. ``--save-sequence S`` writes every frame's stream into
+one indexed ``.r3ts`` file (one step), in every mode; ``--code-geometry``
+then attaches each frame's lossless geometry. ``--inter`` codes I/P frames
+through ``models/temporal.py`` (``--gop``, ``--search-stride``, and with
+``--target-bpp`` a step searched per candidate), P-frames carrying
+temporal geometry under ``--code-geometry``. ``--tiles`` (ROADMAP queue A,
+item 15) is not ported yet and exits naming its item, after the JAX CLI's
+own argument checks.
 """
 
 from __future__ import annotations
@@ -65,8 +69,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--save-sequence", default=None,
-        help="write all frames to one indexed .r3ts sequence file (not "
-        "ported yet: ROADMAP queue A, item 15)",
+        help="write all frames to one indexed .r3ts sequence file "
+        "(requires exactly one --steps value)",
     )
     p.add_argument(
         "--batch", type=int, default=0,
@@ -106,12 +110,20 @@ def build_parser() -> argparse.ArgumentParser:
         help="tiled .r3tt frames inside the .r3ts (not ported yet: ROADMAP "
         "queue A, item 15)",
     )
-    p.add_argument("--inter", action="store_true",
-                   help="temporal I/P coding (not ported yet: ROADMAP queue A, item 14)")
+    p.add_argument(
+        "--inter", action="store_true",
+        help="temporal I/P coding: predict each frame from the previous "
+        "reconstruction and code the residual (closed loop, adaptive "
+        "per-frame intra fallback; requires exactly one --steps value)",
+    )
     p.add_argument("--gop", type=int, default=16,
                    help="with --inter: force an intra frame every GOP frames")
-    p.add_argument("--search-stride", type=int, default=None,
-                   help="with --inter: motion-search witness sampling stride")
+    p.add_argument(
+        "--search-stride", type=int, default=None,
+        help="with --inter: encoder-side motion-search witness sampling "
+        "stride (default: exact below 65536 voxels, 4 above; the field is "
+        "signalled, so any stride decodes alike; 1 = exact everywhere)",
+    )
     add_geometry_arg(p)
     add_quant_args(p)
     add_runtime_args(p)
@@ -125,8 +137,8 @@ def _err(msg: str) -> int:
 
 def _refusals(args):
     """The JAX CLI's argument errors (``2``) in its dispatch order, with the
-    exits of the modes that are not ported yet where it would enter them;
-    None when the run may go on."""
+    exit of ``--tiles`` (not ported yet) where it would enter it; None when
+    the run may go on."""
     if args.save_sequence and args.target_bpp is None and len(args.steps) != 1:
         return _err("--save-sequence requires exactly one --steps value")
     if (args.cbr or args.cbr_burst is not None or args.cbr_gop) and args.target_bpp is None:
@@ -149,16 +161,11 @@ def _refusals(args):
         if args.batch:
             return _err("--target-bpp composes with the frame loop or --inter "
                         "(drop --batch)")
-        if args.inter:
-            raise not_ported("--target-bpp --inter", 14, "temporal I/P coding")
     elif args.inter:
         if len(args.steps) != 1:
             return _err("--inter requires exactly one --steps value")
         if args.batch:
             return _err("--inter is sequential by nature; drop --batch")
-        raise not_ported("--inter", 14, "temporal I/P coding")
-    if args.save_sequence:
-        raise not_ported("--save-sequence", 15, "the R3TS sequence container")
     return None
 
 
@@ -177,20 +184,43 @@ def main(argv=None) -> int:
     from raht3dgs_tpu_torch.models.color_codec import CSV_HEADER
 
     log = CsvLogger(args.csv or "results/runtime_dataset.csv", CSV_HEADER)
+    seq = []  # the streams --save-sequence writes, in frame order
+    rc = 0
     # context managers: the trace and the CSV finish even when a frame raises
     with maybe_profile(args, device), contextlib.closing(log):
         if args.two_pass:
-            return _run_two_pass(args, first, last, log, device)
-        if args.target_bpp is not None:
-            _run_target(args, first, last, log, device)
+            rc = _run_two_pass(args, first, last, log, device, seq)
+        elif args.inter:
+            _run_inter(args, first, last, log, device, seq)
+        elif args.target_bpp is not None:
+            _run_target(args, first, last, log, device, seq)
         elif args.batch > 0:
-            _run_batched(args, first, last, log, device)
+            _run_batched(args, first, last, log, device, seq)
         else:
-            _run_frames(args, first, last, log, device)
+            _run_frames(args, first, last, log, device, seq)
+    if rc != 0:
+        return rc
+    if args.save_sequence:
+        from raht3dgs_tpu_torch.codec.bitstream import write_sequence
+
+        total = write_sequence(args.save_sequence, seq)
+        print(f"sequence: {len(seq)} frames, {total} bytes -> {args.save_sequence}")
     return 0
 
 
-def _run_frames(args, first: int, last: int, log, device) -> None:
+def _intra_geometry(args, V, depth: int):
+    """The frame's intra geometry section when ``--save-sequence
+    --code-geometry`` asks for one, else None. Intra geometry per frame keeps
+    any frame of an all-intra sequence decodable alone; temporal geometry
+    rides ``--inter`` P-frames only."""
+    if not (args.code_geometry and args.save_sequence):
+        return None
+    from raht3dgs_tpu_torch.codec.geometry import geometry_from_positions
+
+    return geometry_from_positions(V, depth)
+
+
+def _run_frames(args, first: int, last: int, log, device, seq) -> None:
     """The frame loop: one ``encode_color_frame`` sweep per loaded frame."""
     from raht3dgs_tpu_torch.io.datasets import get_pointcloud
     from raht3dgs_tpu_torch.models.color_codec import encode_color_frame
@@ -207,16 +237,20 @@ def _run_frames(args, first: int, last: int, log, device) -> None:
         if depth not in codecs:
             codecs[depth] = AttributeCodec(depth, dtype=dtype, chunk=args.entropy_chunk,
                                            device=device, **quant_kwargs(args))
+        geom = _intra_geometry(args, V, depth)
         for pt in encode_color_frame(
             V, C, depth=depth, steps=args.steps, frame_index=frame,
             codec=codecs[depth], bucket=args.bucket, dtype=dtype,
-            decode=not args.no_decode,
+            decode=not args.no_decode, keep_streams=bool(args.save_sequence),
         ):
             log.row(pt.csv_row())
+            if pt.encoded is not None:
+                pt.encoded.stream.geometry = geom
+                seq.append(pt.encoded.stream)
         print(f"frame {frame} done")
 
 
-def _run_batched(args, first: int, last: int, log, device) -> None:
+def _run_batched(args, first: int, last: int, log, device, seq) -> None:
     """Batched path: ``--batch`` frames per call on one device, each chunk
     split into equal-depth batches (a frame's depth is its PLY header's)."""
     from raht3dgs_tpu_torch.io.datasets import get_pointcloud
@@ -239,14 +273,15 @@ def _run_batched(args, first: int, last: int, log, device) -> None:
         if not by_depth:
             continue
         for depth, members in by_depth.items():
-            _encode_depth_batch(args, members, depth, log, codecs, device)
+            _encode_depth_batch(args, members, depth, log, codecs, device, seq)
         print(f"frames {chunk[0]}..{chunk[-1]} done (batched)")
 
 
-def _encode_depth_batch(args, members, depth: int, log, codecs, device) -> None:
+def _encode_depth_batch(args, members, depth: int, log, codecs, device, seq) -> None:
     """Encode one equal-depth batch of loaded frames: one transform and one
     inverse order for the batch, the pipelined step sweep, a batched decode
-    per step, and one CSV row per real frame and step."""
+    per step, and one CSV row per real frame and step; with
+    ``--save-sequence`` each step's streams go to ``seq`` in frame order."""
     from raht3dgs_tpu_torch.models.batch_codec import BatchAttributeCodec, prepare_frame_batch
     from raht3dgs_tpu_torch.models.color_codec import RDPoint, y_psnr_db
     from raht3dgs_tpu_torch.ops.color import rgb_to_yuv
@@ -274,6 +309,7 @@ def _encode_depth_batch(args, members, depth: int, log, codecs, device) -> None:
     # for the whole pipeline (the reporting scripts' contract)
     transform_share = {k: v / len(args.steps) for k, v in t_timer.stages.items()}
     refs = [f.attributes[:f.n_voxels, 0].cpu().numpy() for f in frames]
+    geoms = [_intra_geometry(args, p, depth) for p in pos]
     sweep = bc.encode_sweep(frames, [float(s) for s in args.steps], coeffs=coeffs,
                             orderp=orderp)
     for step, (streams, timer) in zip(args.steps, sweep):
@@ -282,6 +318,10 @@ def _encode_depth_batch(args, members, depth: int, log, codecs, device) -> None:
         recs = None
         if not args.no_decode:
             recs, timer = bc.decode(streams, frames, timer=timer, inv=inv)
+        if args.save_sequence:
+            for st, g in zip(streams, geoms):
+                st.geometry = g
+            seq.extend(streams)
         # stage times cover the whole batch: each row takes a frame's share
         per_frame = {k: v / len(frames) for k, v in timer.stages.items()}
         for i, (fr, _) in enumerate(members):
@@ -322,7 +362,7 @@ def _y_psnr(codec, stream, fr) -> float:
     return y_psnr_db(fr.attributes[:fr.n_voxels, 0].cpu().numpy(), rec[:, 0])
 
 
-def _run_target(args, first: int, last: int, log, device) -> None:
+def _run_target(args, first: int, last: int, log, device, seq) -> None:
     """Constant-rate sequence encoding: search each frame's step for the
     --target-bpp budget (or the --cbr controller's), decode it for its
     Y-PSNR, and log one CSV row a frame."""
@@ -363,9 +403,12 @@ def _run_target(args, first: int, last: int, log, device) -> None:
             n_voxels=fr.n_voxels, stream_bytes=res.encoded.stream.payload_bytes,
             times={"Quant_time": search_s},
         ).csv_row())
+        if args.save_sequence:
+            res.encoded.stream.geometry = _intra_geometry(args, V, depth)
+            seq.append(res.encoded.stream)
 
 
-def _run_two_pass(args, first: int, last: int, log, device) -> int:
+def _run_two_pass(args, first: int, last: int, log, device, seq) -> int:
     """Constant-quality sequence allocation under a total-rate cap: one
     shared step for every frame (``search_global_step_for_bpp``). Loads and
     prepares the whole range first: the allocator needs every frame's rate
@@ -384,23 +427,23 @@ def _run_two_pass(args, first: int, last: int, log, device) -> int:
             continue
         V, C, depth = out
         frames.append(_yuv_frame(args, V, C, depth, device))
-        metas.append((frame_idx, depth))
+        metas.append((frame_idx, V, depth))
     if not frames:
         print("no frames loaded", file=sys.stderr)
         return 1
-    depths = {d for _, d in metas}
+    depths = {d for _, _, d in metas}
     if len(depths) > 1:
         return _err(f"--two-pass needs one octree depth across the range, got "
                     f"{sorted(depths)} (encode per-depth subranges, or use the "
                     "per-frame --target-bpp search)")
-    codec = AttributeCodec(metas[0][1], dtype=torch_dtype(args.dtype),
+    codec = AttributeCodec(metas[0][2], dtype=torch_dtype(args.dtype),
                            chunk=args.entropy_chunk, device=device, **quant_kwargs(args))
     res = search_global_step_for_bpp(frames, args.target_bpp, codec=codec)
     search_s = time.perf_counter() - t0
     print(f"two-pass: step {res.step:.4f} for {len(frames)} frames, sequence "
           f"{res.total_bpp:.4f} bpp vs target {args.target_bpp:.3f} ({res.probes} "
           f"device probes, {search_s:.2f}s)")
-    for (frame_idx, _), fr, enc in zip(metas, frames, res.encoded):
+    for (frame_idx, V, depth), fr, enc in zip(metas, frames, res.encoded):
         psnr = _y_psnr(codec, enc.stream, fr)
         print(f"frame {frame_idx}: {enc.stream.bpp():.4f} bpp, Y-PSNR {psnr:.2f} dB")
         log.row(RDPoint(
@@ -408,7 +451,83 @@ def _run_two_pass(args, first: int, last: int, log, device) -> int:
             n_voxels=fr.n_voxels, stream_bytes=enc.stream.payload_bytes,
             times={"Quant_time": search_s / len(frames)},
         ).csv_row())
+        if args.save_sequence:
+            enc.stream.geometry = _intra_geometry(args, V, depth)
+            seq.append(enc.stream)
     return 0
+
+
+def _run_inter(args, first: int, last: int, log, device, seq) -> None:
+    """Temporal I/P coding: frames stream through ``SequenceCodec``'s
+    incremental API, the closed-loop state carried across frames; one CSV
+    row a frame, the PSNR of the decoder-exact reconstruction. With
+    ``--target-bpp`` each candidate searches its own step (``--cbr``
+    allocating the budgets)."""
+    from raht3dgs_tpu_torch.codec.geometry import encode_geometry
+    from raht3dgs_tpu_torch.io.datasets import get_pointcloud
+    from raht3dgs_tpu_torch.models.color_codec import RDPoint, y_psnr_db
+    from raht3dgs_tpu_torch.models.temporal import SequenceCodec, signalled_global_motion
+    from raht3dgs_tpu_torch.utils.timing import StageTimer
+
+    dtype = torch_dtype(args.dtype)
+    step = args.steps[0] if args.target_bpp is None else None
+    rc = _make_controller(args) if args.target_bpp is not None else None
+    codecs = {}
+    geom_prev = (None, None)  # (codes, depth) of the last saved frame
+    n_inter = n_done = 0
+    prev_depth = None
+    for frame_idx in range(first, last + 1):
+        out = get_pointcloud(args.dataset, args.sequence, frame_idx, args.data_root)
+        if out is None:
+            print(f"frame {frame_idx}: load failed, skipping", file=sys.stderr)
+            continue
+        V, C, depth = out
+        if depth not in codecs:
+            codecs[depth] = SequenceCodec(depth, gop=args.gop, chunk=args.entropy_chunk,
+                                          dtype=dtype, search_stride=args.search_stride,
+                                          device=device, **quant_kwargs(args))
+        sc = codecs[depth]
+        # predictions chain only across consecutive same-depth frames; the
+        # decoder (cli/decode.py) breaks the chain by the same rule
+        if prev_depth != depth:
+            sc.reset()
+        prev_depth = depth
+        frame = _yuv_frame(args, V, C, depth, device)
+        timer = StageTimer()
+        if args.target_bpp is not None:
+            if rc is not None and args.cbr_gop > 0 and (frame_idx - first) % args.cbr_gop == 0:
+                rc.reset_credit()
+            budget = rc.frame_budget() if rc is not None else args.target_bpp
+            stream, rec, used_step = sc.encode_frame_target(frame, budget, timer=timer)
+            if rc is not None:
+                rc.update(stream.bpp())
+        else:
+            stream, rec = sc.encode_frame(frame, step, timer=timer)
+            used_step = step
+        n_inter += bool(stream.inter)
+        n_done += 1
+        psnr = y_psnr_db(frame.attributes[:frame.n_voxels, 0].cpu().numpy(), rec[:, 0])
+        pt = RDPoint(frame=frame_idx, step=float(used_step), bpp=stream.bpp(), psnr=psnr,
+                     n_voxels=frame.n_voxels, stream_bytes=stream.payload_bytes,
+                     times=timer.stages)
+        log.row(pt.csv_row())
+        kind = "P" if stream.inter else "I"
+        cbr = f", cum {rc.mean_bpp:.4f}, credit {rc.credit:.4f}" if rc is not None else ""
+        print(f"frame {frame_idx} [{kind}] step {used_step:g}: {pt.bpp:.4f} bpp{cbr}, "
+              f"Y-PSNR {psnr:.2f} dB ({frame.n_voxels} voxels)")
+        if args.save_sequence:
+            if args.code_geometry:
+                # temporal geometry rides P-frames only, compensated by the
+                # stream's signalled global motion (profile 2); I-frames
+                # restart the chain, so every GOP boundary is an entry point
+                cur_codes = frame.codes[:frame.n_voxels].cpu().numpy()
+                use_prev = stream.inter and geom_prev[1] == depth
+                stream.geometry = encode_geometry(
+                    cur_codes, depth, prev_codes=geom_prev[0] if use_prev else None,
+                    motion=signalled_global_motion(stream) if use_prev else None)
+                geom_prev = (cur_codes, depth)
+            seq.append(stream)
+    print(f"inter frames: {n_inter}/{n_done}")
 
 
 if __name__ == "__main__":

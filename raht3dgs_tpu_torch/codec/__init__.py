@@ -1,5 +1,5 @@
 """Host entropy coding (RLGR, RAC), lossless geometry and the R3TC frame
-container."""
+container and the R3TS sequence file."""
 from raht3dgs_tpu_torch.codec.geometry import (
     decode_geometry,
     decode_geometry_lod,
@@ -8,10 +8,10 @@ from raht3dgs_tpu_torch.codec.geometry import (
     positions_from_geometry,
     positions_from_geometry_lod,
 )
-from raht3dgs_tpu_torch.codec.rlgr import rlgr_decode, rlgr_encode
+from raht3dgs_tpu_torch.codec.rlgr import MemBuf, rlgr_decode, rlgr_encode
 
 __all__ = [
-    "rlgr_decode", "rlgr_encode",
+    "MemBuf", "rlgr_decode", "rlgr_encode",
     "encode_geometry", "decode_geometry", "decode_geometry_lod",
     "geometry_from_positions", "positions_from_geometry",
     "positions_from_geometry_lod",

@@ -14,7 +14,8 @@ section on inter frames, version 4 a lossless geometry section, version 5 a
 second flag byte (per-channel entropy map, predicted-RAHT mask). The
 layout is frozen: the port reads every container version the JAX package
 writes (v1-v5) and writes the same bytes for the same fields. The R3TS
-sequence container is not ported yet.
+sequence container (``write_sequence`` / ``SequenceReader``) indexes a
+run of such frames in one file.
 """
 
 from __future__ import annotations
@@ -371,3 +372,76 @@ class FrameStream:
             predict=predict,
             predict_mask=predict_mask,
         )
+
+
+# -- sequence container -------------------------------------------------------
+
+SEQ_MAGIC = b"R3TS"
+SEQ_VERSION = 1
+
+
+def write_sequence(path, streams) -> int:
+    """Write frames as an indexed ``R3TS`` sequence file.
+
+    Layout: ``'R3TS' | u8 version | u8+u16 reserved | u32 n_frames |
+    u64 offsets[n_frames+1] | frame blobs``: the offset table up front gives
+    O(1) random access to any frame. Each blob is a complete frame container
+    (``FrameStream`` objects or raw bytes, such as a tiled frame's). Returns
+    the total bytes written."""
+    blobs = [s if isinstance(s, (bytes, bytearray)) else s.to_bytes() for s in streams]
+    n = len(blobs)
+    offsets = [12 + 8 * (n + 1)]
+    for b in blobs:
+        offsets.append(offsets[-1] + len(b))
+    with open(path, "wb") as f:
+        f.write(struct.pack("<4sBBHI", SEQ_MAGIC, SEQ_VERSION, 0, 0, n))
+        f.write(struct.pack(f"<{n + 1}Q", *offsets))
+        for b in blobs:
+            f.write(b)
+    return offsets[-1]
+
+
+class SequenceReader:
+    """Random-access reader over an ``R3TS`` sequence: the index is read
+    once, each frame is one seek and read of its own slice."""
+
+    def __init__(self, path):
+        self._path = path
+        with open(path, "rb") as f:
+            head = f.read(12)
+            if len(head) < 12:
+                raise ValueError(f"truncated sequence: {len(head)} bytes, header needs 12")
+            magic, version, _, _, n = struct.unpack("<4sBBHI", head)
+            if magic != SEQ_MAGIC:
+                raise ValueError(f"bad sequence magic {magic!r}")
+            if version != SEQ_VERSION:
+                raise ValueError(f"unsupported sequence version {version}")
+            table = f.read(8 * (n + 1))
+            if len(table) < 8 * (n + 1):
+                raise ValueError("truncated sequence: offset table cut off")
+            self._offsets = struct.unpack(f"<{n + 1}Q", table)
+            if any(self._offsets[i + 1] < self._offsets[i] for i in range(n)):
+                raise ValueError("corrupt sequence: offset table not nondecreasing")
+            f.seek(0, 2)
+            if f.tell() < self._offsets[-1]:
+                raise ValueError(
+                    f"truncated sequence: frames need {self._offsets[-1]} "
+                    f"bytes, file has {f.tell()}"
+                )
+
+    def __len__(self) -> int:
+        return len(self._offsets) - 1
+
+    def frame_bytes(self, i: int) -> bytes:
+        if not 0 <= i < len(self):
+            raise IndexError(f"frame {i} out of range [0, {len(self)})")
+        with open(self._path, "rb") as f:
+            f.seek(self._offsets[i])
+            return f.read(self._offsets[i + 1] - self._offsets[i])
+
+    def frame(self, i: int) -> FrameStream:
+        return FrameStream.from_bytes(self.frame_bytes(i))
+
+    def __iter__(self):
+        for i in range(len(self)):
+            yield self.frame(i)

@@ -10,7 +10,8 @@ Layouts: sequential streams (one adaptive automaton per channel) and the
 chunked layout ``u32 chunk | u32 n_chunks | u32 len[i]... | payloads`` of
 self-contained chunks. An int32 C-contiguous (D, N) channel matrix goes
 through one native batch call (C++ thread pool); other inputs are coded
-stream by stream, with the same bytes.
+stream by stream, with the same bytes. ``MemBuf`` is the reference
+bindings' ``rlgr.membuf`` interface over these coders.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from raht3dgs_tpu_torch.codec import _rlgr_py
 from raht3dgs_tpu_torch.codec._native import NativeLib, gxx_command
 
 _SRC = os.path.join(
@@ -356,3 +358,45 @@ def rlgr_decode_channels(streams: List[bytes], n: int, signed: bool = True,
         else:
             rlgr_decode(streams[d], n, signed, out=out[d])
     return out, time.perf_counter_ns() - t0
+
+
+class MemBuf:
+    """The reference bindings' ``rlgr.membuf`` interface: a write-mode
+    constructor, a read-mode constructor from a byte buffer,
+    ``rlgrWrite``/``rlgrRead`` returning (ns, ...), single Golomb-Rice
+    codewords (``grWrite``/``grRead``, through the plain coder),
+    ``get_buffer``, ``buffer_size`` and ``close``."""
+
+    def __init__(self, buffer: Optional[bytes] = None):
+        self._read_buf = bytes(buffer) if buffer is not None else None
+        self._write_buf: Optional[bytes] = None
+
+    def rlgrWrite(self, values: List[int], flagSigned: int = 1) -> int:
+        data, ns = rlgr_encode(np.asarray(values, dtype=np.int64), bool(flagSigned))
+        self._write_buf = data
+        return ns
+
+    def rlgrRead(self, n: int, flagSigned: int = 1) -> Tuple[int, List[int]]:
+        assert self._read_buf is not None, "MemBuf not opened for reading"
+        out, ns = rlgr_decode(self._read_buf, n, bool(flagSigned))
+        return ns, out.tolist()
+
+    def grWrite(self, value: int, k: int) -> None:
+        sink = _rlgr_py._Sink()
+        _rlgr_py._gr_put(sink, int(value), int(k))
+        self._write_buf = sink.finish()
+
+    def grRead(self, k: int) -> int:
+        assert self._read_buf is not None, "MemBuf not opened for reading"
+        return _rlgr_py._gr_get(_rlgr_py._Source(self._read_buf), int(k))
+
+    def get_buffer(self) -> bytes:
+        assert self._write_buf is not None
+        return self._write_buf
+
+    def buffer_size(self) -> int:
+        buf = self._write_buf if self._write_buf is not None else self._read_buf
+        return 0 if buf is None else len(buf)
+
+    def close(self) -> None:
+        pass

@@ -10,7 +10,8 @@ span inverse RAHT.
 Covered: ``impl="span"``, quantizers ``mid`` and ``deadzone``, orders
 ``ragft``, ``weight_desc`` and ``morton``, float32 and float64, and the
 pipelined step sweep ``encode_sweep`` (pinned host buffers filled by a
-fetch thread while the host entropy-codes the step before), with the
+fetch thread while the host entropy-codes the step before), the
+level-of-detail decode ``decode_lod``, with the
 entropy coders ``rlgr``, ``rac`` and ``auto``, and inter-depth predicted
 RAHT (``predict=True``: the device encoder ``ops/praht_device.py`` on the
 card, the frozen host closed loop ``ops/praht.py`` on the CPU or when
@@ -53,6 +54,7 @@ from raht3dgs_tpu_torch.codec.rlgr import (
 )
 from raht3dgs_tpu_torch.ops.morton import code_dtype, morton_encode, pad_code
 from raht3dgs_tpu_torch.ops.praht import (
+    _decode_axes_np,
     praht_decode,
     praht_encode,
     praht_plan,
@@ -752,12 +754,13 @@ class AttributeCodec:
         return attrs.cpu().numpy()[:nvox], timer
 
     def _praht_decode(self, stream: FrameStream, codes, weights, k: int,
-                      timer: StageTimer):
+                      timer: StageTimer, lod_depth: Optional[int] = None):
         """Host decode of a predicted-RAHT stream (flag-driven: any codec
         decodes one; the loop replays the encoder's recorded dtype). Symbols
         past the ``k``-prefix stay zero residuals, so a cut stream
-        reconstructs as the prediction cascade. Codes and weights cross to
-        the host once; the plan comes from the per-frame cache."""
+        reconstructs as the prediction cascade; ``lod_depth`` stops the
+        descent there (``praht_decode``). Codes and weights cross to the
+        host once; the plan comes from the per-frame cache."""
         if stream.order_mode != "ragft":
             raise ValueError(
                 "corrupt stream: predicted transform requires the RA-GFT "
@@ -777,9 +780,80 @@ class AttributeCodec:
                 stream.steps if stream.steps.shape[0] > 1 else stream.steps[0],
                 predict_mask=stream.predict_mask, quant_mode=stream.quant_mode,
                 quant_f=stream.quant_f, rec_delta=stream.rec_delta, fdtype=fdtype,
-                plan=plan)
+                lod_depth=lod_depth, plan=plan)
 
         return timer.time("iRAHT_time", _run), timer
+
+    def decode_lod(self, stream: FrameStream, codes, weights, lod_depth: int,
+                   timer: Optional[StageTimer] = None
+                   ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Level-of-detail decode: the frame at octree depth ``lod_depth``.
+
+        Decodes exactly the stream prefix holding the coefficients above the
+        level-``lod_depth`` cells (:func:`lod_prefix_count`: in the RA-GFT
+        order that cut is a prefix), reconstructs, and collapses each cell to
+        one row, sampled at its first leaf (for unit leaf weights the
+        truncated reconstruction is constant over a cell and equals its mean
+        attributes). A predicted stream's host loop stops at the cut depth
+        and yields the cell means directly.
+
+        Returns ``(positions_int (M, 3) at depth lod_depth, attrs (M, D),
+        cell_weights (M,))``."""
+        if stream.order_mode != "ragft":
+            raise ValueError(
+                "decode_lod needs the RA-GFT coefficient order (stream has "
+                f"{stream.order_mode!r}) — only there is a depth cut a "
+                "stream prefix")
+        timer = timer or StageTimer()
+        codes = self._on_device(codes)
+        weights = self._on_device(weights)
+        nvox = stream.n_voxels
+        codes_np = codes.cpu().numpy()[:nvox]
+        k = lod_prefix_count(codes_np, self.depth, lod_depth)
+        if stream.predict:
+            if nvox > codes.shape[0]:
+                raise ValueError(
+                    f"stream encodes {nvox} voxels but the provided positions "
+                    f"only cover {codes.shape[0]} padded slots — positions do "
+                    "not match this stream")
+            (cell_codes, means, cell_w), timer = self._praht_decode(
+                stream, codes, weights, k, timer, lod_depth=lod_depth)
+            return _decode_axes_np(cell_codes, lod_depth), means, cell_w
+        rec, timer = self.decode_progressive(stream, codes, weights, k, timer=timer)
+        shift = 3 * (self.depth - lod_depth)
+        coarse = codes_np.astype(np.int64) >> shift
+        firsts = np.concatenate([[True], coarse[1:] != coarse[:-1]])
+        idx = np.nonzero(firsts)[0]
+        cell_w = np.add.reduceat(weights.cpu().numpy()[:nvox].astype(np.float64), idx)
+        return _decode_axes_np(coarse[idx], lod_depth), rec[idx], cell_w
+
+
+def _msb_np(x: np.ndarray) -> np.ndarray:
+    """Index of the most significant set bit of each ``x > 0``."""
+    x = x.astype(np.uint64)
+    b = np.zeros(x.shape, np.int32)
+    for s in (32, 16, 8, 4, 2, 1):
+        big = x >= (np.uint64(1) << np.uint64(s))
+        b += big.astype(np.int32) * s
+        x = np.where(big, x >> np.uint64(s), x)
+    return b
+
+
+def lod_prefix_count(codes_np: np.ndarray, depth: int, lod_depth: int) -> int:
+    """Stream symbols covering an LOD cut at octree depth ``lod_depth``.
+
+    The RA-GFT order groups detail coefficients by octree depth, coarsest
+    first, so the DC plus every detail of a merge above the level-``L``
+    cells (merge bit level > 3*(depth-L)) is a stream prefix. ``codes_np``
+    are the frame's real (unpadded) sorted unique Morton codes."""
+    if not 1 <= lod_depth <= depth:
+        raise ValueError(f"lod_depth must be in [1, {depth}], got {lod_depth}")
+    codes_np = np.asarray(codes_np)
+    if len(codes_np) <= 1:
+        return 1
+    drop = _msb_np(codes_np[1:] ^ codes_np[:-1]) + 1  # merge level of each detail
+    group = -(-drop // 3)
+    return 1 + int(np.sum(group >= depth - lod_depth + 1))
 
 
 def progressive_prefix_bytes(stream: FrameStream, n_coeffs: int) -> int:

@@ -519,34 +519,117 @@ def test_cli_decode_geometry_refusals_match_jax(tmp_path, auto_geometry_dir, no_
     for cli in (tdec, jdec):
         with pytest.raises(SystemExit, match=match[case]):
             cli.main(["--stream", str(path)] + argv)
-    if case == "temporal_geometry":
-        with pytest.raises(SystemExit, match="item 15"):
-            tdec.main(["--stream", str(path)] + argv)
+
+
+def _gs_stream(tmp_path):
+    """A 56-channel float64 stream at J=5 and its compressed-3DGS positions
+    PLY (integer voxel coordinates, voxel size and vmin in the header)."""
+    from raht3dgs_tpu_torch.io.ply import save_ply_3dgs
+
+    rng = np.random.default_rng(4)
+    pts, _, _ = unique_voxel_cloud(rng, 300, 5)
+    A = np.concatenate([rng.normal(0, 1, (len(pts), 4)), rng.uniform(0.01, 0.2, (len(pts), 3)),
+                        rng.uniform(0.1, 0.9, (len(pts), 1)),
+                        rng.normal(0, 0.5, (len(pts), 48))], axis=1)
+    frame = tp.prepare_voxel_frame(pts, A, 5, bucket=512, device="cpu")
+    stream = tp.AttributeCodec(5, device="cpu").encode(frame, 0.05).stream
+    (tmp_path / "gs.r3tc").write_bytes(stream.to_bytes())
+    save_ply_3dgs(tmp_path / "gs_pos.ply", means=pts.astype(float), quats=A[:, :4],
+                  scales=A[:, 4:7], opacities=A[:, 7], colors=A[:, 8:], voxel_size=0.01,
+                  vmin=np.array([0.5, -1.0, 2.0]))
+    return tmp_path / "gs.r3tc", tmp_path / "gs_pos.ply"
+
+
+def _geometry_sequence(auto_geometry_dir, tmp_path):
+    """An all-intra R3TS of three self-contained streams (the port's
+    --code-geometry streams of one frame at steps 2, 8 and 2)."""
+    from raht3dgs_tpu_torch.codec.bitstream import write_sequence
+
+    t = auto_geometry_dir / "t"
+    blobs = [(t / f"frame0001_step{s}.r3tc").read_bytes() for s in (2, 8, 2)]
+    write_sequence(tmp_path / "s.r3ts", blobs)
+    return tmp_path / "s.r3ts"
+
+
+def _same_3dgs(a, b):
+    from raht3dgs_tpu_torch.io.ply import read_compressed_3dgs_ply
+
+    Va, Aa, sa, va = read_compressed_3dgs_ply(a)
+    Vb, Ab, sb, vb = read_compressed_3dgs_ply(b)
+    return (np.array_equal(Va, Vb) and sa == sb and np.array_equal(va, vb)
+            and float(np.abs(Aa - Ab).max()) <= 1e-6 * max(1.0, float(np.abs(Ab).max())))
 
 
 @pytest.mark.parametrize("cli,extra,item", [
     (tenc, ["--tiles", "3"], 15),
     (tenc, ["--tiles", "3", "--target-bpp", "1.0"], 15),   # --tiles is checked first
-    (tdec, ["--lod", "3"], 15),
+    (tdec, ["--lod", "3"], None),
     (tdec, ["--roi", "0", "0", "0", "4", "4", "4"], 15),
-    (tdec, ["--all-frames"], 15),
-    (tdec, ["--frame-index", "2"], 15),
-    (tdec, ["--color-space", "3dgs", "--lod", "2"], 15),
+    (tdec, ["--all-frames"], None),
+    (tdec, ["--frame-index", "2"], None),
+    (tdec, ["--color-space", "3dgs", "--lod", "2"], None),
 ])
-def test_cli_unported_options_exit_naming_their_item(tmp_path, cli, extra, item):
-    if cli is tenc:
-        argv = ["--input", "x.ply", "--platform", "cpu"] + extra
+def test_cli_unported_options_exit_naming_their_item(tmp_path, auto_geometry_dir, no_jax_cache,
+                                                     cli, extra, item):
+    """The options still to come exit naming their ROADMAP item; those
+    ported since (item None) write the JAX decode CLI's output: ``--lod``
+    on a colour stream and on a 3DGS one, ``--all-frames`` and
+    ``--frame-index`` on a sequence of self-contained streams."""
+    if item is not None:
+        if cli is tenc:
+            argv = ["--input", "x.ply", "--platform", "cpu"] + extra
+        else:
+            argv = ["--stream", "x.r3tc", "--output", str(tmp_path / "o.ply"),
+                    "--platform", "cpu", "--positions", "p.ply"] + extra
+        with pytest.raises(SystemExit, match=f"item {item}"):
+            cli.main(argv)
+        return
+    if "--color-space" in extra:
+        stream, pos = _gs_stream(tmp_path)
+        src = ["--stream", str(stream), "--positions", str(pos)]
+    elif "--lod" in extra:
+        src = ["--stream", str(auto_geometry_dir / "t" / "frame0001_step8.r3tc")]
     else:
-        argv = ["--stream", "x.r3tc", "--output", str(tmp_path / "o.ply"),
-                "--platform", "cpu", "--positions", "p.ply"] + extra
-    with pytest.raises(SystemExit, match=f"item {item}"):
-        cli.main(argv)
+        src = ["--stream", str(_geometry_sequence(auto_geometry_dir, tmp_path))]
+    for name, dec in (("j", jdec), ("t", tdec)):
+        out = tmp_path / name / ("o_{i}.ply" if "--all-frames" in extra else "o.ply")
+        assert dec.main(src + ["--output", str(out), "--platform", "cpu", "--bucket", "512"]
+                        + extra) == 0
+    outs = sorted(p.name for p in (tmp_path / "t").iterdir())
+    assert outs == sorted(p.name for p in (tmp_path / "j").iterdir())
+    assert len(outs) == {"--all-frames": 3}.get(extra[0], 1 + ("--lod" in extra))
+    for name in outs:
+        got, want = tmp_path / "t" / name, tmp_path / "j" / name
+        if name.endswith(".npy"):
+            assert np.array_equal(np.load(got), np.load(want))
+        elif "--color-space" in extra:
+            assert _same_3dgs(got, want)
+        else:
+            assert got.read_bytes() == want.read_bytes()
 
 
-@pytest.mark.parametrize("magic,item", [(b"R3TS", 15), (b"R3TT", 15)])
-def test_cli_decode_containers_not_ported(tmp_path, magic, item):
-    path = tmp_path / "s.bin"
-    path.write_bytes(magic + b"\0" * 60)
-    with pytest.raises(SystemExit, match=f"item {item}"):
-        tdec.main(["--stream", str(path), "--positions", "p.ply",
-                   "--output", str(tmp_path / "o.ply"), "--platform", "cpu"])
+@pytest.mark.parametrize("magic,item", [(b"R3TS", None), (b"R3TT", 15)])
+def test_cli_decode_containers_not_ported(tmp_path, auto_geometry_dir, no_jax_cache, magic,
+                                          item):
+    """R3TT input exits naming its item; an R3TS sequence (ported since)
+    decodes its frame 0 as the JAX decode CLI does, with positions given."""
+    if item is not None:
+        path = tmp_path / "s.bin"
+        path.write_bytes(magic + b"\0" * 60)
+        with pytest.raises(SystemExit, match=f"item {item}"):
+            tdec.main(["--stream", str(path), "--positions", "p.ply",
+                       "--output", str(tmp_path / "o.ply"), "--platform", "cpu"])
+        return
+    from raht3dgs_tpu_torch.codec.geometry import positions_from_geometry
+    from raht3dgs_tpu_torch.io.ply import save_ply_ascii
+
+    seq = _geometry_sequence(auto_geometry_dir, tmp_path)
+    s = tp.FrameStream.from_bytes((auto_geometry_dir / "t" / "frame0001_step2.r3tc")
+                                  .read_bytes())
+    V = positions_from_geometry(s.geometry, 6, s.n_voxels, device="cpu")
+    save_ply_ascii(tmp_path / "p.ply", V[::-1].astype(float), width=63)
+    for name, dec in (("j", jdec), ("t", tdec)):
+        assert dec.main(["--stream", str(seq), "--positions", str(tmp_path / "p.ply"),
+                         "--output", str(tmp_path / f"{name}.ply"), "--platform", "cpu",
+                         "--bucket", "512"]) == 0
+    assert (tmp_path / "t.ply").read_bytes() == (tmp_path / "j.ply").read_bytes()
