@@ -165,7 +165,25 @@ Phases, each printed on its own line, any failure exits nonzero:
    ``--target-bpp --inter`` on 4 frames (every frame within budget); the
    scan launches read around each path and held to PERF.md's counts.
    Every scan row also times ``torch.cumsum`` in float64 on the transposed
-   (K, N) layout, with and without the transpose's copy.
+   (K, N) layout, with and without the transpose's copy;
+14. tiled frames and serving: ``encode_3dgs --tiles 3 --code-geometry``
+   on phase 7's merge (step 1, 24 bricks), ``decode --color-space 3dgs`` in
+   full (bitwise the per-tile ``AttributeCodec.decode`` it is made of) and
+   with ``--roi`` (bitwise the full decode clipped to the box), the merge
+   tiled at brick depth 2 in process, bytes against the monolithic stream;
+   ``encode_ply --voxelize --tiles 2`` on phase 6's raw cloud and
+   ``encode_dataset --tiles 2 --save-sequence`` on 4 of phase 8's frames,
+   ``decode --all-frames`` and ``decode --frame-index 2 --roi`` (equal to
+   frame 2 clipped); serving at 4 views of 512x512 on the phase 9 orbit:
+   ``serve_tiled_frame`` (culled, then an ROI's bricks), ``serve_frame``,
+   ``serve_frame_predicted`` (on phase 11's stream; the device loop within
+   1e-4 of the host decode) and ``serve_sequence`` (the merge shifted a
+   voxel a frame, I P P P), each against the render of the normative decode,
+   timed with CUDA events, with the rasterizer's counts and peak memory;
+   ``cli.serve --u8`` on the three containers (PNGs read back by the
+   phase's own decoder, the JSON line); the upload tiers on the served
+   frame and a P-frame residual against an int32 upload. The scan launches
+   are read around each path.
 
 Needs one CUDA card; imports nothing of JAX or of the JAX package.
 """
@@ -2772,6 +2790,473 @@ def phase_sequence(torch, ds, data, keep):
     return out
 
 
+TILE_GS_STEP = 1.0         # phase 14: the one step of the tiled and served 3DGS frames (the finest)
+TILE_GS_DEPTH = 3          # phase 14 (a): encode_3dgs --tiles 3 (24 bricks of phase 7's merge)
+TILE_COLOUR_DEPTH = 2      # phase 14 (b): encode_ply / encode_dataset --tiles 2
+TILE_FRAMES = 4            # phase 14 (b): phase 8's frames in the tiled sequence
+GS_ROI = ((800, 100, 400), (1000, 300, 600))      # phase 14: a part of the third shell
+DATA_ROI = ((400, 600, 400), (560, 900, 560))     # phase 14 (b): a part of frame 2's third shell
+SERVE_VIEWS = 4            # phase 14 (c): the serving CLI's defaults
+SERVE_SIZE = 512
+SERVE_TOL = 1e-4           # served images against the render of the normative decode
+SERVE_SEQ_TOL = 2e-4       # serve_sequence against decode_sequence's render (JAX's pin)
+SERVE_SEQ_FRAMES = 4       # phase 14 (c): I P P P
+SERVE_REPS = 3             # CUDA-event repeats of each serving call (after one warm call)
+
+
+def read_png(path):
+    """(H, W, 3) uint8 pixels of an 8-bit RGB PNG with unfiltered rows, the
+    files ``io/png.py`` writes: its own decoder, so the check does not lean
+    on the writer."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    data = open(path, "rb").read()
+    check(data[:8] == b"\x89PNG\r\n\x1a\n", f"{path}: not a PNG")
+    pos, idat, hdr = 8, b"", None
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        check(zlib.crc32(tag + body) & 0xFFFFFFFF
+              == struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])[0], f"{path}: bad CRC")
+        if tag == b"IHDR":
+            hdr = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    w, h, bits, colour = hdr[:4]
+    check(bits == 8 and colour == 2, f"{path}: not 8-bit RGB")
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    check(not rows[:, 0].any(), f"{path}: a filtered row")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def phase_serving(torch, ds, keep):
+    """Phase 14: tiled frames and serving. (a) ``encode_3dgs --tiles 3
+    --code-geometry`` on phase 7's merge, ``decode --color-space 3dgs`` in
+    full (bitwise the per-tile ``AttributeCodec.decode``) and with ``--roi``
+    (bitwise the full decode clipped), and the merge tiled at brick depth 2
+    in process; (b) ``encode_ply --voxelize --tiles 2`` on phase 6's raw
+    cloud, ``encode_dataset --tiles 2 --save-sequence`` on 4 of phase 8's
+    frames, ``decode --all-frames`` and ``decode --frame-index 2 --roi``;
+    (c) serving at 4 views of 512x512 on the phase 9 orbit:
+    ``serve_tiled_frame`` (culled, then an ROI's bricks), ``serve_frame``,
+    ``serve_frame_predicted`` and ``serve_sequence``, each against the
+    render of the normative decode, and ``cli.serve --u8`` on the three
+    containers; (d) the upload tiers on the served frame's symbols and on a
+    P-frame residual. The scan launches are read around each path."""
+    import contextlib
+    import csv
+    import io
+    import os
+
+    import numpy as np
+
+    from raht3dgs_tpu_torch.cli import decode, encode_3dgs, encode_dataset, encode_ply, serve
+    from raht3dgs_tpu_torch.codec.bitstream import FrameStream, SequenceReader, write_sequence
+    from raht3dgs_tpu_torch.codec.geometry import geometry_from_positions
+    from raht3dgs_tpu_torch.eval import rasterize
+    from raht3dgs_tpu_torch.io.ply import read_compressed_3dgs_ply, read_ply_8i
+    from raht3dgs_tpu_torch.models import pipeline as tp, serving as sv, tiling as tl
+    from raht3dgs_tpu_torch.models.temporal import SequenceCodec
+    from raht3dgs_tpu_torch.utils.synth import morton_codes_np
+
+    t_phase = time.perf_counter()
+    out = {}
+    paths = ("tiled_encode_3dgs", "tiled_decode_3dgs", "tiled_decode_roi", "tiled_bd2",
+             "tiled_encode_ply", "tiled_dataset", "tiled_dataset_decode", "serve_tiled",
+             "serve_tiled_roi", "serve_frame", "serve_frame_predicted", "serve_sequence",
+             "serve_cli_r3tc", "serve_cli_r3tt", "serve_cli_r3ts")
+    launches = {p: {name: 0 for name in ds.LAUNCHES} for p in paths}
+
+    def counted(path, fn, *args):
+        return run_counted(torch, ds, launches[path], fn, *args)
+
+    def scan_counts(path, cumsum, cumsum_t):
+        want = {"ds_cumsum": cumsum, "ds_cumsum_t": cumsum_t, "ds_cumsum_batched": 0}
+        check(launches[path] == want, f"{path}: scan launches {launches[path]}, want {want}")
+
+    def in_box(V, box):
+        return np.all((V >= np.asarray(box[0])) & (V < np.asarray(box[1])), axis=1)
+
+    def gs_normalized(A):
+        """decode --color-space 3dgs's writer convention, in the decode's
+        float32 as the writer computes it."""
+        A = A.copy()
+        q = A[:, :4]
+        nq = np.linalg.norm(q, axis=1, keepdims=True)
+        A[:, :4] = np.where(nq > 1e-8, q / np.maximum(nq, 1e-8), np.array([[1.0, 0, 0, 0]]))
+        A[:, 4:7] = np.abs(A[:, 4:7])
+        A[:, 7] = np.clip(A[:, 7], 0.0, 1.0)
+        return A.astype(np.float32)
+
+    step = TILE_GS_STEP
+    comp = os.path.join(keep, "gs_vox.ply")
+    Vg, Ag, vsize, vmin = read_compressed_3dgs_ply(comp)
+    check(len(Vg) == GS_NVOX, f"3DGS merge has {len(Vg)} voxels")
+    width = vsize * (1 << DEPTH)
+
+    # (a) encode_3dgs --tiles 3 --code-geometry, decode in full and --roi
+    tdir = os.path.join(keep, "tiled")
+    rc, enc_s, _ = counted("tiled_encode_3dgs", encode_3dgs.main, [
+        "--input", comp, "--depth", str(DEPTH), "--dtype", "float32", "--bucket", str(BUCKET),
+        "--steps", f"{step:g}", "--tiles", str(TILE_GS_DEPTH), "--code-geometry",
+        "--save-streams", tdir, "--csv", os.path.join(keep, "tiled.csv")])
+    check(rc == 0, "encode_3dgs --tiles failed")
+    r3tt = os.path.join(tdir, f"gs_tiled{TILE_GS_DEPTH}_step{step:g}.r3tt")
+    blob = open(r3tt, "rb").read()
+    reader = tl.TiledReader(blob)
+    n_tiles = len(reader)
+    check(reader.version == tl.TILE_VERSION and reader.n_voxels == GS_NVOX
+          and reader.geometry is not None and reader.meta.dtype32,
+          "the .r3tt does not read back as a v2 frame with its geometry")
+    scan_counts("tiled_encode_3dgs", n_tiles, 2 * n_tiles)   # encode + the CLI's decode
+    full_ply = os.path.join(keep, "tiled_full.ply")
+    rc, dec_s, _ = counted("tiled_decode_3dgs", decode.main, [
+        "--stream", r3tt, "--output", full_ply, "--color-space", "3dgs", "--dtype", "float32",
+        "--bucket", str(BUCKET)])
+    check(rc == 0, "decode of the .r3tt failed")
+    scan_counts("tiled_decode_3dgs", 0, 2 * n_tiles)
+    Vf, Af, vs_f, vmin_f = read_compressed_3dgs_ply(full_ply)
+    # the per-tile decodes the frame is made of, in process
+    codec = tp.AttributeCodec(DEPTH, dtype=torch.float32)
+    by_brick = tl.positions_by_brick(Vg, DEPTH, TILE_GS_DEPTH)
+    parts_V, parts_A = [], []
+    for i in range(n_tiles):
+        Vt = by_brick[int(reader.keys[i])]
+        frame = tp.prepare_voxel_frame(Vt, np.zeros((len(Vt), 56)), DEPTH, dtype=torch.float32)
+        rec, _ = codec.decode(reader.tile(i), frame.codes, frame.weights)
+        parts_V.append(Vt)
+        parts_A.append(rec)
+    Vp, Ap = np.concatenate(parts_V), np.concatenate(parts_A)
+    check(np.array_equal(Vf, Vp.astype(Vf.dtype)) and np.array_equal(Af, gs_normalized(Ap))
+          and vs_f == vsize and np.allclose(vmin_f, vmin),
+          "the tiled decode differs from its per-tile AttributeCodec.decode")
+    roi_ply = os.path.join(keep, "tiled_roi.ply")
+    rc, roi_s, _ = counted("tiled_decode_roi", decode.main, [
+        "--stream", r3tt, "--output", roi_ply, "--color-space", "3dgs", "--dtype", "float32",
+        "--bucket", str(BUCKET), "--roi", *[str(c) for c in GS_ROI[0] + GS_ROI[1]]])
+    check(rc == 0, "decode --roi of the .r3tt failed")
+    roi_sel = reader.select_roi(*GS_ROI)
+    Vr, Ar, _, _ = read_compressed_3dgs_ply(roi_ply)
+    keep_rows = in_box(Vf, GS_ROI)
+    check(0 < len(roi_sel) < n_tiles and len(Vr) > 0 and np.array_equal(Vr, Vf[keep_rows])
+          and np.array_equal(Ar, Af[keep_rows]),
+          "decode --roi differs from the full decode clipped to the box")
+    scan_counts("tiled_decode_roi", 0, 2 * len(roi_sel))
+    roi_bytes = reader.fixed_bytes + sum(len(reader.tile_bytes(i)) for i in roi_sel)
+    # the same merge at brick depth 2, in process, and the monolithic stream
+    mdir = os.path.join(keep, "mono")
+    with contextlib.redirect_stdout(io.StringIO()):
+        check(encode_3dgs.main(["--input", comp, "--depth", str(DEPTH), "--dtype", "float32",
+                                "--bucket", str(BUCKET), "--steps", f"{step:g}",
+                                "--code-geometry", "--save-streams", mdir, "--csv",
+                                os.path.join(keep, "mono.csv")]) == 0,
+              "encode_3dgs (monolithic) failed")
+    mono_path = os.path.join(mdir, f"gs_step{step:g}.r3tc")
+    mono = FrameStream.from_bytes(open(mono_path, "rb").read())
+    (blob2, stats2), enc2_s, _ = counted("tiled_bd2", lambda: tl.encode_tiled_frame(
+        Vg, Ag, DEPTH, 2, codec, step, code_geometry=True, vmin=vmin, width=width))
+    (V2, A2), dec2_s, _ = counted("tiled_bd2", lambda: tl.decode_tiled_frame(blob2,
+                                                                              codec=codec))
+    check(np.array_equal(V2, Vf.astype(V2.dtype)) and len(A2) == GS_NVOX
+          and np.isfinite(A2).all(), "brick depth 2: decode")
+    scan_counts("tiled_bd2", len(stats2), 2 * len(stats2))
+    with open(os.path.join(keep, "tiled.csv")) as f:
+        trow = list(csv.DictReader(f))[0]
+    out["tiled_3dgs"] = {
+        "brick_depth": TILE_GS_DEPTH, "tiles": n_tiles, "bytes": len(blob),
+        "mono_bytes_same_step": len(mono.to_bytes()), "fixed_bytes": reader.fixed_bytes,
+        "over_mono": len(blob) / len(mono.to_bytes()), "encode_cli_s": enc_s,
+        "decode_cli_s": dec_s, "psnr_all": float(trow["PSNR_all"]),
+        "roi_tiles": len(roi_sel), "roi_voxels": int(keep_rows.sum()),
+        "roi_bytes": roi_bytes, "roi_share_of_blob": roi_bytes / len(blob),
+        "roi_decode_cli_s": roi_s, "bd2_tiles": len(stats2), "bd2_bytes": len(blob2),
+        "bd2_encode_s": enc2_s, "bd2_decode_s": dec2_s}
+    say("tiled_3dgs", **out["tiled_3dgs"])
+    del parts_V, parts_A, Ap, A2, Ar
+
+    # (b) tiled colour: encode_ply --voxelize --tiles 2, the tiled sequence
+    raw = os.path.join(keep, "raw.ply")
+    cdir = os.path.join(keep, "tiled_colour")
+    rc, cenc_s, _ = counted("tiled_encode_ply", encode_ply.main, [
+        "--input", raw, "--voxelize", "--depth", str(DEPTH), "--dtype", "float32",
+        "--steps", f"{STEP:g}", "--tiles", str(TILE_COLOUR_DEPTH), "--save-streams", cdir,
+        "--code-geometry", "--csv", os.path.join(keep, "tiled_colour.csv")])
+    check(rc == 0, "encode_ply --tiles failed")
+    creader = tl.TiledReader(open(os.path.join(cdir, f"raw_tiled{TILE_COLOUR_DEPTH}.r3tt"),
+                                  "rb").read())
+    with open(os.path.join(keep, "tiled_colour.csv")) as f:
+        crow = list(csv.DictReader(f))[0]
+    check(np.isfinite(float(crow["psnr"])), "encode_ply --tiles: PSNR")
+    scan_counts("tiled_encode_ply", len(creader), 2 * len(creader))
+    root = os.path.join(keep, "dataset")
+    seq = os.path.join(keep, "tiled.r3ts")
+    rc, denc_s, _ = counted("tiled_dataset", encode_dataset.main, [
+        "--dataset", "8iVFBv2", "--sequence", "loot", "--data-root", root, "--frames", "1",
+        str(TILE_FRAMES), "--dtype", "float32", "--steps", f"{STEP:g}", "--tiles",
+        str(TILE_COLOUR_DEPTH), "--save-sequence", seq, "--csv",
+        os.path.join(keep, "tiled_seq.csv")])
+    check(rc == 0, "encode_dataset --tiles failed")
+    sreader = SequenceReader(seq)
+    frame_tiles = [len(tl.TiledReader(sreader.frame_bytes(i))) for i in range(len(sreader))]
+    check(len(sreader) == TILE_FRAMES, f"tiled sequence of {len(sreader)} frames")
+    scan_counts("tiled_dataset", sum(frame_tiles), 2 * sum(frame_tiles))
+    all_out = os.path.join(keep, "tall_{i}.ply")
+    rc, dall_s, _ = counted("tiled_dataset_decode", decode.main, [
+        "--stream", seq, "--all-frames", "--output", all_out, "--dtype", "float32"])
+    check(rc == 0, "decode --all-frames of the tiled sequence failed")
+    one = os.path.join(keep, "troi2.ply")
+    rc, droi_s, _ = counted("tiled_dataset_decode", decode.main, [
+        "--stream", seq, "--frame-index", "2", "--output", one, "--dtype", "float32", "--roi",
+        *[str(c) for c in DATA_ROI[0] + DATA_ROI[1]]])
+    check(rc == 0, "decode --frame-index 2 --roi of the tiled sequence failed")
+    roi2 = tl.TiledReader(sreader.frame_bytes(2)).select_roi(*DATA_ROI)
+    scan_counts("tiled_dataset_decode", 0, 2 * (sum(frame_tiles) + len(roi2)))
+    Va, Ca, _ = read_ply_8i(all_out.format(i=2))
+    Vo, Co, _ = read_ply_8i(one)
+    k2 = in_box(Va, DATA_ROI)
+    check(k2.any() and np.array_equal(Vo, Va[k2]) and np.array_equal(Co, Ca[k2]),
+          "decode --frame-index 2 --roi differs from frame 2 of --all-frames clipped")
+    out["tiled_colour"] = {
+        "frame_tiles": len(creader), "frame_bytes": sum(len(creader.tile_bytes(i))
+                                                        for i in range(len(creader)))
+        + creader.fixed_bytes, "frame_bpp": float(crow["Rate_bpp"]),
+        "frame_psnr": float(crow["psnr"]), "encode_ply_s": cenc_s,
+        "sequence_tiles": frame_tiles, "sequence_bytes": os.path.getsize(seq),
+        "encode_dataset_s": denc_s, "all_frames_s": dall_s, "roi_frame2_s": droi_s,
+        "roi_frame2_voxels": int(k2.sum()), "roi_frame2_tiles": len(roi2)}
+    say("tiled_colour", **{k: json.dumps(v) if isinstance(v, list) else v
+                           for k, v in out["tiled_colour"].items()})
+
+    # (c) serving at 4 views of 512x512 on the phase 9 orbit
+    means = (Vg + 0.5) * vsize + vmin
+    vms, Kms, _, _ = scene_cameras(np, means, SERVE_VIEWS, SERVE_SIZE)
+    raster = dict(width=SERVE_SIZE, height=SERVE_SIZE, device=CARD)
+
+    def render_rows(V, A):
+        """The render of a normatively decoded scene (rows in Morton order)."""
+        codes = torch.as_tensor(morton_codes_np(np.asarray(V, np.int64), DEPTH), device=CARD)
+        scene = sv._scene_from_attrs(torch.as_tensor(A, device=CARD).float(), codes,
+                                     torch.ones(len(V), device=CARD), vsize, vmin, DEPTH)
+        return sv._render_scene_views(scene, vms, Kms, None, width=SERVE_SIZE,
+                                      height=SERVE_SIZE)[0]
+
+    def img_err(a, b):
+        return float((a.float() - b.float()).abs().max())
+
+    def timed(fn, n_views=SERVE_VIEWS):
+        """ms per call (CUDA events, warm), rasterizer counts and peak
+        memory of one call."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        rasterize.reset_counts()
+        fn()
+        torch.cuda.synchronize()
+        row = {"raster_counts": dict(rasterize.COUNTS),
+               "peak_mem_gib": (torch.cuda.max_memory_allocated() - base) / 2**30}
+        row["ms"] = cuda_ms(torch, fn, reps=SERVE_REPS, warm=0)
+        row["ms_per_view"] = row["ms"] / n_views
+        return row
+
+    served = {}
+    # serve_tiled_frame on (a)'s blob, culled with margin 0, then the ROI's bricks
+    (imgs, dups, tiles, sel), _, _ = counted("serve_tiled", lambda: sv.serve_tiled_frame(
+        reader, vms, Kms, **raster))
+    scan_counts("serve_tiled", 0, 2 * len(sel))
+    Vn, An = tl.decode_tiled_frame(reader, codec=codec)
+    brick_of = tl.brick_keys_np(morton_codes_np(Vn.astype(np.int64), DEPTH), DEPTH,
+                                TILE_GS_DEPTH)
+    rows_sel = np.isin(brick_of, reader.keys[sel])
+    ref = render_rows(Vn[rows_sel], An[rows_sel])
+    err = img_err(imgs, ref)
+    check(err <= SERVE_TOL and float(imgs.std()) > 1e-3,
+          f"serve_tiled_frame: {err} from the render of the tiled decode")
+    served["tiled"] = {"bricks_served": len(sel), "bricks_total": n_tiles, "max_err": err,
+                       "dup_clipped": int(dups.sum()), "tile_clipped": int(tiles.sum()),
+                       **timed(lambda: sv.serve_tiled_frame(reader, vms, Kms,
+                                                                     **raster))}
+    served["tiled"]["device_ms"], _, split = device_ms(
+        torch, lambda: sv.serve_tiled_frame(reader, vms, Kms, **raster), reps=1, warm=0)
+    served["tiled"]["device_top_kernels_us"] = dict(
+        sorted(split.items(), key=lambda kv: -kv[1])[:6])
+    (imgs_r, _, _, sel_r), _, _ = counted("serve_tiled_roi", lambda: sv.serve_tiled_frame(
+        reader, vms, Kms, **raster, bricks=roi_sel))
+    check(sel_r == roi_sel, "serve_tiled_frame(bricks=...) served another selection")
+    scan_counts("serve_tiled_roi", 0, 2 * len(roi_sel))
+    rows_roi = np.isin(brick_of, reader.keys[roi_sel])
+    err_r = img_err(imgs_r, render_rows(Vn[rows_roi], An[rows_roi]))
+    check(err_r <= SERVE_TOL, f"serve_tiled_frame(ROI bricks): {err_r}")
+    served["tiled_roi"] = {"bricks_served": len(roi_sel), "bricks_total": n_tiles,
+                           "max_err": err_r,
+                           **timed(lambda: sv.serve_tiled_frame(
+                               reader, vms, Kms, **raster, bricks=roi_sel))}
+    del Vn, An, ref
+
+    # serve_frame on the monolithic stream: host entropy decode, upload, serve
+    gframe = tp.prepare_voxel_frame(Vg, np.zeros((len(Vg), 56)), DEPTH, bucket=BUCKET,
+                                    dtype=torch.float32, device=CARD)
+    P = gframe.codes.shape[0]
+    vals_T = np.zeros((56, P), np.int32)
+    t0 = time.perf_counter()
+    tp.decode_entropy_channels(mono, mono.n_voxels, vals_T)
+    entropy_s = time.perf_counter() - t0
+    inv, _, _ = counted("serve_frame", lambda: sv.build_inverse_order(
+        gframe.codes, gframe.weights, mono.n_voxels, DEPTH, mono.order_mode))
+    up = sv.pack_quantized_upload(vals_T)
+    vals_dev = sv.upload_quantized(up, device=CARD)
+    fargs = (vals_dev, inv, np.asarray(mono.steps, np.float32), gframe.codes, gframe.weights,
+             float(mono.width) / (1 << DEPTH), np.asarray(mono.vmin), vms, Kms)
+    fkw = dict(depth=DEPTH, width=SERVE_SIZE, height=SERVE_SIZE, quant_mode=mono.quant_mode,
+               rec_delta=mono.rec_delta)
+    (imgs, dups, tiles), _, _ = counted("serve_frame", lambda: sv.serve_frame(*fargs, **fkw))
+    scan_counts("serve_frame", 0, 2)   # the inverse order's structure pass and the inverse
+    rec, _ = codec.decode(mono, gframe.codes, gframe.weights)
+    err = img_err(imgs, render_rows(Vf, rec))
+    check(err <= SERVE_TOL, f"serve_frame: {err} from the render of AttributeCodec.decode")
+    served["frame"] = {"max_err": err, "entropy_decode_s": entropy_s,
+                       "dup_clipped": int(dups.sum()), "tile_clipped": int(tiles.sum()),
+                       **timed(lambda: sv.serve_frame(*fargs, **fkw))}
+
+    # serve_frame_predicted on phase 11's predicted stream at the same step
+    pstream = FrameStream.from_bytes(open(os.path.join(keep, "gs_predict",
+                                                       f"gs_step{step:g}.r3tc"), "rb").read())
+    check(pstream.predict, "phase 11's stream is not predicted")
+    pvals = np.zeros((56, P), np.int32)
+    tp.decode_entropy_channels(pstream, pstream.n_voxels, pvals)
+    (pinv, plan), _, _ = counted("serve_frame_predicted", lambda: (
+        sv.build_inverse_order(gframe.codes, gframe.weights, pstream.n_voxels, DEPTH,
+                               pstream.order_mode),
+        sv._plan_of(gframe.codes, gframe.weights, DEPTH)))
+    pvals_dev = sv.upload_quantized(sv.pack_quantized_upload(pvals), device=CARD)
+    pargs = (pvals_dev, pinv, plan, pstream.predict_mask, np.asarray(pstream.steps, np.float32),
+             gframe.codes, gframe.weights, float(pstream.width) / (1 << DEPTH),
+             np.asarray(pstream.vmin), vms, Kms)
+    pkw = dict(depth=DEPTH, width=SERVE_SIZE, height=SERVE_SIZE,
+               quant_mode=pstream.quant_mode, rec_delta=pstream.rec_delta)
+    (imgs, dups, tiles), _, _ = counted("serve_frame_predicted",
+                                        lambda: sv.serve_frame_predicted(*pargs, **pkw))
+    scan_counts("serve_frame_predicted", 0, 2)   # the inverse order's and the plan's structure
+    pcodec = tp.AttributeCodec(DEPTH, dtype=torch.float32, predict=True)
+    t0 = time.perf_counter()
+    prec, _ = pcodec.decode(pstream, gframe.codes, gframe.weights)
+    host_s = time.perf_counter() - t0
+    sym = pvals_dev.to(torch.int32).T[pinv.long()]
+    dev_rec = sv.praht_device_decode(
+        plan, gframe.codes, gframe.weights, sym, int(pstream.predict_mask), DEPTH,
+        torch.as_tensor(np.asarray(pstream.steps, np.float32), device=CARD),
+        quant_mode=pstream.quant_mode, rec_delta=pstream.rec_delta,
+        fdtype=torch.float32)[:pstream.n_voxels].cpu().numpy()
+    over = np.abs(dev_rec - prec) - (1e-4 + 1e-4 * np.abs(prec))
+    rec_err = float(np.abs(dev_rec - prec).max())
+    check(float(over.max()) <= 0.0,
+          f"serve_frame_predicted: the device loop is {rec_err} from the host decode "
+          f"(atol = rtol = 1e-4 exceeded by {float(over.max())})")
+    err = img_err(imgs, render_rows(Vf, prec))
+    check(err <= SERVE_TOL, f"serve_frame_predicted: {err} from the render of the host decode")
+    served["frame_predicted"] = {
+        "max_err": err, "rec_max_abs_err": rec_err, "host_decode_s": host_s,
+        "dup_clipped": int(dups.sum()), "tile_clipped": int(tiles.sum()),
+        **timed(lambda: sv.serve_frame_predicted(*pargs, **pkw))}
+    del dev_rec, prec, rec
+
+    # serve_sequence: the merge shifted one voxel along x a frame, I P P P
+    sx = 1 if int(Vg[:, 0].max()) + SERVE_SEQ_FRAMES <= (1 << DEPTH) else -1
+    positions = [Vg + np.array([sx * i, 0, 0]) for i in range(SERVE_SEQ_FRAMES)]
+    frames = [tp.prepare_voxel_frame(p, Ag.astype(np.float64), DEPTH, bucket=BUCKET,
+                                     dtype=torch.float32, vmin=vmin, width=width,
+                                     device=CARD) for p in positions]
+    sc = SequenceCodec(DEPTH, gop=SERVE_SEQ_FRAMES, adaptive=False, dtype=torch.float32,
+                       device=CARD)
+    streams, _ = sc.encode_sequence(frames, step)
+    check([s.inter for s in streams] == [False] + [True] * (SERVE_SEQ_FRAMES - 1),
+          "serve_sequence: not I P P P")
+    for s, p in zip(streams, positions):
+        s.geometry = geometry_from_positions(p, DEPTH)
+    seq_path = os.path.join(keep, "serve.r3ts")
+    write_sequence(seq_path, streams)
+    recs = SequenceCodec(DEPTH, dtype=torch.float32, device=CARD).decode_sequence(streams,
+                                                                                   frames)
+
+    def play():
+        return [r[0] for r in sv.serve_sequence(seq_path, vms, Kms, **raster)]
+
+    imgs_seq, play_s, _ = counted("serve_sequence", play)
+    scan_counts("serve_sequence", 0, 2 * SERVE_SEQ_FRAMES)
+    errs = [img_err(im, render_rows(p[np.argsort(morton_codes_np(p, DEPTH), kind="stable")],
+                                    r)) for im, p, r in zip(imgs_seq, positions, recs)]
+    check(max(errs) <= SERVE_SEQ_TOL, f"serve_sequence: {errs} from decode_sequence's render")
+    served["sequence"] = {"frames": SERVE_SEQ_FRAMES, "max_err": errs,
+                          **timed(play, SERVE_VIEWS * SERVE_SEQ_FRAMES)}
+    served["sequence"]["ms_per_frame"] = served["sequence"]["ms"] / SERVE_SEQ_FRAMES
+
+    # (d) the upload tiers on the served frame and on a P-frame residual
+    resid = np.zeros((56, frames[1].codes.shape[0]), np.int32)
+    tp.decode_entropy_channels(streams[1], streams[1].n_voxels, resid)
+    uploads = {}
+    for name, m in (("frame", vals_T), ("p_residual", resid)):
+        u = sv.pack_quantized_upload(m)
+        tier = ("sparse" if u.shape is not None else
+                f"{u.vals.dtype.name}{'+patch' if u.patch_idx.size else ''}")
+        got = sv.upload_quantized(u, device=CARD)
+        check(torch.equal(got.to(torch.int32).cpu(), torch.as_tensor(m)),
+              f"upload tier {tier} of the {name} does not widen to its matrix")
+        nbytes = u.vals.nbytes + u.patch_idx.nbytes + u.patch_val.nbytes
+        uploads[name] = {
+            "shape": list(m.shape), "tier": tier, "bytes": nbytes, "int32_bytes": m.nbytes,
+            "nonzero_share": float(np.count_nonzero(m)) / m.size,
+            "pack_ms": host_ms(lambda: sv.pack_quantized_upload(m)),
+            "upload_ms": cuda_ms(torch, lambda: sv.upload_quantized(u, device=CARD), reps=10),
+            "int32_upload_ms": cuda_ms(torch, lambda: torch.as_tensor(m).to(CARD), reps=10)}
+    out["uploads"] = uploads
+    say("serving_upload", **{k: json.dumps(v) for k, v in uploads.items()})
+    del frames, recs, streams, resid
+
+    # cli.serve --u8 on the frame, the tiled frame and the sequence
+    clis = {}
+    for name, path, container in (("r3tc", mono_path, "r3tc"), ("r3tt", r3tt, "r3tt"),
+                                  ("r3ts", seq_path, "r3ts")):
+        vdir = os.path.join(keep, f"views_{name}")
+        rc, wall, text = counted(f"serve_cli_{name}", serve.main, [
+            "--stream", path, "--out", vdir, "--u8", "--views", str(SERVE_VIEWS),
+            "--size", str(SERVE_SIZE)])
+        check(rc == 0, f"cli.serve on the {name} failed")
+        rec = json.loads(text.strip().splitlines()[-1])
+        frames_n = SERVE_SEQ_FRAMES if name == "r3ts" else 1
+        pngs = sorted(os.listdir(vdir))
+        check(rec["container"] == container and rec["frames"] == frames_n
+              and rec["views"] == SERVE_VIEWS and rec["images"] == len(pngs)
+              == frames_n * SERVE_VIEWS and rec["out"] == vdir,
+              f"cli.serve on the {name}: {rec}, {len(pngs)} files")
+        lit = 0   # views with a pixel off the white background
+        for p in pngs:
+            px = read_png(os.path.join(vdir, p))
+            check(px.shape == (SERVE_SIZE, SERVE_SIZE, 3), f"{p}: {px.shape}")
+            lit += int((px < 255).any())
+        if name == "r3tt":
+            check(rec["bricks_total"] == n_tiles and 0 < rec["bricks_served"] <= n_tiles,
+                  f"cli.serve on the r3tt: {rec}")
+        clis[name] = {"wall_s": wall, "json_wall_s": rec["wall_s"], "images": rec["images"],
+                      "views_not_blank": lit,
+                      **({"bricks_served": rec["bricks_served"]} if name == "r3tt" else {})}
+    scan_counts("serve_cli_r3tc", 0, 2)
+    scan_counts("serve_cli_r3ts", 0, 2 * SERVE_SEQ_FRAMES)
+    check(launches["serve_cli_r3tt"]["ds_cumsum_t"] == 2 * clis["r3tt"]["bricks_served"],
+          f"serve_cli_r3tt: scan launches {launches['serve_cli_r3tt']}")
+    served["cli"] = clis
+    for name, row in served.items():
+        say(f"serving_{name}", **{k: json.dumps(v) if isinstance(v, (dict, list)) else v
+                                  for k, v in row.items()})
+    out["served"] = served
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    say("serving", seconds=round(out["seconds"], 1), launches=json.dumps(launches))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2805,6 +3290,7 @@ def main() -> int:
         predict = phase_predict(torch, ds, cli, gs, keep)
         rate = phase_rate(torch, ds, cli, gs, data, keep)
         seq = phase_sequence(torch, ds, data, keep)
+        serving = phase_serving(torch, ds, keep)
     finally:
         shutil.rmtree(keep, ignore_errors=True)
     add_device_ms(torch, ds, vox["pack"], vox_vals)
@@ -2818,7 +3304,8 @@ def main() -> int:
                 for name in ("voxelize_3dgs", "encode_3dgs", "encode_3dgs_debug")},
              "entropy_cli": entropy["colour"]["launches"],
              "entropy_gs_cli": entropy["gs"]["launches"],
-             **predict["launches"], **rate["launches"], **seq["launches"]}
+             **predict["launches"], **rate["launches"], **seq["launches"],
+             **serving["launches"]}
     rows.append(data["row"])
     for row in rows:
         # `launches`: the codec's main path (phase 3) for the single entry,
@@ -2834,7 +3321,8 @@ def main() -> int:
     say("done", seconds=round(time.perf_counter() - t_start, 1),
         predict_phase_seconds=round(predict["seconds"], 1),
         rate_phase_seconds=round(rate["seconds"], 1),
-        sequence_phase_seconds=round(seq["seconds"], 1))
+        sequence_phase_seconds=round(seq["seconds"], 1),
+        serving_phase_seconds=round(serving["seconds"], 1))
 
     print(card)
     print(json.dumps({"kernels": rows}))

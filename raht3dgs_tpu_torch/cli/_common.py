@@ -2,8 +2,7 @@
 
 Counterpart of ``raht3dgs_tpu/cli/_common.py``. ``--platform`` picks the
 device: ``cuda`` by default (the CLIs raise without a card), ``cpu``
-when asked. Flags of the JAX CLIs whose features belong to later slices
-are kept, and exit naming their ROADMAP queue A item when used.
+when asked.
 """
 
 from __future__ import annotations
@@ -16,11 +15,6 @@ from pathlib import Path
 import torch
 
 from raht3dgs_tpu_torch.config import RuntimeConfig
-
-
-def not_ported(flag: str, item: int, what: str) -> SystemExit:
-    """The exit of a flag whose feature is not ported yet."""
-    return SystemExit(f"{flag}: {what} is not ported yet (ROADMAP queue A, item {item})")
 
 
 def add_runtime_args(p: argparse.ArgumentParser) -> None:

@@ -20,13 +20,17 @@ frame replays the chain from the nearest clean entry point, which needs
 ``{i}`` placeholder in ``--output`` and ``--positions``), inter frames
 through ``models/temporal.py`` in the dtype the stream records.
 
+A tiled ``.r3tt`` frame (``encode_ply --tiles``, ``encode_3dgs --tiles``),
+alone or as the frames of a sequence (``encode_dataset --tiles``), decodes
+in full or, with ``--roi X0 Y0 Z0 X1 Y1 Z1``, only the bricks meeting the
+half-open voxel box, writing exactly the voxels inside it.
+
     python -m raht3dgs_tpu_torch.cli.decode --stream frame.r3tc \\
         --positions frame.ply --output recon.ply [--color-space yuv|raw|3dgs]
     python -m raht3dgs_tpu_torch.cli.decode --stream seq.r3ts --all-frames \\
         --output 'rec_{i}.ply'
-
-Not ported yet, each exiting with its ROADMAP queue A item: R3TT tiles,
-alone or inside a sequence, and ``--roi`` (item 15).
+    python -m raht3dgs_tpu_torch.cli.decode --stream frame_tiled2.r3tt \\
+        --roi 0 0 0 128 128 128 --output roi.ply
 """
 
 from __future__ import annotations
@@ -39,7 +43,6 @@ import numpy as np
 from raht3dgs_tpu_torch.cli._common import (
     add_runtime_args,
     maybe_profile,
-    not_ported,
     torch_dtype,
 )
 from raht3dgs_tpu_torch.utils.device import resolve_device
@@ -84,7 +87,10 @@ def build_parser() -> argparse.ArgumentParser:
                    "--code-geometry streams; intra geometry sections only")
     p.add_argument("--roi", type=int, nargs=6, default=None,
                    metavar=("X0", "Y0", "Z0", "X1", "Y1", "Z1"),
-                   help="region of a tiled stream (not ported yet: item 15)")
+                   help="with a tiled .r3tt stream: decode ONLY the bricks meeting "
+                   "the voxel-coordinate box [X0,X1)x[Y0,Y1)x[Z0,Z1) and write "
+                   "exactly the voxels inside it (spatial random access; encode "
+                   "with encode_ply --tiles)")
     p.add_argument(
         "--color-space", choices=("yuv", "raw", "3dgs"), default="yuv",
         help="'yuv': the stream holds BT.709 YUV (the encode_ply path), "
@@ -98,8 +104,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.roi is not None:
-        raise not_ported("--roi", 15, "the tiled .r3tt stream")
     if args.progressive < 0:
         raise SystemExit(f"--progressive must be positive (got {args.progressive})")
     device = resolve_device(args.platform)
@@ -113,18 +117,23 @@ def _run(args, device) -> int:
     with open(args.stream, "rb") as f:
         magic = f.read(4)
     if magic == b"R3TT":
-        raise not_ported("a R3TT input", 15, "the tiled container")
+        with open(args.stream, "rb") as f:
+            return _decode_tiled_blob(args, f.read(), args.output, device)
     if magic != b"R3TS":
         with open(args.stream, "rb") as f:
-            _decode_one(args, FrameStream.from_bytes(f.read()), args.positions,
-                        args.output, device)
+            stream = FrameStream.from_bytes(f.read())
+        if args.roi is not None:
+            raise SystemExit("--roi needs a tiled .r3tt stream "
+                             "(encode with encode_ply --tiles)")
+        _decode_one(args, stream, args.positions, args.output, device)
         return 0
     seq = SequenceReader(args.stream)
-    if len(seq) and seq.frame_bytes(0)[:4] == b"R3TT":
-        raise not_ported("a sequence of R3TT frames", 15, "the tiled container")
     if args.all_frames:
         return _all_frames(args, seq, device)
     print(f"sequence of {len(seq)} frames; decoding frame {args.frame_index}")
+    fb = seq.frame_bytes(args.frame_index)
+    if fb[:4] == b"R3TT":
+        return _decode_tiled_blob(args, fb, args.output, device)
     stream = seq.frame(args.frame_index)
     seq_codec, geom_prev = _replay_to(seq, args, stream, device)
     _decode_one(args, stream, args.positions, args.output, device,
@@ -151,6 +160,13 @@ def _all_frames(args, seq, device) -> int:
                                     and "{i}" not in args.positions):
         raise SystemExit("--all-frames needs a '{i}' placeholder in --output "
                          "(and in --positions when given)")
+    if len(seq) and seq.frame_bytes(0)[:4] == b"R3TT":
+        for i in range(len(seq)):
+            _decode_tiled_blob(
+                args, seq.frame_bytes(i), args.output.format(i=i), device,
+                positions_path=None if args.positions is None else args.positions.format(i=i))
+        print(f"decoded all {len(seq)} tiled frames of {args.stream}")
+        return 0
     streams = [seq.frame(i) for i in range(len(seq))]
     codecs = {}
     if any(s.inter for s in streams):
@@ -169,6 +185,58 @@ def _all_frames(args, seq, device) -> int:
         geom_prev = (codes, stream.depth)
         prev_depth = stream.depth
     print(f"decoded all {len(seq)} frames of {args.stream}")
+    return 0
+
+
+def _decode_tiled_blob(args, data: bytes, output_path: str, device,
+                       positions_path: str = None) -> int:
+    """A tiled .r3tt frame: the full decode, or only the --roi bricks.
+    ``positions_path`` overrides ``--positions`` (the --all-frames loop
+    formats the frame's '{i}' placeholder)."""
+    import torch
+
+    from raht3dgs_tpu_torch.io.ply import read_ply_8i, save_ply_ascii
+    from raht3dgs_tpu_torch.models.tiling import TiledReader, decode_tiled_frame
+    from raht3dgs_tpu_torch.ops.color import yuv_to_rgb
+
+    if positions_path is None:
+        positions_path = args.positions
+    if args.progressive or args.lod or args.geometry_lod:
+        raise SystemExit("--progressive/--lod/--geometry-lod apply to monolithic "
+                         "streams (tiles are already the spatial-random-access axis)")
+    reader = TiledReader(data)
+    roi = None
+    if args.roi is not None:
+        lo, hi = np.asarray(args.roi[:3]), np.asarray(args.roi[3:])
+        roi = (lo, hi)
+        sel = reader.select_roi(lo, hi)
+        total = sum(len(reader.tile_bytes(i)) for i in range(len(reader)))
+        got = sum(len(reader.tile_bytes(i)) for i in sel)
+        print(f"ROI {lo.tolist()}..{hi.tolist()}: {len(sel)}/{len(reader)} "
+              f"bricks, {got}/{total} payload bytes")
+    positions = None
+    if positions_path is not None:
+        positions = np.floor(read_ply_8i(positions_path)[0]).astype(np.int64)
+    V, A = decode_tiled_frame(reader, roi=roi, positions=positions,
+                              dtype=torch_dtype(args.dtype), bucket=args.bucket,
+                              device=device)
+    if args.color_space == "3dgs":
+        # x/y/z keep the integer voxel coordinates; the world mapping rides
+        # the voxel_size/vmin header comments (encode_3dgs --tiles stores
+        # width = voxel_size * 2**J and the true vmin in the shared template)
+        if A.shape[1] < 8:
+            raise SystemExit(f"--color-space 3dgs needs the 56-channel layout, stream "
+                             f"has {A.shape[1]}")
+        meta = reader.meta
+        _save_3dgs(output_path, V.astype(np.float64), A,
+                   float(meta.width) / (1 << reader.depth), meta.vmin)
+    elif args.color_space == "yuv" and A.shape[1] == 3:
+        rgb = yuv_to_rgb(torch.as_tensor(A, device=device)).cpu().numpy()
+        save_ply_ascii(output_path, V.astype(float), np.clip(rgb, 0, 255).astype(int))
+    else:
+        save_ply_ascii(output_path, V.astype(float), A)
+    print(f"decoded {len(V)} voxels x {A.shape[1]} channels "
+          f"(J={reader.depth}, {len(reader)} bricks) -> {output_path}")
     return 0
 
 

@@ -18,9 +18,10 @@ mapping). ``--predict`` codes inter-depth predicted RAHT (the device
 encoder on the card). ``--target-bpp T`` replaces the sweep by a search for
 the step that meets the rate (``models/rd_search.py``; the
 ``--per-attribute`` multipliers apply to the searched step), written as
-``gs_bppT.r3tc`` with ``--save-streams``. ``--tiles`` (ROADMAP queue A,
-item 15) is not ported yet and exits naming its item, before any other
-option is looked at.
+``gs_bppT.r3tc`` with ``--save-streams``. ``--tiles D`` (with
+``--save-streams`` and one ``--steps`` value) writes one tiled
+``gs_tiledD_stepS.r3tt`` of octree bricks at depth D, the world mapping in
+its shared header (``decode --roi`` / ``--color-space 3dgs``).
 """
 
 from __future__ import annotations
@@ -35,7 +36,6 @@ from raht3dgs_tpu_torch.cli._common import (
     add_quant_args,
     add_runtime_args,
     maybe_profile,
-    not_ported,
     quant_kwargs,
     torch_dtype,
 )
@@ -73,8 +73,9 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--tiles", type=int, default=0, metavar="D",
-        help="write one spatially tiled .r3tt frame at this brick depth (not "
-        "ported yet: ROADMAP queue A, item 15)",
+        help="partition the frame into octree bricks at depth D and write one "
+        "tiled .r3tt stream (decode --roi reads a brick subset). Requires "
+        "--save-streams and exactly one --steps value; not with --target-bpp",
     )
     add_geometry_arg(p)
     add_quant_args(p)
@@ -84,8 +85,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.tiles:
-        raise not_ported("--tiles", 15, "the tiled .r3tt stream")
     device = resolve_device(args.platform)
     with maybe_profile(args, device):
         return _run(args, device)
@@ -118,6 +117,12 @@ def _run(args, device) -> int:
     dtype = torch_dtype(args.dtype)
     codec = AttributeCodec(args.depth, dtype=dtype, chunk=args.entropy_chunk,
                            device=device, **quant_kwargs(args))
+    if args.tiles:
+        if args.target_bpp is not None:
+            raise SystemExit("--tiles and --target-bpp do not combine "
+                             "(tile at the searched step in two runs)")
+        return _encode_tiled_gs(args, codec, V_int, attrs, voxel_size, vmin, group_scales,
+                                device)
     if args.target_bpp is not None:
         return _search(args, codec, V_int, attrs, voxel_size, vmin, group_scales, device)
     points = encode_gs_frame(
@@ -149,6 +154,55 @@ def _run(args, device) -> int:
 
     if args.render != "none":
         render_finest(args, points, codec, V_int, attrs, voxel_size, vmin, device)
+    return 0
+
+
+def _encode_tiled_gs(args, codec, V_int, attrs, voxel_size, vmin, group_scales,
+                     device) -> int:
+    """--tiles: one 56-channel .r3tt tiled frame and its 19-column CSV row;
+    the world mapping rides the shared header (width = voxel_size * 2**J,
+    the true vmin), so any brick subset decodes in frame coordinates."""
+    import time
+
+    import numpy as np
+
+    from raht3dgs_tpu_torch.eval.metrics import gs_group_psnr
+    from raht3dgs_tpu_torch.models.gs_codec import CSV_HEADER, GsRDPoint
+    from raht3dgs_tpu_torch.models.tiling import decode_tiled_frame, encode_tiled_frame
+    from raht3dgs_tpu_torch.ops.morton import morton_codes_np
+    from raht3dgs_tpu_torch.ops.quantize import channel_steps
+
+    if not args.save_streams:
+        raise SystemExit("--tiles writes a .r3tt stream; pass --save-streams")
+    if len(args.steps) != 1:
+        raise SystemExit("--tiles requires exactly one --steps value")
+    step = float(args.steps[0])
+    step_vec = (channel_steps(attrs.shape[1], step,
+                              {k: step * m for k, m in group_scales.items()})
+                if group_scales else step)
+    t0 = time.perf_counter()
+    blob, stats = encode_tiled_frame(
+        V_int, attrs, args.depth, args.tiles, codec, step_vec,
+        code_geometry=bool(args.code_geometry), vmin=vmin,
+        width=float(voxel_size) * (1 << args.depth))
+    enc_s = time.perf_counter() - t0
+    out = Path(args.save_streams)
+    out.mkdir(parents=True, exist_ok=True)
+    dst = out / f"gs_tiled{args.tiles}_step{step:g}.r3tt"
+    dst.write_bytes(blob)
+    n = len(V_int)
+    _, A = decode_tiled_frame(blob, positions=None if args.code_geometry else V_int,
+                              dtype=codec.dtype, bucket=args.bucket, device=device)
+    order = np.argsort(morton_codes_np(V_int, args.depth), kind="stable")
+    psnr = gs_group_psnr(np.asarray(attrs, dtype=np.float64)[order], A)
+    print(f"{len(stats)} tiles (brick depth {args.tiles}), {len(blob)} B = "
+          f"{8 * len(blob) / n:.4f} bpp, PSNR all {psnr['psnr_all']:.2f} dB "
+          f"(quats {psnr['psnr_quats']:.2f}, scales {psnr['psnr_scales']:.2f}, "
+          f"opacity {psnr['psnr_opacity']:.2f}, colors {psnr['psnr_colors']:.2f}) -> {dst}")
+    log = CsvLogger(args.csv or "results/runtime_3dgs.csv", CSV_HEADER)
+    log.row(GsRDPoint(frame=1, step=step, bpp=8 * len(blob) / n, psnr=psnr, n_voxels=n,
+                      stream_bytes=len(blob), times={"Entropy_enc_time": enc_s}).csv_row())
+    log.close()
     return 0
 
 

@@ -22,9 +22,10 @@ one indexed ``.r3ts`` file (one step), in every mode; ``--code-geometry``
 then attaches each frame's lossless geometry. ``--inter`` codes I/P frames
 through ``models/temporal.py`` (``--gop``, ``--search-stride``, and with
 ``--target-bpp`` a step searched per candidate), P-frames carrying
-temporal geometry under ``--code-geometry``. ``--tiles`` (ROADMAP queue A,
-item 15) is not ported yet and exits naming its item, after the JAX CLI's
-own argument checks.
+temporal geometry under ``--code-geometry``. ``--tiles D`` (with
+``--save-sequence`` and one ``--steps`` value, intra only) writes each frame
+as a self-contained tiled ``.r3tt`` blob inside the ``.r3ts``, so any frame
+decodes by index with ``--roi``.
 """
 
 from __future__ import annotations
@@ -43,7 +44,6 @@ from raht3dgs_tpu_torch.cli._common import (
     add_quant_args,
     add_runtime_args,
     maybe_profile,
-    not_ported,
     quant_kwargs,
     torch_dtype,
 )
@@ -107,8 +107,9 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--tiles", type=int, default=0, metavar="D",
-        help="tiled .r3tt frames inside the .r3ts (not ported yet: ROADMAP "
-        "queue A, item 15)",
+        help="write each frame as a tiled .r3tt blob of octree bricks at depth "
+        "D inside the --save-sequence file (spatio-temporal random access: "
+        "decode --frame-index K --roi ...); intra only, one --steps value",
     )
     p.add_argument(
         "--inter", action="store_true",
@@ -136,8 +137,7 @@ def _err(msg: str) -> int:
 
 
 def _refusals(args):
-    """The JAX CLI's argument errors (``2``) in its dispatch order, with the
-    exit of ``--tiles`` (not ported yet) where it would enter it; None when
+    """The JAX CLI's argument errors (``2``) in its dispatch order; None when
     the run may go on."""
     if args.save_sequence and args.target_bpp is None and len(args.steps) != 1:
         return _err("--save-sequence requires exactly one --steps value")
@@ -149,8 +149,7 @@ def _refusals(args):
         if args.inter or args.batch or args.target_bpp is not None:
             return _err("--tiles is intra-only for now (not with --inter/"
                         "--batch/--target-bpp)")
-        raise not_ported("--tiles", 15, "the tiled .r3tt sequence")
-    if args.two_pass:
+    elif args.two_pass:
         if args.target_bpp is None:
             return _err("--two-pass is a rate-control mode; it requires --target-bpp")
         if args.cbr or args.cbr_burst is not None or args.inter or args.batch:
@@ -188,7 +187,9 @@ def main(argv=None) -> int:
     rc = 0
     # context managers: the trace and the CSV finish even when a frame raises
     with maybe_profile(args, device), contextlib.closing(log):
-        if args.two_pass:
+        if args.tiles:
+            rc = _run_tiled(args, first, last, log, device, seq)
+        elif args.two_pass:
             rc = _run_two_pass(args, first, last, log, device, seq)
         elif args.inter:
             _run_inter(args, first, last, log, device, seq)
@@ -204,7 +205,8 @@ def main(argv=None) -> int:
         from raht3dgs_tpu_torch.codec.bitstream import write_sequence
 
         total = write_sequence(args.save_sequence, seq)
-        print(f"sequence: {len(seq)} frames, {total} bytes -> {args.save_sequence}")
+        kind = "tiled frames" if args.tiles else "frames"
+        print(f"sequence: {len(seq)} {kind}, {total} bytes -> {args.save_sequence}")
     return 0
 
 
@@ -218,6 +220,53 @@ def _intra_geometry(args, V, depth: int):
     from raht3dgs_tpu_torch.codec.geometry import geometry_from_positions
 
     return geometry_from_positions(V, depth)
+
+
+def _run_tiled(args, first: int, last: int, log, device, seq) -> int:
+    """Tiled intra sequence: one self-contained .r3tt blob per frame in
+    ``seq`` (every frame then decodes with --roi); one CSV row a frame, its
+    Y-PSNR through a full tiled decode."""
+    from raht3dgs_tpu_torch.io.datasets import get_pointcloud
+    from raht3dgs_tpu_torch.models.color_codec import RDPoint, y_psnr_db
+    from raht3dgs_tpu_torch.models.pipeline import AttributeCodec
+    from raht3dgs_tpu_torch.models.tiling import decode_tiled_frame, encode_tiled_frame
+    from raht3dgs_tpu_torch.ops.color import rgb_to_yuv
+    from raht3dgs_tpu_torch.ops.morton import morton_codes_np
+
+    dtype = torch_dtype(args.dtype)
+    step = args.steps[0]
+    codecs = {}
+    for frame in range(first, last + 1):
+        out = get_pointcloud(args.dataset, args.sequence, frame, args.data_root)
+        if out is None:
+            print(f"frame {frame}: load failed, skipping", file=sys.stderr)
+            continue
+        V, C, depth = out
+        if not 0 < args.tiles < depth:
+            return _err(f"--tiles must be in (0, {depth}) for this sequence's depth")
+        if depth not in codecs:
+            codecs[depth] = AttributeCodec(depth, dtype=dtype, chunk=args.entropy_chunk,
+                                           device=device, **quant_kwargs(args))
+        t0 = time.perf_counter()
+        Vi = np.floor(np.asarray(V)).astype(np.int64)
+        yuv = rgb_to_yuv(torch.as_tensor(np.asarray(C), device=device),
+                         dtype=dtype).cpu().numpy()
+        blob, stats = encode_tiled_frame(Vi, yuv, depth, args.tiles, codecs[depth], step,
+                                         code_geometry=True)
+        enc_s = time.perf_counter() - t0
+        psnr = float("nan")
+        if not args.no_decode:
+            _, Ad = decode_tiled_frame(blob, dtype=dtype, device=device)
+            order = np.argsort(morton_codes_np(Vi, depth), kind="stable")
+            psnr = y_psnr_db(yuv[order][:, 0], Ad[:, 0])
+        n = len(Vi)
+        print(f"frame {frame}: {len(stats)} tiles, {len(blob)} B = "
+              f"{8 * len(blob) / n:.4f} bpp, Y-PSNR {psnr:.2f} dB")
+        log.row(RDPoint(frame=frame, step=float(step), bpp=8 * len(blob) / n, psnr=psnr,
+                        n_voxels=n, stream_bytes=len(blob),
+                        times={"Entropy_enc_time": enc_s}).csv_row())
+        seq.append(blob)
+    return 0
 
 
 def _run_frames(args, first: int, last: int, log, device, seq) -> None:

@@ -14,8 +14,10 @@ section per frame to every step's stream, so ``cli.decode`` needs no
 encoder on the card; ``cli.decode`` reads the stream without a flag).
 ``--target-bpp T`` replaces the sweep by a search for the step that meets
 the rate (``models/rd_search.py``); with ``--save-streams`` it writes
-``frameNNNN_bppT.r3tc``. ``--tiles`` (ROADMAP queue A, item 15) is not
-ported yet and exits naming its item.
+``frameNNNN_bppT.r3tc``. ``--tiles D`` (with ``--save-streams`` and one
+``--steps`` value) writes each frame as a tiled ``<name>_tiledD.r3tt`` of
+octree bricks at depth D (``models/tiling.py``); ``cli.decode --roi``
+decodes the bricks meeting a box.
 """
 
 from __future__ import annotations
@@ -34,7 +36,6 @@ from raht3dgs_tpu_torch.cli._common import (
     add_quant_args,
     add_runtime_args,
     maybe_profile,
-    not_ported,
     quant_kwargs,
     torch_dtype,
 )
@@ -78,8 +79,11 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--tiles", type=int, default=0, metavar="D",
-        help="write a tiled .r3tt stream of octree bricks at depth D (not "
-        "ported yet: ROADMAP queue A, item 15)",
+        help="partition the frame into octree bricks at depth D and write a "
+        "tiled .r3tt stream (spatial random access: decode only the bricks "
+        "meeting a --roi box, models/tiling.py). Requires --save-streams and "
+        "exactly one --steps value; composes with --code-geometry "
+        "(self-contained tiles) and --entropy",
     )
     add_geometry_arg(p)
     add_quant_args(p)
@@ -89,8 +93,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.tiles:
-        raise not_ported("--tiles", 15, "the tiled .r3tt stream")
     device = resolve_device(args.platform)
     from raht3dgs_tpu_torch.models.color_codec import CSV_HEADER
 
@@ -123,6 +125,9 @@ def _sweep(args, log, device) -> None:
         if depth not in codecs:
             codecs[depth] = AttributeCodec(depth, dtype=dtype, chunk=args.entropy_chunk,
                                            device=device, **quant_kwargs(args))
+        if args.tiles:
+            _encode_tiled(args, idx, path, V, C, depth, codecs[depth], log, device)
+            continue
         if args.target_bpp is not None:
             _search(args, idx, V, C, depth, codecs[depth], device)
             continue
@@ -148,6 +153,46 @@ def _sweep(args, log, device) -> None:
                     pt.encoded.stream.geometry = geom
                 fn = out / f"frame{idx:04d}_step{pt.step:g}.r3tc"
                 fn.write_bytes(pt.encoded.stream.to_bytes())
+
+
+def _encode_tiled(args, idx: int, path, V, C, depth: int, codec, log, device) -> None:
+    """--tiles: one .r3tt tiled frame, and its CSV row with the usual bpp and
+    Y-PSNR columns measured through a full tiled decode."""
+    import time
+
+    from raht3dgs_tpu_torch.models.color_codec import RDPoint, y_psnr_db
+    from raht3dgs_tpu_torch.models.tiling import decode_tiled_frame, encode_tiled_frame
+    from raht3dgs_tpu_torch.ops.color import rgb_to_yuv
+    from raht3dgs_tpu_torch.ops.morton import morton_codes_np
+
+    if not args.save_streams:
+        raise SystemExit("--tiles writes a .r3tt stream; pass --save-streams")
+    if len(args.steps) != 1:
+        raise SystemExit("--tiles requires exactly one --steps value")
+    step = args.steps[0]
+    t0 = time.perf_counter()
+    yuv = rgb_to_yuv(torch.as_tensor(np.asarray(C), device=device),
+                     dtype=codec.dtype).cpu().numpy()
+    Vi = np.floor(np.asarray(V)).astype(np.int64)
+    blob, stats = encode_tiled_frame(Vi, yuv, depth, args.tiles, codec, step,
+                                     code_geometry=bool(args.code_geometry))
+    enc_s = time.perf_counter() - t0
+    out = Path(args.save_streams)
+    out.mkdir(parents=True, exist_ok=True)
+    dst = out / (Path(path).stem + f"_tiled{args.tiles}.r3tt")
+    dst.write_bytes(blob)
+    n = len(Vi)
+    psnr = float("nan")
+    if not args.no_decode:
+        _, Ad = decode_tiled_frame(blob, positions=None if args.code_geometry else Vi,
+                                   dtype=codec.dtype, device=device)
+        order = np.argsort(morton_codes_np(Vi, depth), kind="stable")
+        psnr = y_psnr_db(yuv[order][:, 0], Ad[:, 0])
+    print(f"frame {idx}: {len(stats)} tiles (brick depth {args.tiles}), {len(blob)} B = "
+          f"{8 * len(blob) / n:.4f} bpp, Y-PSNR {psnr:.2f} dB -> {dst}")
+    log.row(RDPoint(frame=idx, step=float(step), bpp=8 * len(blob) / n, psnr=psnr,
+                    n_voxels=n, stream_bytes=len(blob),
+                    times={"Entropy_enc_time": enc_s}).csv_row())
 
 
 def _search(args, idx: int, V, C, depth: int, codec, device) -> None:

@@ -226,20 +226,15 @@ def render_comparison(
 
 
 def _save_views(output_dir, imgs_o, imgs_r):
-    try:
-        from PIL import Image
-    except ImportError:  # pragma: no cover
-        warnings.warn("PIL unavailable; skipping image dumps")
-        return
     from pathlib import Path
+
+    from raht3dgs_tpu_torch.io.png import write_png
 
     out = Path(output_dir)
     out.mkdir(parents=True, exist_ok=True)
     for i in range(len(imgs_o)):
         a = (np.clip(imgs_o[i], 0, 1) * 255).astype(np.uint8)
         b = (np.clip(imgs_r[i], 0, 1) * 255).astype(np.uint8)
-        Image.fromarray(a).save(out / f"view_{i:03d}_original.png")
-        Image.fromarray(b).save(out / f"view_{i:03d}_merged.png")
-        Image.fromarray(np.concatenate([a, b], axis=1)).save(
-            out / f"view_{i:03d}_comparison.png"
-        )
+        write_png(out / f"view_{i:03d}_original.png", a)
+        write_png(out / f"view_{i:03d}_merged.png", b)
+        write_png(out / f"view_{i:03d}_comparison.png", np.concatenate([a, b], axis=1))

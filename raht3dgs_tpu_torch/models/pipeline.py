@@ -17,8 +17,9 @@ RAHT (``predict=True``: the device encoder ``ops/praht_device.py`` on the
 card, the frozen host closed loop ``ops/praht.py`` on the CPU or when
 asked, and the host loop for every decode of a predicted stream). Options
 of the JAX package that later slices bring raise ``NotImplementedError``
-naming their ROADMAP item. The wire-narrowing tiers of the JAX package
-(built for a remote TPU link) are not ported: symbols cross as int32.
+naming their ROADMAP item. The codec's own decode uploads its symbols as
+int32; the serving path (``models/serving.py``) uploads them through the
+narrowing tiers ``pack_quantized_upload`` / ``upload_quantized``.
 """
 
 from __future__ import annotations
@@ -26,11 +27,12 @@ from __future__ import annotations
 import collections
 import contextlib
 import hashlib
+import os
 import queue
 import threading
 import time
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -327,6 +329,149 @@ def decode_entropy_channels(stream: FrameStream, n: int, out: np.ndarray):
     for d in range(1, len(emap)):
         _one(d)
     return out, time.perf_counter_ns() - t0
+
+
+def quantized_upload_array(vals_T: np.ndarray) -> np.ndarray:
+    """Narrow the (D, N) int32 quantized channel matrix to int16 when every
+    value fits (half the upload bytes); consumers widen back before
+    dequantization, so results are bitwise unchanged."""
+    if vals_T.dtype == np.int32 and np.abs(vals_T, dtype=np.int64).max(initial=0) < (1 << 15):
+        return vals_T.astype(np.int16)
+    return vals_T
+
+
+class QuantizedUpload(NamedTuple):
+    """Host-side packing of a quantized channel matrix for upload.
+
+    Dense tiers: ``vals`` is the matrix, narrowed to int8/int16 where that
+    pays; the few entries that overflow the narrow dtype are truncated in
+    ``vals`` and carried exactly by the flat-index patch ``(patch_idx,
+    patch_val)`` (empty arrays when none is needed).
+
+    Sparse tier (``shape`` set): a mostly-zero matrix (inter residuals,
+    coarse steps) travels as ``(patch_idx, vals)``, the flat indices of its
+    nonzeros and their values in the narrowest exact dtype; the device
+    scatters them into zeros. Chosen by :func:`pack_quantized_upload` only
+    when its padded bytes beat the best dense tier;
+    ``RAHT3DGS_UPLOAD_SPARSE=0`` turns it off."""
+
+    vals: np.ndarray
+    patch_idx: np.ndarray
+    patch_val: np.ndarray
+    shape: tuple = None
+
+
+_EMPTY_I32 = np.zeros((0,), np.int32)
+
+
+def _upload_patch_enabled() -> bool:
+    return os.environ.get("RAHT3DGS_UPLOAD_PATCH", "1") not in ("0", "false", "")
+
+
+def _upload_sparse_enabled() -> bool:
+    return os.environ.get("RAHT3DGS_UPLOAD_SPARSE", "1") not in ("0", "false", "")
+
+
+def _sparse_upload(vals_T: np.ndarray, nz: np.ndarray, dense_bytes: int):
+    """The sparse tier when its (padded) indices and values beat the best
+    dense tier, else ``None``. Values take the narrowest dtype holding every
+    nonzero exactly; the count pads to a power-of-two bucket with copies of
+    entry 0 (the same index and value written again)."""
+    val = vals_T.reshape(-1)[nz]
+    a = np.abs(val, dtype=np.int64)
+    vmax = int(a.max()) if val.size else 0
+    if vmax < 128:
+        vdt = np.int8
+    elif vmax < (1 << 15):
+        vdt = np.int16
+    else:
+        vdt = np.int32
+    bucket = 64
+    while bucket < nz.size:
+        bucket *= 2
+    if bucket * (4 + np.dtype(vdt).itemsize) >= dense_bytes:
+        return None
+    pad = bucket - nz.size
+    if pad:
+        fi = nz[0] if nz.size else np.int32(0)
+        fv = val[0] if val.size else 0
+        nz = np.concatenate([nz, np.full(pad, fi, np.int32)])
+        val = np.concatenate([val, np.full(pad, fv, val.dtype)])
+    return QuantizedUpload(val.astype(vdt), nz, _EMPTY_I32, tuple(vals_T.shape))
+
+
+def _padded_patch(vals_narrow: np.ndarray, over: np.ndarray,
+                  flat: np.ndarray) -> QuantizedUpload:
+    """The overflow patch (index, exact value), padded to a power-of-two
+    bucket with copies of entry 0 (identical writes)."""
+    val = flat[over]
+    bucket = 8
+    while bucket < over.size:
+        bucket *= 2
+    pad = bucket - over.size
+    idx = np.concatenate([over, np.full(pad, over[0], np.int32)])
+    val = np.concatenate([val, np.full(pad, val[0], np.int32)])
+    return QuantizedUpload(vals_narrow, idx, val)
+
+
+def pack_quantized_upload(vals_T: np.ndarray) -> QuantizedUpload:
+    """Narrow an int32 quantized matrix to int8/int16 even when a handful of
+    entries overflow, carrying the overflows as an exact patch; or, for a
+    mostly-zero matrix, its nonzeros alone.
+
+    Patch policy: int16 + patch while the patch (8 bytes an entry) costs at
+    most half the 2 bytes an entry that int16 saves against int32 (``P <=
+    size // 8``); int8 + patch while it costs at most half the byte an entry
+    that int8 saves against int16 (``P <= size // 16``).
+    ``RAHT3DGS_UPLOAD_PATCH=0`` restores the all-or-nothing int16/int32
+    choice. The JAX package's choice, array for array."""
+    if vals_T.dtype != np.int32:
+        return QuantizedUpload(vals_T, _EMPTY_I32, _EMPTY_I32)
+    flat = vals_T.reshape(-1)
+    a = np.abs(flat, dtype=np.int64)
+    over8 = np.flatnonzero(a >= 128).astype(np.int32)
+    patch_ok = _upload_patch_enabled()
+    if over8.size == 0:
+        dense = QuantizedUpload(vals_T.astype(np.int8), _EMPTY_I32, _EMPTY_I32)
+    elif patch_ok and over8.size <= flat.size // 16:
+        dense = _padded_patch(vals_T.astype(np.int8), over8, flat)
+    else:
+        over16 = over8[a[over8] >= (1 << 15)]  # a subset of over8
+        if over16.size == 0:
+            dense = QuantizedUpload(vals_T.astype(np.int16), _EMPTY_I32, _EMPTY_I32)
+        elif not patch_ok or over16.size > flat.size // 8:
+            dense = QuantizedUpload(vals_T, _EMPTY_I32, _EMPTY_I32)
+        else:
+            dense = _padded_patch(vals_T.astype(np.int16), over16, flat)
+    if _upload_sparse_enabled():
+        dense_bytes = dense.vals.nbytes + dense.patch_idx.nbytes + dense.patch_val.nbytes
+        nnz = int(np.count_nonzero(flat))
+        if nnz * 5 < dense_bytes:  # a cheap test before flatnonzero
+            sp = _sparse_upload(vals_T, np.flatnonzero(flat).astype(np.int32), dense_bytes)
+            if sp is not None:
+                return sp
+    return dense
+
+
+def upload_quantized(up: QuantizedUpload, *, device: DeviceLike = None) -> torch.Tensor:
+    """Move a :class:`QuantizedUpload` to the device (CUDA unless
+    ``device="cpu"``). A dense tier with a patch widens to int32 and writes
+    the patch; the sparse tier writes its nonzeros into zeros. Returns a
+    tensor that, widened to int32, is bitwise the original matrix: int8 or
+    int16 when that is exact, else int32. Padding entries rewrite entry 0's
+    own index and value, so the order of duplicate writes is immaterial."""
+    dev = resolve_device(device)
+    if up.shape is not None:
+        val = torch.as_tensor(up.vals).to(dev)
+        flat = torch.zeros(int(np.prod(up.shape)), dtype=val.dtype, device=dev)
+        flat[torch.as_tensor(up.patch_idx).to(dev).long()] = val
+        return flat.reshape(up.shape)
+    vals = torch.as_tensor(up.vals).to(dev)
+    if up.patch_idx.size == 0:
+        return vals
+    flat = vals.to(torch.int32).reshape(-1)
+    flat[torch.as_tensor(up.patch_idx).to(dev).long()] = torch.as_tensor(up.patch_val).to(dev)
+    return flat.reshape(vals.shape)
 
 
 def build_entropy_stream(q_np: np.ndarray, frame: VoxelFrame, steps, *, depth: int,

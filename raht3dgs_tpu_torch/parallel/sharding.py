@@ -34,7 +34,7 @@ from raht3dgs_tpu_torch.ops.reorder import coefficient_order_batched
 def _mesh_not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what}: a device mesh is not ported yet (ROADMAP queue A, item 18); "
-        "the batched functions run on one device")
+        "run on one device")
 
 
 def make_mesh(n_devices=None, dp=None, tp=None, sp=1):

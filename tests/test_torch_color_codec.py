@@ -561,30 +561,40 @@ def _same_3dgs(a, b):
 
 
 @pytest.mark.parametrize("cli,extra,item", [
-    (tenc, ["--tiles", "3"], 15),
-    (tenc, ["--tiles", "3", "--target-bpp", "1.0"], 15),   # --tiles is checked first
+    (tenc, ["--tiles", "3"], None),
+    (tenc, ["--tiles", "3", "--target-bpp", "1.0"], None),   # --tiles is taken first
     (tdec, ["--lod", "3"], None),
-    (tdec, ["--roi", "0", "0", "0", "4", "4", "4"], 15),
+    (tdec, ["--roi", "0", "0", "0", "32", "32", "32"], None),
     (tdec, ["--all-frames"], None),
     (tdec, ["--frame-index", "2"], None),
     (tdec, ["--color-space", "3dgs", "--lod", "2"], None),
 ])
 def test_cli_unported_options_exit_naming_their_item(tmp_path, auto_geometry_dir, no_jax_cache,
                                                      cli, extra, item):
-    """The options still to come exit naming their ROADMAP item; those
-    ported since (item None) write the JAX decode CLI's output: ``--lod``
-    on a colour stream and on a 3DGS one, ``--all-frames`` and
-    ``--frame-index`` on a sequence of self-contained streams."""
-    if item is not None:
-        if cli is tenc:
-            argv = ["--input", "x.ply", "--platform", "cpu"] + extra
-        else:
-            argv = ["--stream", "x.r3tc", "--output", str(tmp_path / "o.ply"),
-                    "--platform", "cpu", "--positions", "p.ply"] + extra
-        with pytest.raises(SystemExit, match=f"item {item}"):
-            cli.main(argv)
+    """Every option of the JAX CLIs is ported now (item None), and each
+    writes the JAX CLI's output: ``--tiles`` the ``.r3tt`` bytes and CSV
+    rate (with ``--target-bpp`` too, which the tiled path ignores in both),
+    ``--roi`` of a tiled stream, ``--lod`` on a colour stream and on a 3DGS
+    one, ``--all-frames`` and ``--frame-index`` on a sequence of
+    self-contained streams."""
+    assert item is None
+    if cli is tenc:
+        common = ["--input", str(_raw_ply(tmp_path)), "--voxelize", "--depth", "6",
+                  "--steps", "8", "--platform", "cpu", "--code-geometry"] + extra
+        for name, enc in (("j", jenc), ("t", tenc)):
+            assert enc.main(common + ["--save-streams", str(tmp_path / name),
+                                      "--csv", str(tmp_path / f"{name}.csv")]) == 0
+        blob = (tmp_path / "t" / "raw_tiled3.r3tt").read_bytes()
+        assert blob[:4] == b"R3TT" and blob == (tmp_path / "j" / "raw_tiled3.r3tt").read_bytes()
+        (jh, jrows), (th, trows) = _csv_rows(tmp_path / "j.csv"), _csv_rows(tmp_path / "t.csv")
+        assert th == jh and [r[:3] for r in trows] == [r[:3] for r in jrows]
         return
-    if "--color-space" in extra:
+    if "--roi" in extra:
+        tenc.main(["--input", str(_raw_ply(tmp_path)), "--voxelize", "--depth", "6", "--steps",
+                   "8", "--platform", "cpu", "--tiles", "2", "--code-geometry",
+                   "--save-streams", str(tmp_path / "s"), "--csv", str(tmp_path / "s.csv")])
+        src = ["--stream", str(tmp_path / "s" / "raw_tiled2.r3tt")]
+    elif "--color-space" in extra:
         stream, pos = _gs_stream(tmp_path)
         src = ["--stream", str(stream), "--positions", str(pos)]
     elif "--lod" in extra:
@@ -608,26 +618,32 @@ def test_cli_unported_options_exit_naming_their_item(tmp_path, auto_geometry_dir
             assert got.read_bytes() == want.read_bytes()
 
 
-@pytest.mark.parametrize("magic,item", [(b"R3TS", None), (b"R3TT", 15)])
+@pytest.mark.parametrize("magic,item", [(b"R3TS", None), (b"R3TT", None)])
 def test_cli_decode_containers_not_ported(tmp_path, auto_geometry_dir, no_jax_cache, magic,
                                           item):
-    """R3TT input exits naming its item; an R3TS sequence (ported since)
-    decodes its frame 0 as the JAX decode CLI does, with positions given."""
-    if item is not None:
-        path = tmp_path / "s.bin"
-        path.write_bytes(magic + b"\0" * 60)
-        with pytest.raises(SystemExit, match=f"item {item}"):
-            tdec.main(["--stream", str(path), "--positions", "p.ply",
-                       "--output", str(tmp_path / "o.ply"), "--platform", "cpu"])
-        return
+    """Both containers are ported (item None): an R3TS sequence decodes its
+    frame 0, and an R3TT tiled frame (the port's tiles of the same frame,
+    without geometry) decodes, as the JAX decode CLI does, with positions
+    given."""
+    assert item is None
     from raht3dgs_tpu_torch.codec.geometry import positions_from_geometry
     from raht3dgs_tpu_torch.io.ply import save_ply_ascii
+    from raht3dgs_tpu_torch.models.tiling import encode_tiled_frame
 
-    seq = _geometry_sequence(auto_geometry_dir, tmp_path)
     s = tp.FrameStream.from_bytes((auto_geometry_dir / "t" / "frame0001_step2.r3tc")
                                   .read_bytes())
     V = positions_from_geometry(s.geometry, 6, s.n_voxels, device="cpu")
     save_ply_ascii(tmp_path / "p.ply", V[::-1].astype(float), width=63)
+    if magic == b"R3TS":
+        seq = _geometry_sequence(auto_geometry_dir, tmp_path)
+    else:
+        attrs = np.random.default_rng(6).normal(100.0, 30.0, (len(V), 3))
+        blob, _ = encode_tiled_frame(V, attrs, 6, 2, tp.AttributeCodec(6, device="cpu"), 8.0)
+        seq = tmp_path / "f.r3tt"
+        seq.write_bytes(blob)
+        # the tiled decoders read positions with the colour PLY reader
+        save_ply_ascii(tmp_path / "p.ply", V[::-1].astype(float), np.zeros((len(V), 3)),
+                       width=63)
     for name, dec in (("j", jdec), ("t", tdec)):
         assert dec.main(["--stream", str(seq), "--positions", str(tmp_path / "p.ply"),
                          "--output", str(tmp_path / f"{name}.ply"), "--platform", "cpu",

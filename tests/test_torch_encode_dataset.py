@@ -231,7 +231,7 @@ def _argv(tmp_path, extra):
 
 @pytest.mark.parametrize("extra,item", [
     (["--save-sequence", "s.r3ts", "--steps", "4"], None),
-    (["--tiles", "3", "--save-sequence", "s.r3ts", "--steps", "4"], 15),
+    (["--tiles", "3", "--save-sequence", "s.r3ts", "--steps", "4"], None),
     (["--target-bpp", "2.0", "--inter"], None),
     (["--target-bpp", "2.0", "--save-sequence", "s.r3ts"], None),
     (["--target-bpp", "2.0", "--two-pass", "--save-sequence", "s.r3ts"], None),
@@ -239,13 +239,10 @@ def _argv(tmp_path, extra):
     (["--inter", "--steps", "4"], None),
 ])
 def test_unported_flags_exit_naming_their_item(trees, tmp_path, monkeypatch, extra, item):
-    """``--tiles`` still exits naming its item; the flags ported since (item
-    None) run on the 8iVFBv2 tree as the JAX CLI does: the same CSV rates
-    and, with ``--save-sequence``, the same ``.r3ts`` bytes."""
-    if item is not None:
-        with pytest.raises(SystemExit, match=f"item {item}"):
-            tcli.main(_argv(tmp_path, extra))
-        return
+    """Every flag is ported now (item None) and runs on the 8iVFBv2 tree as
+    the JAX CLI does: the same CSV rates and, with ``--save-sequence`` (of
+    tiled frames under ``--tiles``), the same ``.r3ts`` bytes."""
+    assert item is None
     monkeypatch.setenv("RAHT3DGS_COMPILE_CACHE", "")
     rows = {}
     for pkg, cli in (("jax", jcli), ("torch", tcli)):

@@ -209,19 +209,41 @@ def test_voxelize_3dgs_subprocess(ckpt, tmp_path):
 
 
 @pytest.mark.parametrize("cli,extra,item", [
-    (tenc, ["--tiles", "3"], 15),
-    (tenc, ["--tiles", "3", "--target-bpp", "1.0"], 15),   # --tiles is checked first
+    (tenc, ["--tiles", "3"], None),
+    (tenc, ["--tiles", "3", "--target-bpp", "1.0"], None),   # refused, as in the JAX CLI
 ])
-def test_unported_3dgs_options_exit_naming_their_item(tmp_path, cli, extra, item):
-    if cli is tvox:
-        argv = ["--ckpt", "c.pt", "--platform", "cpu"] + extra
-    elif cli is tdec:
-        argv = ["--stream", "x.r3tc", "--output", str(tmp_path / "o.ply"),
-                "--color-space", "3dgs", "--platform", "cpu"]
-    else:
-        argv = ["--input", "x.ply", "--platform", "cpu"] + extra
-    with pytest.raises(SystemExit, match=f"item {item}"):
-        cli.main(argv)
+def test_unported_3dgs_options_exit_naming_their_item(tmp_path, no_jax_cache, cli, extra,
+                                                      item):
+    """``--tiles`` is ported (item None): on a compressed-3DGS PLY it writes
+    the JAX CLI's ``.r3tt`` bytes and CSV row (float64), and with
+    ``--target-bpp`` both CLIs refuse with the same message."""
+    assert item is None and cli is tenc
+    rng = np.random.default_rng(2)
+    pts = np.unique(rng.integers(0, 32, (400, 3)), axis=0)[:250]
+    A = np.concatenate([rng.normal(size=(len(pts), 4)), rng.uniform(0.01, 0.1, (len(pts), 3)),
+                        rng.uniform(0.2, 0.9, (len(pts), 1)), rng.normal(0, 0.3, (len(pts), 48))],
+                       axis=1)
+    src = tmp_path / "gs.ply"
+    save_ply_3dgs(src, means=pts.astype(float), quats=A[:, :4], scales=A[:, 4:7],
+                  opacities=A[:, 7], colors=A[:, 8:], voxel_size=0.05,
+                  vmin=np.array([-1.0, 0.0, 1.0]))
+    argv = ["--input", str(src), "--depth", "5", "--steps", "0.02", "--dtype", "float64",
+            "--platform", "cpu", "--code-geometry"] + extra
+    if "--target-bpp" in extra:
+        msgs = []
+        for enc in (jenc, tenc):
+            with pytest.raises(SystemExit, match="do not combine") as e:
+                enc.main(argv + ["--save-streams", str(tmp_path / "s")])
+            msgs.append(str(e.value))
+        assert msgs[0] == msgs[1]
+        return
+    for name, enc in (("j", jenc), ("t", tenc)):
+        assert enc.main(argv + ["--save-streams", str(tmp_path / name),
+                                "--csv", str(tmp_path / f"{name}.csv")]) == 0
+    blob = (tmp_path / "t" / "gs_tiled3_step0.02.r3tt").read_bytes()
+    assert blob[:4] == b"R3TT" and blob == (tmp_path / "j" / "gs_tiled3_step0.02.r3tt").read_bytes()
+    (jh, jrows), (th, trows) = _csv(tmp_path / "j.csv"), _csv(tmp_path / "t.csv")
+    assert th == jh and len(trows) == len(jrows) == 1 and trows[0][:3] == jrows[0][:3]
 
 
 def test_predict_chain_matches_jax_clis(ckpt, tmp_path, no_jax_cache):

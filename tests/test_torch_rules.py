@@ -209,3 +209,39 @@ def test_rate_entry_points_follow_the_device_rule(monkeypatch):
     frame = tp.prepare_voxel_frame(np.eye(3, dtype=np.int64), np.ones((3, 3)), 6,
                                    device="cpu")
     assert search_step_for_bpp(frame, 50.0).encoded.stream.n_voxels == 3
+
+
+def test_tiling_and_serving_entry_points_follow_the_device_rule(monkeypatch):
+    """The tiled decode, the serving functions, the upload and cli.serve run
+    on CUDA unless given the CPU and raise without a card; the serving
+    decode given tensors runs on their device."""
+    monkeypatch.setattr(tdev, "cuda_available", lambda: False)
+    from raht3dgs_tpu_torch.cli import serve
+    from raht3dgs_tpu_torch.models import serving, tiling
+
+    codec = tp.AttributeCodec(3, device="cpu")
+    V = np.array([[0, 0, 0], [1, 0, 0], [4, 4, 4]], np.int64)
+    blob, _ = tiling.encode_tiled_frame(V, np.ones((3, 3)) * 0.5, 3, 1, codec, 1.0,
+                                        code_geometry=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tiling.decode_tiled_frame(blob)
+    assert tiling.decode_tiled_frame(blob, device="cpu")[1].shape == (3, 3)
+    up = serving.pack_quantized_upload(np.zeros((2, 4), np.int32))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serving.upload_quantized(up)
+    assert serving.upload_quantized(up, device="cpu").device.type == "cpu"
+    cams = (np.eye(4)[None], np.eye(3)[None])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serving.serve_tiled_frame(blob, *cams, width=8, height=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serving.serve_sequence([], *cams, width=8, height=8)
+    vals = np.zeros((8, 4), np.int32)
+    codes = np.arange(4, dtype=np.int64)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serving.decode_scene_device(vals, np.arange(4), 1.0, codes, np.ones(4, np.float32),
+                                    1.0, np.zeros(3), depth=3)
+    scene = serving.decode_scene_device(vals, torch.arange(4), 1.0, torch.as_tensor(codes),
+                                        torch.ones(4), 1.0, np.zeros(3), depth=3)
+    assert scene[0].device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--stream", "missing.r3tc", "--out", "views"])
