@@ -183,7 +183,30 @@ Phases, each printed on its own line, any failure exits nonzero:
    ``cli.serve --u8`` on the three containers (PNGs read back by the
    phase's own decoder, the JSON line); the upload tiers on the served
    frame and a P-frame residual against an int32 upload. The scan launches
-   are read around each path.
+   are read around each path;
+15. the J=21 code tier and the other transforms: (a) phase 5's raw cloud
+   voxelized at J=21 on the card (nearly a voxel a point, 2^21 slots; the
+   codes, as the JAX package's uint64 values, equal to the CPU's and
+   decoded back to the voxel coordinates), one encode + decode (float32,
+   step 16; one pack and two transposed scans, RMSE within step / 2, e2e,
+   peak memory), its stream against a CPU encode under the gate, the
+   (2^21, 4) pack and the (1, 2^21) strided scan against their bound and
+   the library calls, ``encode_ply --depth 21 --voxelize --code-geometry``
+   and ``decode`` without positions (positions exact); (b) ``dense``,
+   ``compact`` and ``scan`` against ``span`` on phase 3's J10 frame
+   (float32 and float64), ``dense`` and ``compact`` on phase 7's merge and
+   ``dense`` on the J21 frame: structure and order bitwise, coefficients
+   within ``IMPL_F32_TOL`` / the JAX package's float64 tolerances, streams
+   under the gate, the span decoder's RMSE, no scan launch, ms and peak
+   memory; (c) the tiered nearest->= scans bitwise the flat ones and
+   ``fill`` within 1e-4 of ``chain`` (float64 frames; the float32 gap
+   reported) at J10 and J21, and the float32 forward with float64 sums
+   (``RAHT3DGS_SPAN_SUMS=f64``) timed; (d) ``impl="golden"`` on the J10
+   frame with integer colours through ``rgb_to_yuv_parity``: within 1e-9
+   of ``dense``, the same order, its stream decoded by the span decoder on
+   the card within 1e-9 of the golden decode, and ``crosscheck_prelude`` /
+   ``crosscheck_coefficients`` of the card's dense float64 outputs against
+   a MATLAB-style ``.mat`` dump of the host golden.
 
 Needs one CUDA card; imports nothing of JAX or of the JAX package.
 """
@@ -3257,6 +3280,378 @@ def phase_serving(torch, ds, keep):
     return out
 
 
+J21 = 21
+J21_BUCKET = 1 << 21       # phase 15 (a): the raw cloud at J=21, nearly a voxel a point
+J21_NVOX_RANGE = (1_900_000, 2_000_000)
+IMPL_F32_TOL = 1e-5        # phase 15 (b): level loops against span, float32, over the largest
+#                            coefficient (31-64 levels of float32 butterflies round ~1e-7 each)
+IMPL_F64_RTOL, IMPL_F64_ATOL = 1e-9, 1e-7   # span against dense, float64 (the JAX
+#                            package's tests/test_raht_span.py:37-38)
+TIE_TOL = {"float32": 1e-5, "float64": 1e-9}   # a symbol may flip only this near a tie
+FILL_TOL = 1e-4            # phase 15 (c): fill against chain (the JAX package's tolerance)
+GOLDEN_TOL = 1e-9          # phase 15 (d): golden against dense, golden decode against span's
+
+
+def symbols_of(tp, np, stream):
+    out = np.zeros((stream.n_channels, stream.n_voxels), np.int32)
+    tp.decode_entropy_channels(stream, stream.n_voxels, out)
+    return out
+
+
+def tie_gate(np, tp, a, b, coeffs, order, n, step, tol):
+    """Two streams of one frame agree under the codec's gate: every symbol
+    that differs differs by one, where the coefficient (``coeffs``, in
+    transform position) lies within ``tol`` of a rounding tie. Returns the
+    count of differing symbols."""
+    qa, qb = symbols_of(tp, np, a), symbols_of(tp, np, b)
+    diff = qa != qb
+    if diff.any():
+        c = tp._reorder_T_device(coeffs, order, n)[:, :n].double().cpu().numpy()
+        t = c / step + 0.5
+        tie = np.abs(t - np.round(t)) <= tol * np.maximum(1.0, np.abs(t))
+        check(not (diff & ~tie).any() and int(np.abs(qa - qb)[diff].max()) == 1,
+              f"{int((diff & ~tie).sum())} symbols differ away from a tie")
+    return int(diff.sum())
+
+
+def phase_transforms(torch, ds, keep):
+    """Phase 15: the J=21 code tier and the other transforms on the card.
+
+    (a) phase 5's raw cloud voxelized at J=21 (codes card == CPU as uint64
+    values, decoded back to the voxel coordinates), one encode + decode at
+    2^21 slots (launches, RMSE, e2e, peak memory), the stream against a CPU
+    encode under the gate, the (2^21, 4) pack and the (1, 2^21) strided
+    scan timed, and ``encode_ply --depth 21 --voxelize --code-geometry``
+    then ``decode`` without positions; (b) ``dense``, ``compact`` and
+    ``scan`` against ``span`` on phase 3's J10 frame (f32, f64), ``dense``
+    and ``compact`` on phase 7's merge, ``dense`` on the J21 frame; (c) the
+    tiered nearest->= scans against the flat ones, ``fill`` against
+    ``chain``, the f64-sums forward; (d) ``golden`` and the crosscheck."""
+    import os
+
+    import numpy as np
+
+    from raht3dgs_tpu_torch import crosscheck as cc
+    from raht3dgs_tpu_torch.cli import decode, encode_ply
+    from raht3dgs_tpu_torch.codec.bitstream import FrameStream
+    from raht3dgs_tpu_torch.io.ply import read_compressed_3dgs_ply, read_ply_8i
+    from raht3dgs_tpu_torch.models import pipeline as tp
+    from raht3dgs_tpu_torch.ops import prelude as pre, raht as tr, raht_span as ts
+    from raht3dgs_tpu_torch.ops.color import rgb_to_yuv, rgb_to_yuv_parity
+    from raht3dgs_tpu_torch.ops.morton import codes_to_host, morton_decode, morton_encode
+    from raht3dgs_tpu_torch.ops.voxelize import voxelize
+    from raht3dgs_tpu_torch.utils.synth import raw_surface_cloud, synthetic_positions
+
+    t_phase = time.perf_counter()
+    out = {}
+    launches = {}
+
+    def counted(path, fn, *args):
+        launches.setdefault(path, {name: 0 for name in ds.LAUNCHES})
+        return run_counted(torch, ds, launches[path], fn, *args)
+
+    def peak_of(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, torch.cuda.max_memory_allocated() / 2**30
+
+    # (a) the raw cloud at J=21
+    pts, rgb = raw_surface_cloud(N_RAW, seed=0)
+    PC = torch.from_numpy(np.concatenate([pts, rgb.astype(np.float32)], axis=1))
+    PCg = PC.cuda()
+    g, vox_peak = peak_of(lambda: voxelize(PCg, J21))
+    t0 = time.perf_counter()
+    c = voxelize(PC, J21, device="cpu")
+    vox_cpu_s = time.perf_counter() - t0
+    for f in ("codes", "positions", "counts", "nvox", "sort_idx", "point_voxel"):
+        check(torch.equal(getattr(g, f).cpu(), getattr(c, f)),
+              f"J21 voxelize: {f} differs between the card and the CPU")
+    nvox = int(g.nvox)
+    check(J21_NVOX_RANGE[0] <= nvox <= min(J21_NVOX_RANGE[1], J21_BUCKET),
+          f"J21 raw cloud gave {nvox} voxels")
+    hc = codes_to_host(g.codes, J21)
+    check(hc.dtype == np.uint64 and np.array_equal(hc, codes_to_host(c.codes, J21))
+          and bool(np.all(np.diff(hc[:nvox].astype(np.uint64)) > 0)),
+          "J21 voxelize: the uint64 codes differ or are not ascending")
+    check(torch.equal(morton_decode(g.codes[:nvox], J21), g.positions[:nvox]),
+          "J21 voxelize: morton_decode of the codes is not the voxel coordinates")
+    vox_ms = cuda_ms(torch, lambda: voxelize(PCg, J21), reps=3, warm=1)
+    positions = g.positions[:nvox].cpu().numpy()
+    yuv = rgb_to_yuv(g.attributes[:nvox], dtype=torch.float32).cpu().numpy()
+    del PCg, c
+    frame = tp.prepare_voxel_frame(positions, yuv.astype(np.float64), J21, bucket=J21_BUCKET,
+                                   dtype=torch.float32)
+    check(frame.codes.shape[0] == J21_BUCKET and torch.equal(frame.codes[:nvox], g.codes[:nvox]),
+          "J21 frame: padded size or codes")
+    del g
+    codec = tp.AttributeCodec(J21, dtype=torch.float32)
+    run_frame(FrameStream, frame, codec)  # warm-up
+    ((enc, rec, _), codec_peak), _, _ = counted(
+        "j21_codec", peak_of, lambda: run_frame(FrameStream, frame, codec))
+    check(launches["j21_codec"] == {"ds_cumsum": 1, "ds_cumsum_t": 2, "ds_cumsum_batched": 0},
+          f"J21 encode + decode: scan launches {launches['j21_codec']}")
+    want = frame.attributes[:nvox].cpu().numpy()
+    check(rec.shape == (nvox, D_ATTR) and np.isfinite(rec).all(), "J21 decode output")
+    rmse = float(np.sqrt(np.mean((rec - want) ** 2)))
+    check(rmse <= STEP / 2, f"J21 rmse {rmse} above the quantization bound")
+    e2e = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        run_frame(FrameStream, frame, codec)
+        torch.cuda.synchronize()
+        e2e.append(time.perf_counter() - t1)
+    # the card's stream against a CPU encode of the same frame, under the gate
+    cframe = tp.prepare_voxel_frame(positions, yuv.astype(np.float64), J21, bucket=J21_BUCKET,
+                                    dtype=torch.float32, device="cpu")
+    ccodec = tp.AttributeCodec(J21, dtype=torch.float32, device="cpu")
+    t0 = time.perf_counter()
+    cc_coeffs, cc_order, _, _ = ccodec.transform(cframe)
+    cpu_stream = ccodec.encode(cframe, STEP, cc_coeffs, cc_order).stream
+    cpu_encode_s = time.perf_counter() - t0
+    n_diff = tie_gate(np, tp, enc.stream, cpu_stream, cc_coeffs, cc_order, nvox, STEP,
+                      TIE_TOL["float32"])
+    same_bytes = enc.stream.to_bytes() == cpu_stream.to_bytes()
+    del cframe, ccodec, cc_coeffs, cc_order, cpu_stream
+    out["j21"] = {"nvox": nvox, "voxelize_ms": vox_ms, "voxelize_peak_gib": vox_peak,
+                  "voxelize_cpu_s": vox_cpu_s, "rmse": rmse, "e2e_s": statistics.median(e2e),
+                  "e2e_mpts": nvox / statistics.median(e2e) / 1e6,
+                  "bytes": len(enc.stream.to_bytes()), "peak_mem_gib": codec_peak,
+                  "cpu_encode_s": cpu_encode_s, "symbols_off_cpu": n_diff,
+                  "bytes_equal_cpu": same_bytes,
+                  "stages_s": {k: round(v, 6) for k, v in enc.timer.stages.items()}}
+    say("j21_codec", **{k: json.dumps(v) if isinstance(v, dict) else v
+                        for k, v in out["j21"].items()})
+
+    # the J21 forward's (2^21, 4) pack and the decode's (1, 2^21) strided scan
+    w = frame.weights
+    body = torch.cat([frame.attributes * torch.sqrt(w)[:, None], w[:, None]], dim=1)
+    out["pack"] = wide_pack_row(torch, ds, body)
+    wt = w[None, :].contiguous()
+    hi, lo = ds.ds_cumsum_t(wt)
+    ph, pl = ds.ds_cumsum_reference(wt.T.contiguous())
+    ref = torch.cumsum(wt.T.double(), 0)
+    check(torch.equal(hi.T, ph) and not bool(lo.any()) and torch.equal(hi.T.double(), ref),
+          "J21 strided weight scan is not exact")
+    N = wt.shape[1]
+    bytes_ms = 4.0 * (N + 2 * N) / HBM_BYTES_PER_S * 1e3
+    ops_ms = DS_OPS_PER_ELEM * N / F32_OPS_PER_S * 1e3
+    out["strided"] = {
+        "call": "ds_cumsum_t", "shape": [1, N], "max_abs_err": 0.0,
+        "ms": cuda_ms(torch, lambda: ds.ds_cumsum_t(wt), reps=100),
+        "plain_ms": cuda_ms(torch, lambda: ds.ds_cumsum_reference(wt.T.contiguous()), reps=5,
+                            warm=1),
+        "library_ms": cuda_ms(torch, lambda: torch.cumsum(wt.T, 0, dtype=torch.float64),
+                              reps=100),
+        "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms
+        else "operations", **fair_library_ms(torch, wt.T, reps=20)}
+
+    # encode_ply --depth 21 --voxelize --code-geometry, decode without positions
+    raw = os.path.join(keep, "raw.ply")
+    sdir = os.path.join(keep, "j21")
+    _, cli_s, _ = counted("j21_cli", encode_ply.main, [
+        "--input", raw, "--voxelize", "--depth", str(J21), "--code-geometry", "--steps",
+        f"{STEP:g}", "--dtype", "float32", "--bucket", str(J21_BUCKET), "--save-streams", sdir,
+        "--csv", os.path.join(keep, "j21.csv")])
+    stream_path = os.path.join(sdir, f"frame0001_step{STEP:g}.r3tc")
+    check(os.path.getsize(stream_path) > 0, "J21 CLI stream missing")
+    rec_ply = os.path.join(keep, "j21_rec.ply")
+    _, dec_s, _ = counted("j21_decode_cli", decode.main, [
+        "--stream", stream_path, "--output", rec_ply, "--dtype", "float32", "--bucket",
+        str(J21_BUCKET)])
+    Vd, Cd, _ = read_ply_8i(rec_ply)
+    got = morton_encode(torch.as_tensor(Vd.astype(np.int64)).cuda(), J21)
+    check(Vd.shape[0] == nvox and torch.equal(got, frame.codes[:nvox])
+          and np.isfinite(Cd).all(), "J21 decode without positions: positions not exact")
+    check(launches["j21_cli"]["ds_cumsum"] == 1 and launches["j21_cli"]["ds_cumsum_t"] == 2
+          and launches["j21_decode_cli"] == {"ds_cumsum": 0, "ds_cumsum_t": 2,
+                                             "ds_cumsum_batched": 0},
+          f"J21 CLIs: scan launches {launches['j21_cli']}, {launches['j21_decode_cli']}")
+    out["j21_cli"] = {"encode_s": cli_s, "decode_s": dec_s,
+                      "stream_bytes": os.path.getsize(stream_path),
+                      "csv": open(os.path.join(keep, "j21.csv")).read().splitlines()[1]}
+    say("j21_cli", **{k: json.dumps(v) if isinstance(v, dict) else v
+                      for k, v in out["j21_cli"].items()})
+
+    # (b) the other forwards against span
+    def against_span(tag, frame, depth, dtype, step, impls):
+        name = "float32" if dtype == torch.float32 else "float64"
+        span = tp.AttributeCodec(depth, dtype=dtype)
+        cs, os_, ss, _ = span.transform(frame)
+        s_enc = span.encode(frame, step, cs, os_)
+        n = frame.n_voxels
+        res = {}
+        for impl in impls:
+            codec = tp.AttributeCodec(depth, dtype=dtype, impl=impl)
+            codec.transform(frame)  # warm-up
+            (ci, oi, si, _), _, _ = counted(f"{impl}_{tag}_transform", codec.transform, frame)
+            check(sum(launches[f"{impl}_{tag}_transform"].values()) == 0,
+                  f"{impl} {tag}: the level loop launched the scan")
+            _, peak = peak_of(lambda: codec.transform(frame))
+            ms = cuda_ms(torch, lambda: codec.transform(frame), reps=3, warm=1)
+            check(torch.equal(oi, os_) and torch.equal(si.drop_level, ss.drop_level)
+                  and torch.equal(si.subtree_w, ss.subtree_w),
+                  f"{impl} {tag}: structure or order differs from span")
+            a, b = ci[:n].double(), cs[:n].double()
+            err = float((a - b).abs().max())
+            scale = float(b.abs().max())
+            if dtype == torch.float64:
+                ok = bool(((a - b).abs() <= IMPL_F64_ATOL + IMPL_F64_RTOL * b.abs()).all())
+            else:
+                ok = err <= IMPL_F32_TOL * scale
+            check(ok, f"{impl} {tag}: coefficients {err} off span's (largest {scale})")
+            i_enc = codec.encode(frame, step, ci, oi)
+            n_diff = tie_gate(np, tp, i_enc.stream, s_enc.stream, cs, os_, n, step,
+                              TIE_TOL[name])
+            (drec, _), _, _ = counted(f"{impl}_{tag}_decode", span.decode,
+                                      FrameStream.from_bytes(i_enc.stream.to_bytes()),
+                                      frame.codes, frame.weights)
+            rmse = float(np.sqrt(np.mean((drec - frame.attributes[:n].cpu().numpy()) ** 2)))
+            check(rmse <= step / 2, f"{impl} {tag}: span decode rmse {rmse}")
+            res[impl] = {"ms": ms, "span_ms": None, "peak_gib": peak, "max_abs_err": err,
+                         "largest": scale, "symbols_off_span": n_diff, "rmse": rmse}
+        span_ms = cuda_ms(torch, lambda: span.transform(frame), reps=3, warm=1)
+        for r in res.values():
+            r["span_ms"] = span_ms
+        say(f"impls_{tag}", **{k: json.dumps(v) for k, v in res.items()})
+        return res
+
+    pts10, attrs10 = synthetic_positions(N_VOX, DEPTH, D_ATTR, seed=0)
+    impls = {}
+    for name, dt in (("float32", torch.float32), ("float64", torch.float64)):
+        f10 = tp.prepare_voxel_frame(pts10, attrs10, DEPTH, bucket=BUCKET, dtype=dt)
+        impls[f"j10_{name}"] = against_span(f"j10_{name}", f10, DEPTH, dt, STEP,
+                                            ("dense", "compact", "scan"))
+    del f10
+    V, A, vsize, vmin = read_compressed_3dgs_ply(os.path.join(keep, "gs_vox.ply"))
+    gframe = tp.prepare_voxel_frame(V, A.astype(np.float64), DEPTH, bucket=BUCKET,
+                                    dtype=torch.float32, vmin=vmin, width=vsize * (1 << DEPTH))
+    check(gframe.n_voxels == GS_NVOX, f"3DGS merge has {gframe.n_voxels} voxels")
+    impls["gs"] = against_span("gs", gframe, DEPTH, torch.float32, PREDICT_GS_STEP,
+                               ("dense", "compact"))
+    del gframe
+    impls["j21"] = against_span("j21", frame, J21, torch.float32, STEP, ("dense",))
+    out["impls"] = impls
+
+    # (c) the span options: tiered against flat, fill against chain, f64 sums
+    opts = {}
+    f10 = tp.prepare_voxel_frame(pts10, attrs10, DEPTH, bucket=BUCKET, dtype=torch.float64)
+    f21 = tp.prepare_voxel_frame(positions, yuv.astype(np.float64), J21, bucket=J21_BUCKET,
+                                 dtype=torch.float64)
+    for tag, fr, depth in (("j10", f10, DEPTH), ("j21", f21, J21)):
+        W, _ = ts._weight_prefix(fr.weights, torch.float64)
+        B = ts._span_topology(fr.codes, depth)[4]
+        nv = tr.num_levels(depth, fr.codes.shape[0]) + 2
+        for args in ((B, nv), (B, nv, W)):
+            a, b = ts._nearest_ge_tiered(*args), ts._nearest_ge_flat(*args)
+            check(all(torch.equal(x, y) for x, y in zip(a, b)),
+                  f"{tag}: tiered nearest->= differs from flat")
+        _, tier_peak = peak_of(lambda: ts._nearest_ge_tiered(B, nv, W))
+        _, flat_peak = peak_of(lambda: ts._nearest_ge_flat(B, nv, W))
+        fwd = ts.raht_forward_span(fr.codes, fr.attributes, fr.weights, depth)
+        chain = ts._raht_inverse_span_chain(fwd.coeffs, fr.codes, fr.weights, depth)
+        fill, fill_peak = peak_of(lambda: ts._raht_inverse_span_fill(
+            fwd.coeffs, fr.codes, fr.weights, depth))
+        n = fr.n_voxels
+        fill_err = float((fill[:n] - chain[:n]).abs().max())
+        check(fill_err <= FILL_TOL, f"{tag}: fill {fill_err} off chain")
+        f32 = fwd.coeffs.float()
+        w32 = fr.weights.float()
+        fill_err32 = float((ts._raht_inverse_span_fill(f32, fr.codes, w32, depth)[:n]
+                            - ts._raht_inverse_span_chain(f32, fr.codes, w32, depth)[:n])
+                           .abs().max())
+        opts[tag] = {
+            "tiered_ms": cuda_ms(torch, lambda: ts._nearest_ge_tiered(B, nv, W), reps=5, warm=1),
+            "flat_ms": cuda_ms(torch, lambda: ts._nearest_ge_flat(B, nv, W), reps=5, warm=1),
+            "tiered_peak_gib": tier_peak, "flat_peak_gib": flat_peak,
+            "plan": ts._nge_tier_plan(B.shape[0], nv),
+            "chain_ms": cuda_ms(torch, lambda: ts._raht_inverse_span_chain(
+                fwd.coeffs, fr.codes, fr.weights, depth), reps=5, warm=1),
+            "fill_ms": cuda_ms(torch, lambda: ts._raht_inverse_span_fill(
+                fwd.coeffs, fr.codes, fr.weights, depth), reps=3, warm=1),
+            "fill_peak_gib": fill_peak, "fill_err_f64": fill_err, "fill_err_f32": fill_err32}
+        del W, B, fwd, chain, fill
+    del f21
+    fr32 = {"j10": tp.prepare_voxel_frame(pts10, attrs10, DEPTH, bucket=BUCKET,
+                                          dtype=torch.float32), "j21": frame}
+    for tag, depth in (("j10", DEPTH), ("j21", J21)):
+        fr = fr32[tag]
+        ds_c = ts.raht_forward_span(fr.codes, fr.attributes, fr.weights, depth).coeffs
+        ds_ms = cuda_ms(torch, lambda: ts.raht_forward_span(fr.codes, fr.attributes,
+                                                            fr.weights, depth), reps=5, warm=1)
+        saved = ts._SUM_MODE
+        ts._SUM_MODE = "f64"
+        try:
+            ds.reset_launches()
+            f64_c = ts.raht_forward_span(fr.codes, fr.attributes, fr.weights, depth).coeffs
+            torch.cuda.synchronize()
+            check(sum(ds.LAUNCHES.values()) == 0, "f64 sums launched the scan")
+            f64_ms = cuda_ms(torch, lambda: ts.raht_forward_span(
+                fr.codes, fr.attributes, fr.weights, depth), reps=5, warm=1)
+        finally:
+            ts._SUM_MODE = saved
+        err = float((f64_c - ds_c).double().abs().max())
+        check(err <= IMPL_F32_TOL * float(ds_c.abs().max()), f"{tag}: f64 sums off ds by {err}")
+        opts[tag].update({"f32_forward_ds_ms": ds_ms, "f32_forward_f64_sums_ms": f64_ms,
+                          "f64_sums_err": err})
+    del fr32
+    say("span_options", **{k: json.dumps(v) for k, v in opts.items()})
+    out["span_options"] = opts
+
+    # (d) golden and the crosscheck on phase 3's J10 frame, integer colours
+    rgb10 = np.clip(np.round(attrs10), 0, 255)
+    yuv10 = rgb_to_yuv_parity(rgb10)
+    gf = tp.prepare_voxel_frame(pts10, yuv10, DEPTH, bucket=BUCKET, dtype=torch.float64)
+    n = gf.n_voxels
+    gcodec = tp.AttributeCodec(DEPTH, impl="golden")
+    dcodec = tp.AttributeCodec(DEPTH, impl="dense")
+    t0 = time.perf_counter()
+    cg, og, _, _ = gcodec.transform(gf)
+    golden_s = time.perf_counter() - t0
+    cd, od, sd, _ = dcodec.transform(gf)
+    g_err = float((cg[:n] - cd[:n]).abs().max())
+    check(bool(((cg[:n] - cd[:n]).abs() <= GOLDEN_TOL + GOLDEN_TOL * cd[:n].abs()).all()),
+          f"golden: {g_err} off dense")
+    check(torch.equal(og[:n], tp._pads_last(od, n)[:n]), "golden: order differs from dense")
+    genc = gcodec.encode(gf, STEP, cg, og)
+    t0 = time.perf_counter()
+    grec, _ = gcodec.decode(genc.stream, gf.codes, gf.weights)
+    golden_dec_s = time.perf_counter() - t0
+    (srec, _), _, _ = counted("golden_span_decode", tp.AttributeCodec(DEPTH).decode,
+                              FrameStream.from_bytes(genc.stream.to_bytes()), gf.codes,
+                              gf.weights)
+    dec_err = float(np.abs(grec - srec).max())
+    check(dec_err <= GOLDEN_TOL, f"golden stream: span decode {dec_err} off the golden decode")
+    codes_np = codes_to_host(gf.codes[:n], DEPTH).astype(np.int64)
+    Lists, Flags, weights, _ = pre.prelude(codes_np, 3 * DEPTH)
+    T_ref, w_ref = pre.raht_forward_lists(gf.attributes[:n].cpu().numpy(), Lists, Flags,
+                                          weights)
+    with tempfile.TemporaryDirectory() as tmp:
+        params, coeff = os.path.join(tmp, "params.mat"), os.path.join(tmp, "coeff.mat")
+        cc.save_lists(params, ListC=[x + 1 for x in Lists],
+                      FlagsC=[f.astype(np.float64) for f in Flags], weightsC=weights)
+        cc.save_mat(T_ref, coeff)
+        rep_p = cc.crosscheck_prelude(codes_np, DEPTH, params)
+        rep_c = cc.crosscheck_coefficients(cd[:n].cpu().numpy(), coeff,
+                                           weights=sd.node_weights[:n].cpu().numpy(),
+                                           weights_mat=w_ref)
+    check(rep_p.ok and rep_c.ok, f"crosscheck failed:\n{rep_p}\n{rep_c}")
+    out["golden"] = {"n": n, "golden_transform_s": golden_s, "golden_decode_s": golden_dec_s,
+                     "err_vs_dense": g_err, "span_decode_err": dec_err,
+                     "coeff_crosscheck_max_abs": max(r.max_abs_diff for r in rep_c.results),
+                     "bytes": len(genc.stream.to_bytes())}
+    say("golden_impl", **out["golden"])
+    check(sum(launches["golden_span_decode"].values()) == 0,
+          "golden stream: the float64 span decode launched the scan")
+
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    say("transforms", seconds=round(out["seconds"], 1), launches=json.dumps(launches))
+    return out, body, wt
+
+
 def main() -> int:
     import torch
 
@@ -3291,9 +3686,15 @@ def main() -> int:
         rate = phase_rate(torch, ds, cli, gs, data, keep)
         seq = phase_sequence(torch, ds, data, keep)
         serving = phase_serving(torch, ds, keep)
+        transforms, j21_body, j21_weights = phase_transforms(torch, ds, keep)
     finally:
         shutil.rmtree(keep, ignore_errors=True)
     add_device_ms(torch, ds, vox["pack"], vox_vals)
+    add_device_ms(torch, ds, transforms["pack"], j21_body)
+    st = transforms["strided"]
+    st["device_ms"], st["device_launches_per_call"], st["device_us_by_kernel"] = \
+        device_ms(torch, lambda: ds.ds_cumsum_t(j21_weights))
+    say("j21_scans", pack=json.dumps(transforms["pack"]), strided=json.dumps(st))
     say("voxelize", **{k: json.dumps(v) if isinstance(v, (dict, list)) else v
                        for k, v in vox["pack"].items()})
     # every path's counts, each read around a run that began from zero
@@ -3305,7 +3706,7 @@ def main() -> int:
              "entropy_cli": entropy["colour"]["launches"],
              "entropy_gs_cli": entropy["gs"]["launches"],
              **predict["launches"], **rate["launches"], **seq["launches"],
-             **serving["launches"]}
+             **serving["launches"], **transforms["launches"]}
     rows.append(data["row"])
     for row in rows:
         # `launches`: the codec's main path (phase 3) for the single entry,
@@ -3318,11 +3719,15 @@ def main() -> int:
             row["gs_pack"] = gs["pack"]
             row["gs_pack_nvox"] = gs["pack_nvox"]
             row["gs_pack_merge"] = gs["pack_merge"]
+            row["j21_pack"] = transforms["pack"]
+        if row["name"] == "ds_cumsum_t":
+            row["j21_strided"] = transforms["strided"]
     say("done", seconds=round(time.perf_counter() - t_start, 1),
         predict_phase_seconds=round(predict["seconds"], 1),
         rate_phase_seconds=round(rate["seconds"], 1),
         sequence_phase_seconds=round(seq["seconds"], 1),
-        serving_phase_seconds=round(serving["seconds"], 1))
+        serving_phase_seconds=round(serving["seconds"], 1),
+        transforms_phase_seconds=round(transforms["seconds"], 1))
 
     print(card)
     print(json.dumps({"kernels": rows}))

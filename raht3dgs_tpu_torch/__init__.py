@@ -6,7 +6,9 @@ It imports neither JAX nor anything of ``raht3dgs_tpu``; it keeps the old
 package's layout (``ops/``, ``codec/``, ``models/``, ``utils/``) so every
 module has a counterpart at the same relative path. Entry points run on
 CUDA unless the caller passes ``device="cpu"``. Float64 and int64 need no
-switch. Morton codes are int32 (J <= 10) or int64 (J <= 20).
+switch. Morton codes are int32 (J <= 10) or int64 above; at J = 21 (the JAX
+package's uint64 tier) the int64 holds them with bit 63 flipped, an
+order-preserving form (``ops/morton.py``).
 """
 
 __version__ = "0.1.0"

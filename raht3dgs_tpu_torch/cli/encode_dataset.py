@@ -516,6 +516,7 @@ def _run_inter(args, first: int, last: int, log, device, seq) -> None:
     from raht3dgs_tpu_torch.io.datasets import get_pointcloud
     from raht3dgs_tpu_torch.models.color_codec import RDPoint, y_psnr_db
     from raht3dgs_tpu_torch.models.temporal import SequenceCodec, signalled_global_motion
+    from raht3dgs_tpu_torch.ops.morton import codes_to_host
     from raht3dgs_tpu_torch.utils.timing import StageTimer
 
     dtype = torch_dtype(args.dtype)
@@ -569,7 +570,7 @@ def _run_inter(args, first: int, last: int, log, device, seq) -> None:
                 # temporal geometry rides P-frames only, compensated by the
                 # stream's signalled global motion (profile 2); I-frames
                 # restart the chain, so every GOP boundary is an entry point
-                cur_codes = frame.codes[:frame.n_voxels].cpu().numpy()
+                cur_codes = codes_to_host(frame.codes[:frame.n_voxels], depth)
                 use_prev = stream.inter and geom_prev[1] == depth
                 stream.geometry = encode_geometry(
                     cur_codes, depth, prev_codes=geom_prev[0] if use_prev else None,

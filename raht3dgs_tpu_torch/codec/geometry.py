@@ -27,7 +27,12 @@ import torch
 
 from raht3dgs_tpu_torch.codec import _geom_py
 from raht3dgs_tpu_torch.codec._native import NativeLib, gxx_command
-from raht3dgs_tpu_torch.ops.morton import morton_codes_np, morton_decode, morton_encode
+from raht3dgs_tpu_torch.ops.morton import (
+    codes_to_host,
+    morton_codes_np,
+    morton_decode,
+    morton_encode,
+)
 from raht3dgs_tpu_torch.ops.octree import (
     _BITS8,
     level_neighbors6,
@@ -243,7 +248,10 @@ def _shift_codes(codes: np.ndarray, depth: int, mv) -> np.ndarray:
     million codes, once a frame)."""
     V = morton_decode(torch.as_tensor(np.asarray(codes).astype(np.int64)), depth)
     V = torch.clamp(V + torch.as_tensor(np.asarray(mv, dtype=np.int64)), 0, (1 << depth) - 1)
-    return np.unique(morton_encode(V, depth).numpy())
+    # back to host values: the JAX package's int32 / int64 (at depth 21 its
+    # int64 values, never the flipped form of the device)
+    return np.unique(codes_to_host(morton_encode(V, depth), depth).astype(
+        np.int32 if depth <= 10 else np.int64))
 
 
 def _u8ptr(a: np.ndarray):

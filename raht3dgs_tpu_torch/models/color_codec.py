@@ -8,9 +8,10 @@ and Y-PSNR against the 255 peak with the rate in bits per voxel.
 Rate: payload bytes * 8 / Nvox. Distortion: Y-channel PSNR of the decoded
 signal, or with ``decode=False`` in the coefficient domain (the transform
 is orthonormal, so coefficient MSE equals signal MSE; the predicted
-transform has no such shortcut and refuses ``decode=False``). The JAX
-package's ``impl="golden"`` replay is refused by ``AttributeCodec``
-(ROADMAP queue A, item 17).
+transform has no such shortcut and refuses ``decode=False``). A codec
+with ``impl="golden"`` takes the reference's homogeneous YUV form
+(``rgb_to_yuv_parity``, host numpy), as the JAX package does, for byte
+parity with the reference.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from raht3dgs_tpu_torch.models.pipeline import (
     EncodedFrame,
     prepare_voxel_frame,
 )
-from raht3dgs_tpu_torch.ops.color import rgb_to_yuv
+from raht3dgs_tpu_torch.ops.color import rgb_to_yuv, rgb_to_yuv_parity
 from raht3dgs_tpu_torch.utils.device import DeviceLike, resolve_device, same_device
 from raht3dgs_tpu_torch.utils.timing import StageTimer
 
@@ -105,9 +106,13 @@ def encode_color_frame(
     if device is not None and not same_device(codec.device, resolve_device(device)):
         raise ValueError(f"codec runs on {codec.device}, not {device}")
     dev = codec.device
-    yuv = rgb_to_yuv(torch.as_tensor(np.asarray(C_rgb), device=dev), dtype=dtype)
+    if codec.impl == "golden":
+        yuv = rgb_to_yuv_parity(np.asarray(C_rgb))
+    else:
+        yuv = rgb_to_yuv(torch.as_tensor(np.asarray(C_rgb), device=dev),
+                         dtype=dtype).cpu().numpy()
     frame = prepare_voxel_frame(
-        np.floor(np.asarray(V)).astype(np.int64), yuv.cpu().numpy(), depth,
+        np.floor(np.asarray(V)).astype(np.int64), yuv, depth,
         bucket=bucket, dtype=dtype, device=dev,
     )
     timer.add("RAHT_prelude_time", time.perf_counter() - t0)

@@ -7,19 +7,22 @@ quantize and pads-last reorder on the device -> one ``.cpu()`` of the
 ``FrameStream``; and back: entropy decode -> upload -> structure pass and inverse order -> dequantize ->
 span inverse RAHT.
 
-Covered: ``impl="span"``, quantizers ``mid`` and ``deadzone``, orders
-``ragft``, ``weight_desc`` and ``morton``, float32 and float64, and the
-pipelined step sweep ``encode_sweep`` (pinned host buffers filled by a
-fetch thread while the host entropy-codes the step before), the
-level-of-detail decode ``decode_lod``, with the
-entropy coders ``rlgr``, ``rac`` and ``auto``, and inter-depth predicted
-RAHT (``predict=True``: the device encoder ``ops/praht_device.py`` on the
-card, the frozen host closed loop ``ops/praht.py`` on the CPU or when
-asked, and the host loop for every decode of a predicted stream). Options
-of the JAX package that later slices bring raise ``NotImplementedError``
-naming their ROADMAP item. The codec's own decode uploads its symbols as
-int32; the serving path (``models/serving.py``) uploads them through the
-narrowing tiers ``pack_quantized_upload`` / ``upload_quantized``.
+Covered: every depth up to 21 (the JAX package's uint64 codes travel as
+the flipped int64 form of ``ops/morton.py`` on the device and cross back as
+uint64 wherever they reach the host), the forward impls ``span`` (the
+default), ``dense``, ``compact``, ``scan`` and the host byte-parity
+``golden`` replay, quantizers ``mid`` and ``deadzone``, orders ``ragft``,
+``weight_desc`` and ``morton``, float32 and float64, and the pipelined
+step sweep ``encode_sweep`` (pinned host buffers filled by a fetch thread
+while the host entropy-codes the step before), the level-of-detail decode
+``decode_lod``, with the entropy coders ``rlgr``, ``rac`` and ``auto``,
+and inter-depth predicted RAHT (``predict=True``: the device encoder
+``ops/praht_device.py`` on the card, the frozen host closed loop
+``ops/praht.py`` on the CPU, at depth 21 or when asked, and the host loop
+for every decode of a predicted stream). The codec's own decode uploads
+its symbols as int32; the serving path (``models/serving.py``) uploads
+them through the narrowing tiers ``pack_quantized_upload`` /
+``upload_quantized``.
 """
 
 from __future__ import annotations
@@ -54,7 +57,13 @@ from raht3dgs_tpu_torch.codec.rlgr import (
     rlgr_decode_chunked,
     rlgr_encode_channels,
 )
-from raht3dgs_tpu_torch.ops.morton import code_dtype, morton_encode, pad_code
+from raht3dgs_tpu_torch.ops.morton import (
+    code_dtype,
+    codes_from_host,
+    codes_to_host,
+    morton_encode,
+    pad_code,
+)
 from raht3dgs_tpu_torch.ops.praht import (
     _decode_axes_np,
     praht_decode,
@@ -73,12 +82,14 @@ from raht3dgs_tpu_torch.ops.quantize import (
     quantize,
     quantize_deadzone,
 )
-from raht3dgs_tpu_torch.ops.raht import ieee_sqrt
-from raht3dgs_tpu_torch.ops.raht_span import (
-    raht_forward_span,
-    raht_inverse_span,
-    raht_structure_span,
+from raht3dgs_tpu_torch.ops.prelude import (
+    parity_sqrt,
+    prelude,
+    raht_forward_lists,
+    raht_inverse_lists,
 )
+from raht3dgs_tpu_torch.ops.raht import get_forward_impl, ieee_sqrt
+from raht3dgs_tpu_torch.ops.raht_span import raht_inverse_span, raht_structure_span
 from raht3dgs_tpu_torch.ops.reorder import ORDER_MODES, coefficient_order
 from raht3dgs_tpu_torch.utils.device import DeviceLike, resolve_device
 from raht3dgs_tpu_torch.utils.padding import pad_rows, round_up_bucket
@@ -92,7 +103,7 @@ class VoxelFrame:
     """A padded, Morton-sorted voxel frame on one device: real voxels in
     slots ``[0, n_voxels)``, invisible zero-weight padding after."""
 
-    codes: torch.Tensor       # (Np,) int32 (J <= 10) or int64
+    codes: torch.Tensor       # (Np,) int32 (J <= 10) or int64 (flipped at J = 21)
     attributes: torch.Tensor  # (Np, D) float
     weights: torch.Tensor     # (Np,) float
     n_voxels: int
@@ -159,17 +170,13 @@ def voxel_frame_from_arrays(codes, attributes, weights, n_voxels: int,
                             device: DeviceLike) -> VoxelFrame:
     """A VoxelFrame from padded numpy arrays (for example the JAX package's
     ``VoxelFrame`` fields), so both packages transform the same state. The
-    float dtype is the attributes'."""
+    float dtype is the attributes'. Depth-21 codes (uint64) take the
+    flipped int64 form on the device."""
     dev = resolve_device(device)
     codes = np.array(codes)  # a writable copy: JAX buffers are read-only
-    if codes.dtype == np.uint64:
-        raise NotImplementedError(
-            "uint64 codes (depth 21) are not ported yet (ROADMAP queue A, "
-            "item 2: the J=21 tier)"
-        )
     attrs = torch.as_tensor(np.array(attributes), device=dev)
     return VoxelFrame(
-        codes=torch.as_tensor(codes, device=dev),
+        codes=codes_from_host(codes, depth, device=dev),
         attributes=attrs,
         weights=torch.as_tensor(np.array(weights), device=dev).to(attrs.dtype),
         n_voxels=int(n_voxels),
@@ -179,11 +186,13 @@ def voxel_frame_from_arrays(codes, attributes, weights, n_voxels: int,
     )
 
 
-def _transform_device(codes, attrs, weights, depth: int, order_mode: str = "ragft"):
-    res = raht_forward_span(codes, attrs, weights, depth)
+def _transform_device(codes, attrs, weights, depth: int, order_mode: str = "ragft",
+                      impl: str = "span"):
+    res = get_forward_impl(impl)(codes, attrs, weights, depth)
     if order_mode == "weight_desc":
         # the stream permutation is derived from the same structure function
-        # the decoder runs, so encoder and decoder agree bit for bit
+        # the decoder runs, so encoder and decoder agree bit for bit (the
+        # level loops sum node weights in another order)
         order = coefficient_order(raht_structure_span(codes, weights, depth),
                                   order_mode)
     else:
@@ -598,12 +607,33 @@ class AttributeCodec:
             raise ValueError(f"unknown quant_mode {quant_mode!r}")
         if entropy not in ("rlgr", "rac", "auto"):
             raise ValueError(f"unknown entropy coder {entropy!r}")
-        impl = impl or "span"
-        if impl in ("dense", "compact", "scan", "golden"):
-            raise NotImplementedError(
-                f"impl={impl!r} is not ported yet (ROADMAP queue A, item 17)")
-        if impl != "span":
+        # the forward transform: "span" (closed form, the default), the
+        # level loops "dense" (the 1e-12 crosscheck golden), "compact" and
+        # "scan", or "golden": the host ragged transform of ops/prelude.py
+        # with torch's CPU sqrt, byte parity with the reference's torch
+        # pipeline at quantization ties (a parity tool, not a fast path).
+        # RAHT3DGS_RAHT_IMPL is the default, read per codec
+        impl = impl or os.environ.get("RAHT3DGS_RAHT_IMPL", "span")
+        if impl not in ("span", "dense", "compact", "scan", "golden"):
             raise ValueError(f"unknown impl {impl!r}")
+        if impl == "golden":
+            if order_mode != "ragft":
+                raise ValueError(
+                    "impl='golden' (reference byte parity) supports only "
+                    f"the 'ragft' coefficient order, got {order_mode!r}")
+            if quant_mode != "mid":
+                raise ValueError(
+                    "impl='golden' replays the reference quantizer only "
+                    f"(quant_mode='mid'), got {quant_mode!r}")
+            if depth > 20:
+                raise ValueError(
+                    "impl='golden' covers the reference's int64 Morton "
+                    f"range (depth <= 20), got {depth}")
+            if predict:
+                raise ValueError(
+                    "impl='golden' is the reference byte-parity mode; "
+                    "the predicted transform has no reference "
+                    "counterpart — drop one of the two")
         # Inter-depth predicted RAHT (ops/praht.py): residuals against an
         # upsampled prediction in the same stream layout. Decode is
         # flag-driven (any codec decodes a predicted stream, always through
@@ -640,6 +670,7 @@ class AttributeCodec:
         self._praht_plans: dict = {}
         self._praht_tcs: dict = {}
         self._praht_dev_cache: dict = {}
+        self._golden_cache: Optional[tuple] = None
 
     def _on_device(self, x) -> torch.Tensor:
         t = torch.as_tensor(x)
@@ -653,14 +684,85 @@ class AttributeCodec:
     # -- encoding ---------------------------------------------------------
 
     def transform(self, frame: VoxelFrame, timer: Optional[StageTimer] = None):
-        """Forward RAHT + coefficient order. Returns (coeffs, order, structure, timer)."""
+        """Forward RAHT + coefficient order. Returns (coeffs, order, structure,
+        timer); ``golden`` has no device structure (None)."""
         timer = timer or StageTimer()
+        if self.impl == "golden":
+            coeffs, order = timer.time("RAHT_transform_time", self._golden_transform, frame)
+            return coeffs, order, None, timer
         coeffs, order, structure = timer.time(
             "RAHT_transform_time", _transform_device,
             self._on_device(frame.codes), frame.attributes, frame.weights,
-            self.depth, self.order_mode,
+            self.depth, self.order_mode, self.impl,
         )
         return coeffs, order, structure, timer
+
+    # -- golden (reference byte-parity) host path ---------------------------
+
+    def _golden_prelude(self, codes, nvox: int):
+        """The ragged reference prelude of the real codes, on the host,
+        cached by content hash (a decode sweep re-enters per step)."""
+        codes_np = codes_to_host(self._on_device(codes)[:nvox], self.depth).astype(np.int64)
+        key = (nvox, hashlib.sha1(codes_np.tobytes()).hexdigest())
+        if self._golden_cache is not None and self._golden_cache[0] == key:
+            return self._golden_cache[1]
+        out = prelude(codes_np, 3 * self.depth)
+        self._golden_cache = (key, out)
+        return out
+
+    def _golden_transform(self, frame: VoxelFrame):
+        """The host ragged forward with torch's CPU sqrt; its coefficients
+        and RA-GFT order (pads already last) move to the codec's device."""
+        n = frame.n_voxels
+        P = frame.codes.shape[0]
+        if not np.all(frame.weights[:n].cpu().numpy() == 1):
+            raise ValueError(
+                "impl='golden' replays the reference pipeline, which has "
+                "unit leaf weights (unique-voxel inputs); this frame "
+                "carries multiplicity weights")
+        Lists, Flags, weights, order = self._golden_prelude(frame.codes, n)
+        attrs = frame.attributes[:n].cpu().numpy().astype(np.float64)
+        T, _ = raht_forward_lists(attrs, Lists, Flags, weights, sqrt_fn=parity_sqrt())
+        coeffs = np.zeros((P, attrs.shape[1]), dtype=np.float64)
+        coeffs[:n] = T
+        order_p = np.concatenate([order, np.arange(n, P, dtype=np.int64)]).astype(np.int32)
+        return (torch.as_tensor(coeffs, device=self.device),
+                torch.as_tensor(order_p, device=self.device))
+
+    def _golden_decode(self, stream: FrameStream, codes, weights, k: int,
+                       timer: StageTimer) -> Tuple[np.ndarray, StageTimer]:
+        """Host decode in the reference's op order: entropy decode ->
+        dequantize (q * step) -> inverse RA-GFT order -> ragged inverse
+        with torch's CPU sqrt."""
+        if stream.order_mode != "ragft" or stream.quant_mode != "mid":
+            raise ValueError(
+                "impl='golden' decodes reference-shaped streams only "
+                "(ragft order, mid quantizer)")
+        nvox = stream.n_voxels
+        # the ragged golden rebuilds unit-leaf weights from codes alone, so
+        # multiplicity weights would invert with the wrong butterflies
+        if not np.all(weights[:nvox].cpu().numpy() == 1):
+            raise ValueError(
+                "impl='golden' replays the reference pipeline, which has "
+                "unit leaf weights (unique-voxel inputs); this frame "
+                "carries multiplicity weights")
+        D = stream.n_channels
+        Lists, Flags, weights_l, order = timer.time(
+            "Coeff_reorder_dec_time", self._golden_prelude, codes, nvox)
+        vals_T = np.zeros((D, nvox), dtype=np.int32)
+        _, dec_ns = decode_entropy_channels(stream, k, vals_T)
+        timer.add("Entropy_dec_time", dec_ns / 1e9)
+
+        def _dequant():
+            steps = stream.steps if stream.steps.shape[0] > 1 else stream.steps[0]
+            coeffs = np.empty((nvox, D), dtype=np.float64)
+            coeffs[order] = vals_T.T.astype(np.float64) * steps  # stream order
+            return coeffs
+
+        coeffs = timer.time("Dequant_time", _dequant)
+        rec = timer.time("iRAHT_time", raht_inverse_lists, coeffs, Lists, Flags,
+                         weights_l, sqrt_fn=parity_sqrt())
+        return rec, timer
 
     def encode(self, frame: VoxelFrame, steps, coeffs=None, order=None,
                timer: Optional[StageTimer] = None) -> EncodedFrame:
@@ -771,7 +873,7 @@ class AttributeCodec:
         """Host closed-loop predicted-RAHT encode (ops/praht.py); the plan
         and the true coefficients come from the per-frame cache."""
         n = frame.n_voxels
-        codes_np = self._on_device(frame.codes).cpu().numpy()[:n]
+        codes_np = codes_to_host(self._on_device(frame.codes)[:n], self.depth)
         attrs_np = frame.attributes.cpu().numpy()[:n]
         w_np = frame.weights.cpu().numpy()[:n]
         fdtype = self._praht_fdtype()
@@ -804,7 +906,7 @@ class AttributeCodec:
             codes = self._on_device(frame.codes)
             coeffs, order, structure = _transform_device(
                 codes, _scale_sqrt_w(frame.attributes, frame.weights), frame.weights,
-                self.depth, "ragft")
+                self.depth, "ragft", self.impl)
             plan = praht_device_plan(codes, frame.weights, self.depth,
                                      structure.drop_level, structure.subtree_w)
             while len(self._praht_dev_cache) >= 2:
@@ -880,6 +982,8 @@ class AttributeCodec:
             )
         if stream.predict:
             return self._praht_decode(stream, codes, weights, k, timer)
+        if self.impl == "golden":
+            return self._golden_decode(stream, codes, weights, k, timer)
         inv = timer.time("Coeff_reorder_dec_time", _inverse_order_device, codes,
                          weights, nvox, self.depth, stream.order_mode)
         # zeros beyond the decoded prefix ARE the truncated coefficients
@@ -914,7 +1018,7 @@ class AttributeCodec:
         vals_T = np.zeros((stream.n_channels, nvox), dtype=np.int32)
         _, dec_ns = decode_entropy_channels(stream, k, vals_T)
         timer.add("Entropy_dec_time", dec_ns / 1e9)
-        codes_np = codes.cpu().numpy()[:nvox]
+        codes_np = codes_to_host(codes[:nvox], self.depth)
         w_np = weights.cpu().numpy()[:nvox]
         fdtype = self._praht_fdtype(stream)
 
@@ -953,7 +1057,7 @@ class AttributeCodec:
         codes = self._on_device(codes)
         weights = self._on_device(weights)
         nvox = stream.n_voxels
-        codes_np = codes.cpu().numpy()[:nvox]
+        codes_np = codes_to_host(codes[:nvox], self.depth)
         k = lod_prefix_count(codes_np, self.depth, lod_depth)
         if stream.predict:
             if nvox > codes.shape[0]:
@@ -966,7 +1070,7 @@ class AttributeCodec:
             return _decode_axes_np(cell_codes, lod_depth), means, cell_w
         rec, timer = self.decode_progressive(stream, codes, weights, k, timer=timer)
         shift = 3 * (self.depth - lod_depth)
-        coarse = codes_np.astype(np.int64) >> shift
+        coarse = codes_np.astype(np.uint64) >> np.uint64(shift)
         firsts = np.concatenate([[True], coarse[1:] != coarse[:-1]])
         idx = np.nonzero(firsts)[0]
         cell_w = np.add.reduceat(weights.cpu().numpy()[:nvox].astype(np.float64), idx)

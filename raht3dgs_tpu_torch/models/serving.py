@@ -44,7 +44,12 @@ from raht3dgs_tpu_torch.models.pipeline import (  # noqa: F401  (re-exported)
     upload_quantized,
 )
 from raht3dgs_tpu_torch.models.pipeline import _NP_CODE
-from raht3dgs_tpu_torch.ops.morton import code_dtype, internal_payload_bits, morton_codes_np
+from raht3dgs_tpu_torch.ops.morton import (
+    code_dtype,
+    flipped_tier,
+    internal_payload_bits,
+    morton_codes_np,
+)
 from raht3dgs_tpu_torch.ops.morton import morton_decode
 from raht3dgs_tpu_torch.ops.praht_device import praht_device_decode, praht_device_plan
 from raht3dgs_tpu_torch.ops.raht_span import raht_inverse_span, raht_structure_span
@@ -230,12 +235,17 @@ def _padded_frame_np(Vt, depth: int, P: int):
     slots, in numpy: ``prepare_voxel_frame``'s layout (pad slots ``arange(n,
     P)`` above ``1 << payload bits``) without a device round trip. The
     sentinels are built in the code dtype (a Python ``1 << 63`` added to an
-    int64 arange would overflow)."""
+    int64 arange would overflow); at depth 21 the codes take the flipped
+    int64 form of ``ops/morton.py``, whose sentinel ``(1 << 63) + slot`` is
+    the slot itself."""
     cdt = np.dtype(_NP_CODE[code_dtype(depth, P)])
     codes_t = np.sort(morton_codes_np(np.asarray(Vt, np.int64), depth))
     n_t = len(codes_t)
     pads = np.arange(n_t, P, dtype=np.int64).astype(cdt)
-    pads += cdt.type(1 << internal_payload_bits(depth, P))
+    if flipped_tier(depth):
+        codes_t = codes_t ^ np.int64(-(1 << 63))
+    else:
+        pads += cdt.type(1 << internal_payload_bits(depth, P))
     codes_p = np.concatenate([codes_t.astype(cdt), pads])
     w_p = np.zeros(P, dtype=np.float32)
     w_p[:n_t] = 1.0

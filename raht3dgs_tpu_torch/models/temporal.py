@@ -32,6 +32,7 @@ import torch
 from raht3dgs_tpu_torch.codec.bitstream import FrameStream
 from raht3dgs_tpu_torch.codec.rlgr import rlgr_decode, rlgr_encode
 from raht3dgs_tpu_torch.models.pipeline import AttributeCodec, VoxelFrame
+from raht3dgs_tpu_torch.ops.morton import codes_to_host
 from raht3dgs_tpu_torch.ops.temporal import (
     block_first,
     estimate_global_motion,
@@ -184,7 +185,8 @@ class SequenceCodec:
             prev_frame.weights, self.depth, motion, block_side_log=self.block_side_log,
             iters=self.search_iters,
             stride=self._effective_stride(frame.n_voxels))
-        motion_bytes = _pack_motion(frame.codes.cpu().numpy(), frame.n_voxels, self.depth,
+        motion_bytes = _pack_motion(codes_to_host(frame.codes, self.depth), frame.n_voxels,
+                                    self.depth,
                                     self.block_side_log, motion.cpu().numpy().astype(np.int64),
                                     mv.cpu().numpy())
         pred, _ = predict_from_previous(frame.codes, prev_frame.codes, prev_recon,
@@ -195,7 +197,8 @@ class SequenceCodec:
                            stream: FrameStream) -> torch.Tensor:
         """v3 decoder prediction from the stream's motion section."""
         prev_frame, prev_recon = prev
-        mv = _unpack_motion(stream.motion, frame.codes.cpu().numpy(), frame.n_voxels,
+        mv = _unpack_motion(stream.motion, codes_to_host(frame.codes, self.depth),
+                            frame.n_voxels,
                             frame.codes.shape[0], self.depth)
         pred, _ = predict_from_previous(frame.codes, prev_frame.codes, prev_recon,
                                         prev_frame.weights, self.depth, stream.probes,

@@ -2,10 +2,19 @@
 
 Counterpart of ``raht3dgs_tpu/ops/morton.py``, same bit layout: for level
 ``i`` the 3-bit digit ``z + 2*y + 4*x`` sits at bit ``3*i``. Codes are
-int32 for depth <= 10 and int64 up to depth 20. Depth 21 (uint64 codes with
-the padding sentinel on bit 63) is not ported: torch lacks ``>>``, ``<``
-and ``cummax`` for uint64, and every int64 code below depth 21 is < 2^63,
-so the port stays in signed int64 throughout.
+int32 for depth <= 10 and int64 above.
+
+Depth 21 is the JAX package's uint64 tier: real codes take 63 bits and the
+padding sentinel ``(1 << 63) + slot`` needs bit 63. PyTorch has no ``<``,
+``>>``, ``cummax``, ``sort`` or ``searchsorted`` for uint64, so on a tensor
+the port holds these codes in an order-preserving int64 form: bit 63
+flipped (``u ^ (1 << 63)`` read as a signed integer). Signed order of the
+flipped codes is unsigned order of the JAX package's, and the XOR of two
+codes is unchanged by the flip, so sorts, searches, merge levels and the
+stream are the JAX package's. :func:`morton_encode` returns that form at
+depth 21 and :func:`morton_decode` accepts it; numpy arrays on the host
+hold the JAX package's values, and :func:`codes_to_host` /
+:func:`codes_from_host` cross between the two.
 """
 
 from __future__ import annotations
@@ -13,11 +22,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from raht3dgs_tpu_torch.utils.device import DeviceLike, device_of
+from raht3dgs_tpu_torch.utils.device import DeviceLike, device_of, resolve_device
 
-MAX_DEPTH = 21           # the JAX package's ceiling (uint64 tier)
-MAX_PORTED_DEPTH = 20    # the port's int64 ceiling
+MAX_DEPTH = 21           # the uint64 tier of the JAX package
 MAX_DEPTH32 = 10
+_BIT63 = -(1 << 63)      # bit 63 as an int64
 
 _SPREAD_MASKS = (
     (32, 0x1F00000000FFFF),
@@ -50,11 +59,13 @@ _COMPACT_MASKS32 = (
 def _check_depth(depth: int) -> None:
     if not 1 <= depth <= MAX_DEPTH:
         raise ValueError(f"depth must be in [1, {MAX_DEPTH}], got {depth}")
-    if depth > MAX_PORTED_DEPTH:
-        raise NotImplementedError(
-            f"depth {depth} needs uint64 Morton codes, not yet ported "
-            "(ROADMAP queue A, item 2: the J=21 tier)"
-        )
+
+
+def flipped_tier(depth: int) -> bool:
+    """Whether codes at this depth live in the flipped int64 form: real
+    codes and the pad bit take ``3*depth + 1 = 64`` bits at depth 21 (the
+    pad index bits stay below 63 for any slot count a device can hold)."""
+    return 3 * depth + 1 > 63
 
 
 def _spread(x: torch.Tensor, masks, width_mask: int) -> torch.Tensor:
@@ -76,7 +87,7 @@ def morton_encode(V, depth: int, *, device: DeviceLike = None) -> torch.Tensor:
 
     ``V`` is an ``(N, 3)`` integer tensor (or array) in ``[0, 2**depth)``.
     Returns ``(N,)`` codes in the low ``3*depth`` bits: int32 for depth <=
-    10, int64 above."""
+    10, int64 above, in the flipped form at depth 21."""
     _check_depth(depth)
     dev = device_of(V, device)
     dt = torch.int32 if depth <= MAX_DEPTH32 else torch.int64
@@ -87,11 +98,15 @@ def morton_encode(V, depth: int, *, device: DeviceLike = None) -> torch.Tensor:
         sp = lambda t: _spread(t, _SPREAD_MASKS32, (1 << MAX_DEPTH32) - 1)
     else:
         sp = lambda t: _spread(t, _SPREAD_MASKS, (1 << MAX_DEPTH) - 1)
-    return sp(z) | (sp(y) << 1) | (sp(x) << 2)
+    codes = sp(z) | (sp(y) << 1) | (sp(x) << 2)
+    return codes ^ _BIT63 if flipped_tier(depth) else codes
 
 
 def morton_decode(codes, depth: int, *, device: DeviceLike = None) -> torch.Tensor:
-    """Inverse of :func:`morton_encode`: codes -> ``(N, 3)`` ``(x, y, z)``."""
+    """Inverse of :func:`morton_encode`: codes -> ``(N, 3)`` ``(x, y, z)``.
+    Bit 63 is no coordinate bit, so both int64 forms decode alike: the
+    first compact mask keeps bits 0..60, dropping bit 63 and the ones an
+    arithmetic shift of a negative code drags into bits 61-62."""
     _check_depth(depth)
     codes = torch.as_tensor(codes, device=device_of(codes, device))
     lim = (1 << depth) - 1
@@ -134,19 +149,36 @@ def internal_payload_bits(depth: int, n: int) -> int:
 
 def code_dtype(depth: int, n: int) -> torch.dtype:
     """Narrowest dtype holding real + padding codes: int32 while the level
-    count fits 31 bits, else int64 (the uint64 tier is not ported)."""
+    count fits 31 bits, else int64. The JAX package's uint64 tier (64 bits,
+    depth 21) is int64 in the flipped form (:func:`flipped_tier`)."""
     bits = internal_payload_bits(depth, n) + 1
-    if bits <= 31:
-        return torch.int32
-    if bits <= 63:
-        return torch.int64
-    raise NotImplementedError(
-        f"{bits}-bit codes need the uint64 tier, not yet ported "
-        "(ROADMAP queue A, item 2: the J=21 tier)"
-    )
+    return torch.int32 if bits <= 31 else torch.int64
 
 
 def pad_code(depth: int, n: int, slot: torch.Tensor) -> torch.Tensor:
-    """Sentinel code for padding slot(s) ``slot`` in an ``n``-slot transform."""
+    """Sentinel code for padding slot(s) ``slot`` in an ``n``-slot transform,
+    in the codes' form: ``(1 << 63) + slot`` flipped is ``slot`` itself."""
     dt = code_dtype(depth, n)
+    if flipped_tier(depth):
+        return slot.to(dt)
     return (1 << internal_payload_bits(depth, n)) + slot.to(dt)
+
+
+def codes_to_host(codes, depth: int) -> np.ndarray:
+    """Codes of a tensor (or a numpy copy of one) as the JAX package holds
+    them: uint64 values at depth 21, else the int32/int64 array as is."""
+    c = codes.cpu().numpy() if isinstance(codes, torch.Tensor) else np.asarray(codes)
+    if not flipped_tier(depth) or c.dtype == np.uint64:
+        return c
+    return c.astype(np.int64).view(np.uint64) ^ np.uint64(1 << 63)
+
+
+def codes_from_host(codes: np.ndarray, depth: int, *,
+                    device: DeviceLike = None) -> torch.Tensor:
+    """Inverse of :func:`codes_to_host`: the JAX package's codes (uint64 at
+    depth 21, or plain int64 there, whose values are the same) as a tensor
+    in the port's form. Runs on CUDA unless ``device="cpu"``."""
+    c = np.asarray(codes)
+    if flipped_tier(depth):
+        c = (c.astype(np.uint64) ^ np.uint64(1 << 63)).view(np.int64)
+    return torch.as_tensor(np.ascontiguousarray(c), device=resolve_device(device))

@@ -74,7 +74,8 @@ _U7 = np.uint64(7)
 
 def _decode_axes_np(codes: np.ndarray, depth: int) -> np.ndarray:
     """(M, 3) integer positions from Morton codes, digit = z + 2y + 4x
-    (mirrors ``ops/morton.py`` on host; depth <= 20 fits int64)."""
+    (mirrors ``ops/morton.py`` on host; real codes of every depth, 21
+    included, fit int64)."""
     c = codes.astype(np.int64)
     V = np.zeros((c.shape[0], 3), dtype=np.int64)
     for i in range(depth):

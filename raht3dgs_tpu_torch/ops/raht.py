@@ -1,12 +1,20 @@
-"""Shared RAHT types and helpers.
+"""RAHT as dense masked butterflies, one level at a time.
 
-Counterpart of the shared part of ``raht3dgs_tpu/ops/raht.py``
-(``num_levels``, ``RahtStructure``, ``RahtForwardResult``,
-``_butterfly_ab``, ``_code_lanes`` / ``_lanes_code``), and the level-loop
-helpers that the device predicted encoder runs (``_succ_active``,
-``_pred_active``, ``_neighbor_pack``, ``_level_mask``). The dense level
-loop of that module is not ported yet (ROADMAP queue A, item 17); the
-codec's transform is ``ops/raht_span.py``.
+Counterpart of ``raht3dgs_tpu/ops/raht.py`` (its docstring lays out the
+formulation): a length-N state of coefficients, node weights and an active
+mask advances through every butterfly level; at level ``j`` an active node
+pairs with its active successor iff their codes agree on bits ``[j, L)``.
+The JAX package runs the levels in one ``lax.fori_loop``; here they are a
+Python loop of PyTorch ops on the codes' device. Successor and predecessor
+come from one ``cumsum`` of the active flags, a scatter by rank and two
+gathers (:func:`_active_neighbors`), the same integers as the JAX
+package's ``cummin`` / ``cummax``.
+
+This is the bitwise golden of the level-loop family (``ops/raht_compact.py``
+and ``ops/raht_scan.py`` give its pairing and arithmetic); the codec's fast
+path is the closed-form ``ops/raht_span.py``. It runs every code tier,
+the flipped int64 form of depth 21 included (``ops/morton.py``): XOR and
+masks see through the flip.
 """
 
 from __future__ import annotations
@@ -56,9 +64,13 @@ def ieee_sqrt(x: torch.Tensor) -> torch.Tensor:
 
 
 # Codes ride a wide float row gather as value-exact digits: float32 holds
-# integers below 2^24 exactly, and three 22-bit digits cover every code.
+# integers below 2^24 exactly; two 22-bit digits and a 20-bit top digit
+# cover the 64 bits of an int64 code.
 _DIGIT_BITS = 22
 _DIGIT_MASK = (1 << _DIGIT_BITS) - 1
+# the top digit stops at bit 63: a wider mask would pick up the ones an
+# arithmetic shift drags in from a negative (flipped, depth-21) code
+_TOP_MASK = (1 << (64 - 2 * _DIGIT_BITS)) - 1
 
 
 def _code_lanes(codes: torch.Tensor, fdtype) -> torch.Tensor:
@@ -66,7 +78,7 @@ def _code_lanes(codes: torch.Tensor, fdtype) -> torch.Tensor:
     c = codes.to(torch.int64)
     return torch.stack([(c & _DIGIT_MASK).to(fdtype),
                         ((c >> _DIGIT_BITS) & _DIGIT_MASK).to(fdtype),
-                        ((c >> (2 * _DIGIT_BITS)) & _DIGIT_MASK).to(fdtype)], dim=1)
+                        ((c >> (2 * _DIGIT_BITS)) & _TOP_MASK).to(fdtype)], dim=1)
 
 
 def _lanes_code(lanes: torch.Tensor, code_dtype: torch.dtype) -> torch.Tensor:
@@ -138,6 +150,148 @@ def _neighbor_pack(active: torch.Tensor, codes: torch.Tensor, fields):
 
 
 def _level_mask(j: int, levels: int) -> int:
-    """``2^levels - 2^j``: the code bits above level ``j``. Below 2^31 for
-    the int32 code tier (``levels <= 31``), so it fits the codes' dtype."""
-    return (1 << levels) - (1 << j)
+    """``2^levels - 2^j``: the code bits above level ``j``, as a Python int
+    that fits the codes' dtype. Below 2^31 for the int32 tier (``levels <=
+    31``); for 64 levels (depth 21) 2^64 wraps as in the JAX package's
+    uint64 arithmetic: bits ``j..63`` set, read as a signed int64 (0 at the
+    final level ``j == 64``: merge everything)."""
+    m = (1 << levels) - (1 << j)
+    return m - (1 << 64) if m >= 1 << 63 else m
+
+
+def _pairs(active, codes, mask: int, succ, pred, scode, pcode):
+    """(left, right) of one level: an active node pairs with its active
+    successor (left) or predecessor (right) when their codes agree above
+    the level; ``~left`` keeps the two exclusive."""
+    N = active.shape[0]
+    left = active & (succ < N) & (((codes ^ scode) & mask) == 0)
+    right = active & (pred >= 0) & (((codes ^ pcode) & mask) == 0) & ~left
+    return left, right
+
+
+def raht_forward(codes: torch.Tensor, attributes: torch.Tensor,
+                 weights: torch.Tensor, depth: int) -> RahtForwardResult:
+    """Forward RAHT over Morton-sorted unique ``codes`` (pads: sentinel
+    codes, zero weights, finite attributes).
+
+    Returns the coefficients in place (slot k holds the coefficient the
+    reference's ``RAHT2_optimized`` leaves at position k), the final node
+    weights and the replayable structure, as the JAX package's
+    ``raht_forward``."""
+    N, D = attributes.shape
+    levels = num_levels(depth, N)
+    fdtype = attributes.dtype
+    dev = attributes.device
+    T = attributes
+    w = weights.to(fdtype)
+    active = torch.ones(N, dtype=torch.bool, device=dev)
+    drop = torch.zeros(N, dtype=torch.int32, device=dev)
+    ws = torch.zeros(N, dtype=fdtype, device=dev)
+    for j in range(1, levels + 1):
+        succ, pred, (sT, sw, scode), (pT, pw, pcode) = _neighbor_pack(active, codes, [T, w])
+        left, right = _pairs(active, codes, _level_mask(j, levels), succ, pred, scode, pcode)
+        touched = left | right
+        Tp = torch.where(left[:, None], sT, pT)
+        wp = torch.where(left, sw, pw)
+        w0 = torch.where(left, w, wp)
+        w1 = torch.where(left, wp, w)
+        a, b = _butterfly_ab(w0, w1)
+        x0 = torch.where(left[:, None], T, Tp)
+        x1 = torch.where(left[:, None], Tp, T)
+        lo = a[:, None] * x0 + b[:, None] * x1
+        hi = (-b)[:, None] * x0 + a[:, None] * x1
+        T = torch.where(touched[:, None], torch.where(left[:, None], lo, hi), T)
+        ws = torch.where(right, w, ws)
+        w = torch.where(touched, w0 + w1, w)
+        drop = torch.where(right, torch.full_like(drop, j), drop)
+        active = active & ~right
+    ws = torch.where(active, w, ws)  # survivors: final weight
+    return RahtForwardResult(coeffs=T, weights=w,
+                             structure=RahtStructure(drop_level=drop, subtree_w=ws,
+                                                     node_weights=w))
+
+
+def raht_structure(codes: torch.Tensor, weights: torch.Tensor,
+                   depth: int) -> RahtStructure:
+    """Structure-only forward pass (no attributes): the decoder's prelude,
+    from positions alone."""
+    N = codes.shape[0]
+    levels = num_levels(depth, N)
+    fdtype = weights.dtype
+    dev = codes.device
+    w = weights
+    active = torch.ones(N, dtype=torch.bool, device=dev)
+    drop = torch.zeros(N, dtype=torch.int32, device=dev)
+    ws = torch.zeros(N, dtype=fdtype, device=dev)
+    for j in range(1, levels + 1):
+        succ, pred, (sw, scode), (pw, pcode) = _neighbor_pack(active, codes, [w])
+        left, right = _pairs(active, codes, _level_mask(j, levels), succ, pred, scode, pcode)
+        wp = torch.where(left, sw, pw)
+        ws = torch.where(right, w, ws)
+        w = torch.where(left | right, w + wp, w)
+        drop = torch.where(right, torch.full_like(drop, j), drop)
+        active = active & ~right
+    ws = torch.where(active, w, ws)
+    return RahtStructure(drop_level=drop, subtree_w=ws, node_weights=w)
+
+
+def raht_inverse(coeffs: torch.Tensor, structure: RahtStructure,
+                 depth: int) -> torch.Tensor:
+    """Inverse RAHT: replay the pairing structure top-down. At level ``j``
+    the active set before the forward merge is ``{drop == 0} | {drop >=
+    j}``; right siblings are ``drop == j``, their left partner is their
+    predecessor in that set, and the pair's weights come back from
+    ``subtree_w``."""
+    N, D = coeffs.shape
+    levels = num_levels(depth, N)
+    fdtype = coeffs.dtype
+    drop = structure.drop_level
+    ws = structure.subtree_w.to(fdtype)
+    C = coeffs
+    wcur = ws
+    for j in range(levels, 0, -1):
+        active_pre = (drop == 0) | (drop >= j)
+        right = drop == j
+        succ, pred = _active_neighbors(active_pre)
+        succ_c = succ.clamp(max=N - 1).long()
+        pred_c = pred.clamp(min=0).long()
+        left = active_pre & (succ < N) & (drop[succ_c] == j)
+        touched = left | right
+        Cp = torch.where(left[:, None], C[succ_c], C[pred_c])
+        wcur_p = torch.where(left, wcur[succ_c], wcur[pred_c])
+        ws_p = torch.where(left, ws[succ_c], ws[pred_c])
+        w1 = torch.where(left, ws_p, ws)
+        # untouched rows are masked below; zero their w0, which may be
+        # negative there, so the square roots see no invalid input
+        w0 = torch.where(touched, torch.where(left, wcur, wcur_p) - w1,
+                         torch.zeros_like(w1))
+        a, b = _butterfly_ab(w0, w1)
+        t0 = torch.where(left[:, None], C, Cp)
+        t1 = torch.where(left[:, None], Cp, C)
+        lo = a[:, None] * t0 - b[:, None] * t1
+        hi = b[:, None] * t0 + a[:, None] * t1
+        C = torch.where(touched[:, None], torch.where(left[:, None], lo, hi), C)
+        wcur = torch.where(left, w0, torch.where(right, w1, wcur))
+    return C
+
+
+def get_forward_impl(name: str = "dense"):
+    """A forward-transform implementation by name: "span" (closed form, the
+    codec's default, ``ops/raht_span.py``), "dense" (this module, the
+    bitwise golden for 1e-12 crosschecks), "compact" (prefix compaction)
+    or "scan" (scan-propagated neighbours). All give the same structure."""
+    if name == "dense":
+        return raht_forward
+    if name == "compact":
+        from raht3dgs_tpu_torch.ops.raht_compact import raht_forward_compact
+
+        return raht_forward_compact
+    if name == "scan":
+        from raht3dgs_tpu_torch.ops.raht_scan import raht_forward_scan
+
+        return raht_forward_scan
+    if name == "span":
+        from raht3dgs_tpu_torch.ops.raht_span import raht_forward_span
+
+        return raht_forward_span
+    raise ValueError(f"unknown RAHT impl {name!r}")

@@ -8,10 +8,26 @@ at ``B[i] + 1``, its partner is ``prev_ge[i]`` and its span ends at
 
 Float32 prefix sums run in compensated double-single arithmetic through
 the CUDA kernel of ``ops/ds_scan.py`` (its plain version on the CPU);
-float64 keeps plain float64 sums. Every float64 expression here is written
-as single IEEE operations (no fused multiply-add, no ``addcmul``), so the
-port's CPU and CUDA runs give the same float64 bits wherever the prefix
-sums are exact.
+float64 keeps plain float64 sums. ``RAHT3DGS_SPAN_SUMS`` (read once, at
+import, as in the JAX package) selects the float32 sums: ``ds`` (the
+default) and ``dsflat`` both take the port's kernel, whose association is
+its own (the JAX package's two associations are XLA scans; the port's
+float32 stream is held by its own pins and the cross-package gate of
+ROADMAP item 6), and ``f64`` runs plain float64 ``torch.cumsum`` s, as the
+JAX package runs them outside any kernel. ``RAHT3DGS_PALLAS`` picks TPU
+kernels that the port's scan replaces, so it is not read. Every float64
+expression here is written as single IEEE operations (no fused
+multiply-add, no ``addcmul``), so the port's CPU and CUDA runs give the
+same float64 bits wherever the prefix sums are exact.
+
+Codes of every tier work here, the flipped int64 form of depth 21 included
+(``ops/morton.py``): the XOR of two codes is the JAX package's, and
+:func:`_msb` reads bit 63 of a negative one.
+
+``RAHT3DGS_NEARESTGE=tiered`` (read at import) swaps the flat nearest->=
+scans for :func:`_nearest_ge_tiered`, bitwise the same outputs;
+``RAHT3DGS_SPAN_INVERSE=fill`` (read per call) swaps the pointer-doubling
+inverse for the interval-sum :func:`_raht_inverse_span_fill`.
 
 The ``*_batched`` forms at the end run a (B, N, ...) stack of equally
 padded frames, as the JAX package's batched codec ``jax.vmap``s these
@@ -20,14 +36,12 @@ order for every frame, with the f32 prefix packs through the scan kernel's
 batched entry (one launch per stack), so frame b's result equals the
 single-frame function's on frame b bit for bit. The single-frame functions
 never call them.
-
-Not ported yet: the tiered nearest->= variant and the ``fill`` inverse
-(opt-in alternatives in the JAX package with equal results; ROADMAP).
 """
 
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 
@@ -45,13 +59,24 @@ from raht3dgs_tpu_torch.ops.raht import (
     num_levels,
 )
 
+# flat|tiered and ds|dsflat|f64, read once at import as in the JAX package
+_NGE_MODE = os.environ.get("RAHT3DGS_NEARESTGE", "flat")
+_SUM_MODE = os.environ.get("RAHT3DGS_SPAN_SUMS", "ds")
+
+
+def _use_ds(fdtype) -> bool:
+    """float32 prefix sums through the double-single scan (else float64)."""
+    return fdtype == torch.float32 and _SUM_MODE != "f64"
+
 
 def _msb(x: torch.Tensor, bits: int) -> torch.Tensor:
     """Position of the most significant set bit (x > 0), exact, int32.
 
     The float32 exponent is the first guess, corrected where rounding
     carried up to the next power of two. Inputs wider than 31 bits are
-    split into 32-bit halves in int64 (codes stay below 2^63)."""
+    split into 32-bit halves in int64; a negative input (bit 63 set: a
+    real code next to a pad in the flipped depth-21 form) has its high half
+    masked to 32 bits, so its msb reads 63."""
 
     def msb32(v):  # int32/int64 tensor, 0 <= v < 2^32
         vf = v.to(torch.float32)
@@ -63,7 +88,7 @@ def _msb(x: torch.Tensor, bits: int) -> torch.Tensor:
     if bits <= 31:
         return msb32(x & 0x7FFFFFFF)
     x = x.to(torch.int64)
-    hi = x >> 32
+    hi = (x >> 32) & 0xFFFFFFFF
     lo = x & 0xFFFFFFFF
     return torch.where(hi > 0, 32 + msb32(hi), msb32(lo)).to(torch.int32)
 
@@ -112,6 +137,121 @@ def _nearest_ge_flat(B: torch.Tensor, n_vals: int, W: torch.Tensor = None):
     return prev_ge, next_ge, w_prev, w_next
 
 
+def _nge_stage(Bc, orig, lo: int, hi: int, n_slots: int, Wc=None, w_total=None):
+    """Nearest->= scans for threshold rows ``[lo, hi)`` over one compact
+    subsequence: ``Bc (M,)`` its B values, ``orig (M,)`` their original
+    positions (padding rows: ``Bc == -1``, ``orig == n_slots``, never a
+    winner). The scans carry ``orig``, so outputs are global positions.
+    Valid only where ``lo <= Bc < hi`` (0 elsewhere)."""
+    dev = Bc.device
+    nrows = hi - lo
+    vals = torch.arange(lo, hi, dtype=Bc.dtype, device=dev)
+    ge = Bc[None, :] >= vals[:, None]                       # (V, M)
+    neg1 = torch.full((), -1, dtype=torch.int32, device=dev)
+    nfill = torch.full((), n_slots, dtype=torch.int32, device=dev)
+    last = torch.cummax(torch.where(ge, orig, neg1), dim=1).values
+    nxt = torch.cummin(torch.where(ge, orig, nfill).flip(1), dim=1).values.flip(1)
+    in_range = (Bc >= lo) & (Bc < hi)
+    rows = torch.clamp(Bc.to(torch.int64) - lo, 0, nrows - 1)[None, :]
+
+    def before(m, fill):   # strictly before: shift right, ``fill`` first
+        return torch.cat([fill.expand(nrows, 1), m[:, :-1]], dim=1)
+
+    def after(m, fill):    # strictly after: shift left, ``fill`` last
+        return torch.cat([m[:, 1:], fill.expand(nrows, 1)], dim=1)
+
+    def own_row(excl):     # each element's own threshold row, 0 out of range
+        return torch.where(in_range, torch.gather(excl, 0, rows)[0],
+                           torch.zeros((), dtype=excl.dtype, device=dev))
+
+    prev_ge = own_row(before(last, neg1))
+    next_ge = own_row(after(nxt, nfill))
+    if Wc is None:
+        return prev_ge, next_ge
+    zero = torch.zeros((), dtype=Wc.dtype, device=dev)
+    lastW = torch.cummax(torch.where(ge, Wc[None, :], zero), dim=1).values
+    nxtW = torch.cummin(torch.where(ge, Wc[None, :], w_total).flip(1), dim=1).values.flip(1)
+    return prev_ge, next_ge, own_row(before(lastW, zero)), own_row(after(nxtW, w_total))
+
+
+def _nge_tier_plan(N: int, n_vals: int):
+    """Static tier plan ``[(lo, hi, M), ...]`` for :func:`_nearest_ge_tiered`,
+    or None where tiering cannot help (small N or alphabet). Exact because
+    codes are sorted and unique: the positions with ``B >= v`` number at
+    most ``2^(levels - v)`` plus the row-0 sentinel, so high thresholds scan
+    a short compacted subsequence. The JAX package's plan."""
+    levels = n_vals - 2
+    if N < 8192:
+        return None
+    t1 = levels - (max(N // 8, 1)).bit_length() + 1
+    if t1 < 2 or t1 >= n_vals - 1:
+        return None
+    plan = [(0, t1, N)]
+    lo = t1
+    while lo < n_vals:
+        bound = (1 << max(levels - lo, 0)) + 1          # +1: the sentinel row
+        M = min(N, -(-bound // 256) * 256)
+        if M <= 2048 or lo + 3 >= n_vals:
+            plan.append((lo, n_vals, M))
+            break
+        plan.append((lo, lo + 3, M))
+        lo += 3
+    return plan
+
+
+def _nearest_ge_tiered(B: torch.Tensor, n_vals: int, W: torch.Tensor = None):
+    """:func:`_nearest_ge_flat` with its high-threshold rows scanned over
+    compacted candidate subsequences (:func:`_nge_tier_plan`): bitwise the
+    same outputs, since every scan selects the same elements."""
+    N = B.shape[0]
+    plan = _nge_tier_plan(N, n_vals)
+    if plan is None:
+        return _nearest_ge_flat(B, n_vals, W)
+    dev = B.device
+    idx = torch.arange(N, dtype=torch.int32, device=dev)
+    Wrow = None if W is None else W[:N]
+    w_total = None if W is None else W[N]
+
+    # stage 0 over the whole array writes every output; elements of a higher
+    # tier are overwritten by their own tier's scatter below
+    lo0, hi0, _ = plan[0]
+    out = _nge_stage(B, idx, lo0, hi0, N, Wrow, w_total)
+    ipad = torch.cat([torch.stack(out[:2], dim=1),
+                      torch.zeros((1, 2), dtype=torch.int32, device=dev)])
+    wpad = None if W is None else torch.cat(
+        [torch.stack(out[2:], dim=1), torch.zeros((1, 2), dtype=W.dtype, device=dev)])
+
+    Bc, orig, Wc, Mc = B, idx, Wrow, N
+    for lo, hi, M in plan[1:]:
+        # compact the candidates of thresholds >= lo into M slots (the bound
+        # holds them all); padding rows read the appended B=-1 / orig=N row
+        mask = Bc >= lo
+        pos = torch.cumsum(mask, 0, dtype=torch.int64) - 1
+        sel = torch.full((M + 1,), Mc, dtype=torch.int64, device=dev)
+        sel[torch.where(mask & (pos < M), pos, torch.full_like(pos, M))] = \
+            torch.arange(Mc, dtype=torch.int64, device=dev)
+        sel = sel[:M]
+        Bc = torch.cat([Bc, torch.full((1,), -1, dtype=Bc.dtype, device=dev)])[sel]
+        orig = torch.cat([orig, torch.full((1,), N, dtype=torch.int32, device=dev)])[sel]
+        if W is not None:
+            Wc = torch.cat([Wc, torch.zeros((1,), dtype=Wc.dtype, device=dev)])[sel]
+        Mc = M
+        out = _nge_stage(Bc, orig, lo, hi, N, Wc, w_total)
+        tgt = torch.where((Bc >= lo) & (Bc < hi), orig, torch.full_like(orig, N)).long()
+        ipad[tgt] = torch.stack(out[:2], dim=1)
+        if W is not None:
+            wpad[tgt] = torch.stack(out[2:], dim=1)
+    if W is None:
+        return ipad[:N, 0], ipad[:N, 1]
+    return ipad[:N, 0], ipad[:N, 1], wpad[:N, 0], wpad[:N, 1]
+
+
+def _nearest_ge(B: torch.Tensor, n_vals: int, W: torch.Tensor = None):
+    if _NGE_MODE == "tiered":
+        return _nearest_ge_tiered(B, n_vals, W)
+    return _nearest_ge_flat(B, n_vals, W)
+
+
 def _span_topology(codes: torch.Tensor, depth: int, W: torch.Tensor = None):
     """Closed-form B / drop levels / prev_ge / next_ge from codes alone;
     with ``W`` also the propagated ``W[max(prev_ge, 0)]`` / ``W[next_ge]``."""
@@ -124,9 +264,9 @@ def _span_topology(codes: torch.Tensor, depth: int, W: torch.Tensor = None):
     drop = torch.cat([torch.zeros((1,), dtype=torch.int32, device=dev),
                       (B[1:] + 1).to(torch.int32)])
     if W is None:
-        prev_ge, next_ge = _nearest_ge_flat(B, levels + 2)
+        prev_ge, next_ge = _nearest_ge(B, levels + 2)
         return drop, prev_ge, next_ge, levels, B
-    prev_ge, next_ge, w_prev, w_next = _nearest_ge_flat(B, levels + 2, W)
+    prev_ge, next_ge, w_prev, w_next = _nearest_ge(B, levels + 2, W)
     return drop, prev_ge, next_ge, levels, w_prev, w_next, B
 
 
@@ -145,9 +285,9 @@ def _two_sum(a, b):
 
 def _weight_prefix(weights: torch.Tensor, fdtype):
     """Exclusive prefix sums (W[i] = sum w[:i]), length N+1, and the total.
-    float32 runs the ds scan (exact for integer weights), float64 a plain
-    float64 cumsum."""
-    if fdtype == torch.float32:
+    float32 runs the ds scan (exact for integer weights), float64 (or
+    ``RAHT3DGS_SPAN_SUMS=f64``) a plain float64 cumsum."""
+    if _use_ds(fdtype):
         hi, lo = _ds_cumsum(weights.to(torch.float32)[:, None])
         Wincl = (hi + lo)[:, 0]
     else:
@@ -182,7 +322,7 @@ def _pair_weights(codes: torch.Tensor, weights: torch.Tensor, depth: int, fdtype
 
     Returns (drop, prev_ge, next_ge, levels, B, w0, w1, w_total)."""
     N = codes.shape[0]
-    if fdtype == torch.float32:
+    if _use_ds(fdtype):
         drop, prev_ge, next_ge, levels, B = _span_topology(codes, depth)
         P = _prefix_pack(weights.to(torch.float32)[:, None], True)
         here = P[:N]
@@ -230,7 +370,7 @@ def raht_forward_span(codes: torch.Tensor, attributes: torch.Tensor,
     drop, prev_ge, next_ge, _, _B = _span_topology(codes, depth)
     idx = torch.arange(N, device=dev)
 
-    use_ds = fdtype == torch.float32
+    use_ds = _use_ds(fdtype)
     acc_dt = torch.float32 if use_ds else torch.float64
     w_acc = weights.to(acc_dt)
     sw = ieee_sqrt(w_acc)[:, None]
@@ -306,7 +446,7 @@ def _raht_inverse_span_chain(coeffs: torch.Tensor, codes: torch.Tensor,
         raise NotImplementedError(
             f"{T64.dtype} chain inverse supports N <= {lane_limit} slots "
             f"(got {N}): pointer lanes ride as exact float values; use "
-            "float64 I/O"
+            "float64 I/O or RAHT3DGS_SPAN_INVERSE=fill"
         )
     nf = next_ge.to(T64.dtype)
     Z = torch.cat([a[:, None].to(T64.dtype), b[:, None].to(T64.dtype), T64,
@@ -355,11 +495,84 @@ def _raht_inverse_span_chain(coeffs: torch.Tensor, codes: torch.Tensor,
     return out.to(fdtype)
 
 
+def _raht_inverse_span_fill(coeffs: torch.Tensor, codes: torch.Tensor,
+                            weights: torch.Tensor, depth: int) -> torch.Tensor:
+    """Scan-only inverse: the orthonormal expansion as interval sums.
+
+    The transform is orthogonal, so each leaf expands as ``sqrt(w_k)``
+    times a sum of interval-constant node terms (the JAX package's
+    docstring derives it):
+
+        c_k = sqrt(w_k) * ( sum_{i: k in [p_i, i)} u_i
+              + sum_{i: k in [i, q_i)} v_i + T_0 / sqrt(W_total) )
+        u_i = -b_i T_i / sqrt(w0_i),   v_i = a_i T_i / sqrt(w1_i)
+
+    At each merge level ``x`` the spans of the nodes with ``B_i == x`` are
+    disjoint, so a leaf takes at most one term per level: the nearest
+    position with ``B >= x`` before (v) or after (u) it, when that
+    position's B equals x. Those positions come from one (V, N) ``cummax``
+    and one reversed ``cummin``, the topology's own threshold rows; the
+    terms are gathered and summed over V, the channels in chunks that
+    bound the (V, N, D) operand. No pointer lanes: any N."""
+    N, D = coeffs.shape
+    fdtype = coeffs.dtype
+    dev = coeffs.device
+    W, w_total = _weight_prefix(weights, fdtype)
+    drop, prev_ge, next_ge, levels, w_prev, w_next, B = _span_topology(codes, depth, W)
+    W_here = W[:N]
+    w1 = w_next - W_here
+    w0 = W_here - w_prev
+    a, b = _butterfly_ab(w0, w1)
+    acc_dt = torch.float64 if fdtype == torch.float64 else torch.float32
+    T = coeffs.to(acc_dt)
+
+    def inv_root(w):
+        pos = w > 0
+        return torch.where(pos, 1.0 / ieee_sqrt(torch.where(pos, w, torch.ones_like(w))),
+                           torch.zeros_like(w)).to(acc_dt)
+
+    not0 = (torch.arange(N, device=dev) != 0).to(acc_dt)[:, None]
+    u = ((-b).to(acc_dt) * inv_root(w0))[:, None] * T * not0
+    v = (a.to(acc_dt) * inv_root(w1))[:, None] * T * not0
+
+    n_vals = levels + 2
+    idx = torch.arange(N, dtype=torch.int32, device=dev)
+    vals = torch.arange(n_vals, dtype=B.dtype, device=dev)
+    ge = B[None, :] >= vals[:, None]                       # (V, N)
+    last = torch.cummax(torch.where(ge, idx, torch.full_like(idx, -1)), dim=1).values
+    nxt = torch.cummin(torch.where(ge, idx, torch.full_like(idx, N)).flip(1),
+                       dim=1).values.flip(1)
+    at_v = last.clamp(min=0).long()
+    at_u = nxt.clamp(max=N - 1).long()
+    hit_v = (last >= 0) & (B[at_v] == vals[:, None])
+    hit_u = (nxt < N) & (B[at_u] == vals[:, None])
+
+    max_elems = 1 << 27
+    dc = max(1, min(D, max_elems // max(1, n_vals * N)))
+    zero = torch.zeros((), dtype=acc_dt, device=dev)
+    v_sum = torch.cat([torch.where(hit_v[..., None], v[:, c0:c0 + dc][at_v], zero).sum(0)
+                       for c0 in range(0, D, dc)], dim=1)
+    u_incl = torch.cat([torch.where(hit_u[..., None], u[:, c0:c0 + dc][at_u], zero).sum(0)
+                        for c0 in range(0, D, dc)], dim=1)
+    # u intervals [p_i, i) leave out i itself: the backward fill at k+1
+    u_sum = torch.cat([u_incl[1:], torch.zeros((1, D), dtype=acc_dt, device=dev)])
+
+    w_root = ieee_sqrt(torch.where(w_total > 0, w_total, torch.ones_like(w_total)))
+    dc_term = T[0] / w_root.to(acc_dt)
+    out = (v_sum + u_sum + dc_term[None, :]) * ieee_sqrt(weights.to(acc_dt))[:, None]
+    return out.to(fdtype)
+
+
 def raht_inverse_span(coeffs: torch.Tensor, codes: torch.Tensor,
                       weights: torch.Tensor, depth: int) -> torch.Tensor:
-    """Closed-form inverse RAHT (decoder side of :func:`raht_forward_span`):
-    the pointer-doubling chain. The JAX package's opt-in ``fill`` inverse is
-    not ported yet."""
+    """Closed-form inverse RAHT (decoder side of :func:`raht_forward_span`).
+    ``RAHT3DGS_SPAN_INVERSE`` (read on every call, as in the JAX package)
+    picks ``chain`` (the default, :func:`_raht_inverse_span_chain`) or
+    ``fill`` (:func:`_raht_inverse_span_fill`, which also serves the N that
+    chain's float pointer lanes refuse); both rebuild the structure from
+    ``codes`` + ``weights``."""
+    if os.environ.get("RAHT3DGS_SPAN_INVERSE", "chain") == "fill":
+        return _raht_inverse_span_fill(coeffs, codes, weights, depth)
     return _raht_inverse_span_chain(coeffs, codes, weights, depth)
 
 
@@ -433,7 +646,7 @@ def _weight_prefix_batched(weights: torch.Tensor, fdtype):
     and the (F,) totals. float32 through the scan kernel's batched entry;
     float64 the single-frame cumsum of each frame (a cumsum over the stack
     may associate otherwise on the card)."""
-    if fdtype == torch.float32:
+    if _use_ds(fdtype):
         hi, lo = ds_cumsum_batched(weights.to(torch.float32)[..., None].contiguous())
         Wincl = (hi + lo)[..., 0]
     else:
@@ -458,7 +671,7 @@ def _pair_weights_batched(codes: torch.Tensor, weights: torch.Tensor, depth: int
                           fdtype):
     """:func:`_pair_weights` of every frame of a (F, N) stack."""
     N = codes.shape[1]
-    if fdtype == torch.float32:
+    if _use_ds(fdtype):
         drop, prev_ge, next_ge, levels, B = _span_topology_batched(codes, depth)
         P = _prefix_pack_batched(weights.to(torch.float32)[..., None], True)
         here = P[:, :N]
@@ -497,7 +710,7 @@ def raht_forward_span_batched(codes: torch.Tensor, attributes: torch.Tensor,
     drop, prev_ge, next_ge, _, _B = _span_topology_batched(codes, depth)
     idx = torch.arange(N, device=dev)
 
-    use_ds = fdtype == torch.float32
+    use_ds = _use_ds(fdtype)
     acc_dt = torch.float32 if use_ds else torch.float64
     w_acc = weights.to(acc_dt)
     sw = ieee_sqrt(w_acc)[..., None]
@@ -544,8 +757,12 @@ def raht_forward_span_batched(codes: torch.Tensor, attributes: torch.Tensor,
 
 def raht_inverse_span_batched(coeffs: torch.Tensor, codes: torch.Tensor,
                               weights: torch.Tensor, depth: int) -> torch.Tensor:
-    """:func:`raht_inverse_span` (the pointer-doubling chain) of every frame
-    of ``coeffs (F, N, D)``; returns (F, N, D)."""
+    """:func:`raht_inverse_span` of every frame of ``coeffs (F, N, D)``;
+    returns (F, N, D). The pointer-doubling chain runs the stack at once;
+    ``RAHT3DGS_SPAN_INVERSE=fill`` runs the fill inverse frame by frame."""
+    if os.environ.get("RAHT3DGS_SPAN_INVERSE", "chain") == "fill":
+        return torch.stack([_raht_inverse_span_fill(c, k, w, depth)
+                            for c, k, w in zip(coeffs, codes, weights)])
     F, N, D = coeffs.shape
     fdtype = coeffs.dtype
     dev = coeffs.device

@@ -12,6 +12,12 @@ its sort modes. The per-voxel sums are scatter-free run reductions
 (``ops/segment.py``, its default ``"shift"`` method); the voxel's code and
 integer coordinates ride the same gather as exact float lanes, so no Morton
 decode is needed.
+
+At depth 21 the codes are the flipped int64 form of ``ops/morton.py``
+(the JAX package's uint64 values with bit 63 flipped): ``morton_encode``
+gives the real codes in it and ``pad_code`` the sentinels, so the two
+meet in one dtype before the ``where`` (the JAX package's float64 trap:
+mixing int64 and uint64 would round 63-bit codes).
 """
 
 from __future__ import annotations
@@ -21,7 +27,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from raht3dgs_tpu_torch.ops.morton import MAX_PORTED_DEPTH, code_dtype, morton_encode, pad_code
+from raht3dgs_tpu_torch.ops.morton import code_dtype, morton_encode, pad_code
 from raht3dgs_tpu_torch.ops.raht import _code_lanes, _lanes_code
 from raht3dgs_tpu_torch.ops.segment import sorted_segment_sums
 from raht3dgs_tpu_torch.utils.device import DeviceLike, device_of
@@ -34,7 +40,7 @@ class VoxelizeResult(NamedTuple):
     ascending Morton order; slots ``[nvox, N)`` are padding with
     ``counts == 0`` and sentinel ``codes`` above every real code."""
 
-    codes: torch.Tensor        # (N,) int32 (J <= 10) or int64 codes (pad: sentinels)
+    codes: torch.Tensor        # (N,) int32 (J <= 10) or int64 codes, flipped at J = 21 (pad: sentinels)
     positions: torch.Tensor    # (N, 3) integer voxel coords, the codes' dtype (pad: 0)
     attributes: torch.Tensor   # (N, D) per-voxel mean attributes (pad: 0)
     counts: torch.Tensor       # (N,) float — points per voxel (pad: 0)
@@ -79,10 +85,6 @@ def voxelize(
     Returns:
         :class:`VoxelizeResult` with every tensor padded to length N.
     """
-    if depth > MAX_PORTED_DEPTH:
-        raise NotImplementedError(
-            f"depth {depth} needs uint64 Morton codes, not yet ported "
-            "(ROADMAP queue A, item 2: the J=21 tier)")
     dev = device_of(PC, device)
     PC = torch.as_tensor(PC, device=dev)
     N = PC.shape[0]

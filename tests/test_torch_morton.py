@@ -36,7 +36,13 @@ def test_pad_code_and_dtype_match(depth, n):
 
 
 def test_depth_21_is_refused_not_truncated():
-    with pytest.raises(NotImplementedError):
-        tm.morton_encode(torch.zeros(2, 3, dtype=torch.int64), 21)
-    with pytest.raises(NotImplementedError):
-        tm.code_dtype(21, 100)
+    """Depth 21 runs in the flipped int64 form, never truncated: every bit
+    of the JAX package's 63-bit codes and 64-bit sentinels comes back."""
+    V = np.array([[2**21 - 1] * 3, [0, 0, 0], [1, 2**20, 3]])
+    codes = tm.morton_encode(torch.as_tensor(V), 21)
+    want = np.asarray(jm.morton_encode(jnp.asarray(V), 21)).astype(np.uint64)
+    np.testing.assert_array_equal(tm.codes_to_host(codes, 21), want)
+    assert tm.code_dtype(21, 100) == torch.int64
+    pads = tm.pad_code(21, 100, torch.arange(98, 100))
+    np.testing.assert_array_equal(tm.codes_to_host(pads, 21),
+                                  np.asarray(jm.pad_code(21, 100, jnp.arange(98, 100))))

@@ -175,9 +175,8 @@ def test_j18_frame_roundtrip_and_symbols():
 
 
 def test_unported_options_raise():
-    for kw in (dict(impl="dense"), dict(impl="golden")):
-        with pytest.raises(NotImplementedError):
-            tp.AttributeCodec(6, device="cpu", **kw)
+    with pytest.raises(ValueError, match="unknown impl"):
+        tp.AttributeCodec(6, device="cpu", impl="bogus")
     with pytest.raises(ValueError):
         tp.AttributeCodec(6, device="cpu", order_mode="bogus")
     codec = tp.AttributeCodec(6, device="cpu")
@@ -188,6 +187,11 @@ def test_unported_options_raise():
     stream.order_mode = "morton"
     with pytest.raises(ValueError, match="RA-GFT"):
         codec.decode(stream, frame.codes, frame.weights)
-    with pytest.raises(NotImplementedError, match="item 2"):  # uint64 codes (J=21)
-        tp.voxel_frame_from_arrays(np.zeros(4, np.uint64), np.zeros((4, 3)), np.ones(4),
-                                   4, 21, np.zeros(3), 1.0, device="cpu")
+    # uint64 codes (J=21) round-trip through the flipped int64 form
+    from raht3dgs_tpu_torch.ops.morton import codes_to_host
+
+    u = np.array([0, 7, 2**63 - 1, 2**63, 2**63 + 3], np.uint64)
+    f = tp.voxel_frame_from_arrays(u, np.zeros((5, 3)), np.ones(5), 3, 21, np.zeros(3),
+                                   1.0, device="cpu")
+    assert f.codes.dtype == torch.int64 and torch.all(f.codes[1:] > f.codes[:-1])
+    np.testing.assert_array_equal(codes_to_host(f.codes, 21), u)

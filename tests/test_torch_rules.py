@@ -37,8 +37,10 @@ def _port_sources():
 
 def test_every_module_imports_without_jax():
     mods = _port_modules()
-    for m in ("ds_scan", "praht", "_praht_native", "praht_device"):
+    for m in ("ds_scan", "praht", "_praht_native", "praht_device", "raht_compact",
+              "raht_scan", "prelude"):
         assert f"raht3dgs_tpu_torch.ops.{m}" in mods
+    assert "raht3dgs_tpu_torch.crosscheck" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -200,8 +200,19 @@ def test_zero_extent_cloud_matches_jax(rng, monkeypatch, dtype, n):
 
 
 def test_depth21_not_ported():
-    with pytest.raises(NotImplementedError, match="item 2"):
-        tvox.voxelize(np.zeros((4, 6)), 21, device="cpu")
+    """Depth 21 is ported now: the voxelizer's uint64-tier codes (as the
+    JAX package's values) and every exact field equal the JAX package's."""
+    from raht3dgs_tpu_torch.ops.morton import codes_to_host
+
+    PC = make_cloud(np.random.default_rng(21), 300, 21)
+    j = jvox.voxelize(jnp.asarray(PC), 21)
+    t = tvox.voxelize(torch.from_numpy(PC), 21)
+    assert np.asarray(j.codes).dtype == np.uint64 and t.codes.dtype == torch.int64
+    np.testing.assert_array_equal(codes_to_host(t.codes, 21), np.asarray(j.codes))
+    for f in EXACT[1:]:
+        np.testing.assert_array_equal(getattr(t, f).numpy(), np.asarray(getattr(j, f)),
+                                      err_msg=f)
+    np.testing.assert_array_equal(t.attributes.numpy(), np.asarray(j.attributes))
 
 
 @pytest.mark.cuda
