@@ -206,7 +206,27 @@ Phases, each printed on its own line, any failure exits nonzero:
    of ``dense``, the same order, its stream decoded by the span decoder on
    the card within 1e-9 of the golden decode, and ``crosscheck_prelude`` /
    ``crosscheck_coefficients`` of the card's dense float64 outputs against
-   a MATLAB-style ``.mat`` dump of the host golden.
+   a MATLAB-style ``.mat`` dump of the host golden;
+16. the device mesh (``parallel/sharding.py``, ``parallel/render.py``,
+   sharded serving), the legs of the JAX package's multi-device dry run on
+   virtual meshes whose slots are all ``cuda:0``, each sharded result held
+   against the unsharded call: (a) phase 8's first 4 frames through
+   ``BatchAttributeCodec(mesh=)`` on dp=4 (the 11 steps' streams
+   byte-equal, a decode equal, 3 batched scan launches a slot); (b) phase
+   7's merge and the merge shifted a voxel through
+   ``batched_transform_step_tp`` on dp=2 x tp=4 with ``encode_3dgs``'s
+   per-channel steps (bitwise), each tp slot's (2, 2^19, 15) pack against
+   its plain version and bitwise the same columns of the (2, 2^19, 57)
+   pack; (c) that pair through ``batched_roundtrip_step`` on dp=2 x sp=2 x
+   tp=2 (MSE within 1e-10, the sp gather's bytes); (d)
+   ``render_views_sharded`` on phase 9's 5-view orbit of the merge (padded
+   to 8), ``serve_views_sharded``, ``serve_tiled_frame(mesh=)`` (full and
+   ROI) and ``serve_sequence(mesh=)`` on phase 14's streams at 4 views of
+   512x512, images bitwise, clip counts equal; (e) each slot's pack of (a)
+   with the current device set to the slot's and to the first device; (f)
+   (a) and (d) over the real cards when there are two or more, else a line
+   that says the leg was not run. Walls sharded and unsharded beside the
+   card's name and power limit (one card: recorded, not a gain).
 
 Needs one CUDA card; imports nothing of JAX or of the JAX package.
 """
@@ -3652,6 +3672,324 @@ def phase_transforms(torch, ds, keep):
     return out, body, wt
 
 
+MESH_SLOTS = 4             # phase 16 (a), (d): a virtual dp=4 mesh on one card
+MESH_TP = (2, 4)           # phase 16 (b): dp x tp, 14 of the 56 channels a tp slot
+MESH_DP_SP_TP = (2, 2, 2)  # phase 16 (c): the JAX package's dry-run mesh
+MESH_MSE_RTOL = 1e-10      # phase 16 (c): the roundtrip MSE, sharded against unsharded
+
+
+def phase_mesh(torch, ds, keep):
+    """Phase 16: the device mesh, the legs of the JAX package's multi-device
+    dry run on the card, each sharded result held against the unsharded
+    call. (a) phase 8's first 4 frames through ``BatchAttributeCodec`` on a
+    virtual dp=4 mesh (every slot ``cuda:0``): the 11 steps' streams
+    byte-equal and a step's decode equal to the unsharded batch's, the
+    batched scan launches a slot; (b) phase 7's merge and the merge shifted
+    a voxel, a batch of 2, through ``batched_transform_step_tp`` on dp=2 x
+    tp=4 with ``encode_3dgs``'s per-channel steps, bitwise the unsharded
+    step, and each tp slot's 15-column pack against the plain version and
+    bitwise the same columns of the whole pack; (c) that pair through
+    ``batched_roundtrip_step`` on dp=2 x sp=2 x tp=2 (MSE within
+    ``MESH_MSE_RTOL``; the sp gather's bytes); (d) ``render_views_sharded``
+    (phase 9's 5-view orbit, padded to 8), ``serve_views_sharded``,
+    ``serve_tiled_frame(mesh=)`` full and ROI and ``serve_sequence(mesh=)``
+    on phase 14's inputs (4 views of 512x512), images bitwise the unsharded
+    calls', clip counts equal; (e) the pack of (a) per slot with the
+    current device set to the slot's and to the first device; (f) (a) and
+    (d) again over the real cards when there are two or more. The scan
+    launches are read around each sharded call."""
+    import os
+
+    import numpy as np
+
+    from raht3dgs_tpu_torch.cli.encode_3dgs import per_attribute_scales
+    from raht3dgs_tpu_torch.codec.bitstream import FrameStream
+    from raht3dgs_tpu_torch.config import ColorCodecConfig
+    from raht3dgs_tpu_torch.eval import rasterize as tr
+    from raht3dgs_tpu_torch.io.datasets import get_pointcloud
+    from raht3dgs_tpu_torch.io.ply import read_compressed_3dgs_ply
+    from raht3dgs_tpu_torch.models import pipeline as tp, serving as sv, tiling as tl
+    from raht3dgs_tpu_torch.models.batch_codec import BatchAttributeCodec, prepare_frame_batch
+    from raht3dgs_tpu_torch.ops.color import rgb_to_yuv
+    from raht3dgs_tpu_torch.ops.quantize import channel_steps
+    from raht3dgs_tpu_torch.ops.raht import ieee_sqrt
+    from raht3dgs_tpu_torch.parallel import sharding as sh
+    from raht3dgs_tpu_torch.parallel.render import render_views_sharded
+
+    t_phase = time.perf_counter()
+    card = gpu_line()
+    cuda0 = torch.empty(0, device=CARD).device   # cuda:0
+    out = {"card": card}
+    paths = ("mesh_dataset", "mesh_tp", "mesh_roundtrip", "mesh_render", "mesh_serve_views",
+             "mesh_serve_tiled", "mesh_serve_tiled_roi", "mesh_serve_sequence")
+    launches = {p: {name: 0 for name in ds.LAUNCHES} for p in paths}
+    spare = {name: 0 for name in ds.LAUNCHES}   # launches of the unsharded calls
+
+    def virtual(n, **kw):
+        return sh.make_mesh(n, devices=[cuda0] * n, **kw)
+
+    def equal(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    def unsharded_and_sharded(path, fn_plain, fn_mesh, counts=None):
+        """Both calls, each from zero launches: (plain result, its wall and
+        launches, mesh result, its wall and launches)."""
+        before = dict(spare)
+        want, wall0, _ = run_counted(torch, ds, spare, fn_plain)
+        plain_launches = {k: spare[k] - before[k] for k in spare}
+        sh.reset_counts()
+        got_counts = launches[path] if counts is None else counts
+        before = dict(got_counts)
+        got, wall, _ = run_counted(torch, ds, got_counts, fn_mesh)
+        mesh_launches = {k: got_counts[k] - before[k] for k in got_counts}
+        return want, wall0, plain_launches, got, wall, mesh_launches
+
+    # (a) the dataset batch on a virtual dp=4 mesh
+    steps = list(ColorCodecConfig.steps)
+    root = os.path.join(keep, "dataset")
+    loaded = [get_pointcloud("8iVFBv2", "loot", f + 1, root) for f in range(MESH_SLOTS)]
+    pos = [np.floor(v).astype(np.int64) for v, _, _ in loaded]
+    yuv = [rgb_to_yuv(torch.as_tensor(c, device=cuda0), dtype=torch.float32).cpu().numpy()
+           for _, c, _ in loaded]
+    frames = prepare_frame_batch(pos, yuv, DEPTH, bucket=BUCKET, dtype=torch.float32)
+    del loaded, yuv
+
+    def dataset_run(mesh):
+        bc = BatchAttributeCodec(DEPTH, dtype=torch.float32, mesh=mesh)
+        coeffs, orderp, _ = bc.transform(frames)
+        sweep = bc.encode_sweep(frames, steps, coeffs=coeffs, orderp=orderp)
+        recs, _ = bc.decode(sweep[-1][0], frames, inv=bc.inverse_order(frames))
+        return [[s.to_bytes() for s in st] for st, _ in sweep], recs
+
+    def dataset_leg(mesh, label, counts=None):
+        dp = mesh.shape["dp"]
+        (want, wrecs), wall0, l0, (got, grecs), wall, l1 = unsharded_and_sharded(
+            "mesh_dataset", lambda: dataset_run(None), lambda: dataset_run(mesh), counts)
+        check(got == want, f"{label}: the mesh codec's streams differ from the unsharded batch's")
+        check(all(np.array_equal(a, b) for a, b in zip(grecs, wrecs)),
+              f"{label}: the mesh codec's decode differs from the unsharded batch's")
+        check(l1 == {"ds_cumsum": 0, "ds_cumsum_t": 0,
+                     "ds_cumsum_batched": dp * l0["ds_cumsum_batched"]}
+              and l0["ds_cumsum_batched"] == 3,
+              f"{label}: scan launches {l1} on the mesh, {l0} unsharded")
+        row = {"mesh": mesh.shape, "devices": [str(d) for d in mesh.devices.flat],
+               "frames": len(frames), "steps": len(steps),
+               "streams_equal": len(steps) * len(frames), "decodes_equal": len(frames),
+               "wall_s": wall, "unsharded_wall_s": wall0,
+               "batched_launches": l1["ds_cumsum_batched"],
+               "unsharded_batched_launches": l0["ds_cumsum_batched"],
+               "group_runs": sh.COUNTS["groups"],
+               "batched_launches_per_slot": l1["ds_cumsum_batched"] / dp}
+        say(label, card=json.dumps(card), **{k: json.dumps(v) if isinstance(v, (dict, list))
+                                             else v for k, v in row.items()})
+        return row
+
+    mesh4 = virtual(MESH_SLOTS)
+    out["dataset"] = dataset_leg(mesh4, "mesh_dataset")
+
+    # (e) each slot's pack of (a), the current device the slot's own and the first
+    w = torch.stack([f.weights for f in frames])
+    body = torch.cat([ieee_sqrt(w)[..., None] * torch.stack([f.attributes for f in frames]),
+                      w[..., None]], dim=2).contiguous()
+    whole = ds.ds_prefix_pack_batched(body)
+    engaged = 0
+    for b, slot in enumerate(mesh4.axis_devices("dp")):
+        local = body[b:b + 1].to(slot)
+        for current in (slot, mesh4.first):
+            with torch.cuda.device(current):
+                engaged += int(current.index != slot.index)
+                got = ds.ds_prefix_pack_batched(local)
+            check(torch.equal(got[0].to(cuda0), whole[b]),
+                  f"slot {b}: its pack under current device {current} differs")
+    out["guard"] = {"slots": MESH_SLOTS, "guard_switches": engaged,
+                    "note": ("every slot is cuda:0 on one card: the wrapper's device "
+                             "switch is not exercised" if engaged == 0 else
+                             "the wrapper switched to the slot's device")}
+    say("mesh_guard", **{k: json.dumps(v) if isinstance(v, str) else v
+                         for k, v in out["guard"].items()})
+    del w, body, whole
+
+    # (b) the 3DGS pair over dp=2 x tp=4, per-channel steps
+    V, A, vsize, vmin = read_compressed_3dgs_ply(os.path.join(keep, "gs_vox.ply"))
+    check(len(V) == GS_NVOX, f"3DGS merge has {len(V)} voxels")
+    sx = 1 if int(V[:, 0].max()) + 1 < (1 << DEPTH) else -1
+    pair = prepare_frame_batch([V, V + np.array([sx, 0, 0])], [A.astype(np.float64)] * 2,
+                               DEPTH, bucket=BUCKET, dtype=torch.float32)
+    codes = torch.stack([f.codes for f in pair])
+    attrs = torch.stack([f.attributes for f in pair])
+    weights = torch.stack([f.weights for f in pair])
+    nvox = torch.tensor([f.n_voxels for f in pair], dtype=torch.int32, device=cuda0)
+    del pair
+    D = attrs.shape[2]
+    gsteps = torch.as_tensor(channel_steps(D, TILE_GS_STEP, {
+        k: TILE_GS_STEP * m for k, m in per_attribute_scales().items()}), dtype=torch.float32,
+        device=cuda0)
+    dp, tpn = MESH_TP
+    mesh_tp = virtual(dp * tpn, dp=dp, tp=tpn)
+    want, wall0, l0, got, wall, l1 = unsharded_and_sharded(
+        "mesh_tp", lambda: sh.batched_transform_step(codes, attrs, weights, gsteps, DEPTH,
+                                                     nvox=nvox),
+        lambda: sh.batched_transform_step_tp(mesh_tp, codes, attrs, weights, gsteps, DEPTH,
+                                             nvox=nvox))
+    check(torch.equal(got, want), "batched_transform_step_tp differs from the unsharded step")
+    check(l1["ds_cumsum_batched"] == dp * tpn * l0["ds_cumsum_batched"],
+          f"tp: scan launches {l1} on the mesh, {l0} unsharded")
+    del got, want
+    # each tp slot's pack: the plain version's check, and bitwise the same
+    # columns of the whole (B, N, 57) pack
+    w = weights
+    sw = ieee_sqrt(w)[..., None]
+    whole = ds.ds_prefix_pack_batched(torch.cat([sw * attrs, w[..., None]], dim=2).contiguous())
+    dk = D // tpn
+    slot_err = []
+    for k in range(tpn):
+        x = torch.cat([sw * attrs[..., k * dk:(k + 1) * dk], w[..., None]], dim=2).contiguous()
+        rel, max_abs = check_batched_scan(torch, ds, x)
+        P = ds.ds_prefix_pack_batched(x)
+        cols = list(range(k * dk, (k + 1) * dk)) + [D]
+        K1 = D + 1
+        check(torch.equal(P[..., :dk + 1], whole[..., cols])
+              and torch.equal(P[..., dk + 1:], whole[..., [K1 + c for c in cols]]),
+              f"tp slot {k}: its pack differs from the whole pack's columns")
+        slot_err.append(max_abs)
+    del whole, sw
+    out["tp"] = {"mesh": mesh_tp.shape, "shape": list(attrs.shape), "slot_columns": dk + 1,
+                 "bitwise_unsharded": True, "slot_pack_max_abs_err_vs_plain": slot_err,
+                 "wall_s": wall, "unsharded_wall_s": wall0, "launches": l1,
+                 "unsharded_launches": l0, "group_runs": sh.COUNTS["groups"]}
+    say("mesh_tp", card=json.dumps(card), **{k: json.dumps(v) if isinstance(v, (dict, list))
+                                             else v for k, v in out["tp"].items()})
+
+    # (c) the roundtrip over dp=2 x sp=2 x tp=2
+    mesh3 = virtual(8, dp=MESH_DP_SP_TP[0], sp=MESH_DP_SP_TP[1], tp=MESH_DP_SP_TP[2])
+    want, wall0, l0, got, wall, l1 = unsharded_and_sharded(
+        "mesh_roundtrip", lambda: sh.batched_roundtrip_step(codes, attrs, weights, gsteps,
+                                                            DEPTH),
+        lambda: sh.batched_roundtrip_step(*sh.shard_batch(mesh3, codes, attrs, weights),
+                                          gsteps, DEPTH))
+    want, got = float(want), float(got)
+    rel = abs(got - want) / want
+    check(np.isfinite(got) and rel <= MESH_MSE_RTOL,
+          f"roundtrip MSE {got} on the mesh, {want} unsharded (rel {rel})")
+    out["roundtrip"] = {"mesh": mesh3.shape, "mse": got, "unsharded_mse": want, "rel": rel,
+                        "sp_gather_bytes": sh.COUNTS["sp_gather_bytes"],
+                        "wall_s": wall, "unsharded_wall_s": wall0, "launches": l1,
+                        "unsharded_launches": l0, "group_runs": sh.COUNTS["groups"]}
+    say("mesh_roundtrip", card=json.dumps(card), **{
+        k: json.dumps(v) if isinstance(v, dict) else v for k, v in out["roundtrip"].items()})
+    del codes, attrs, weights
+
+    # (d) views over the mesh: phase 9's orbit of the merge, phase 14's serving
+    means = (V + 0.5) * vsize + vmin
+    scene = (means, A[:, 0:4], np.maximum(A[:, 4:7], 1e-5), np.clip(A[:, 7], 0.0, 1.0),
+             A[:, 8:])
+    rvms, rKs, _, _ = scene_cameras(np, means, RENDER_VIEWS, RENDER_SIZE)
+    svms, sKs, _, _ = scene_cameras(np, means, SERVE_VIEWS, SERVE_SIZE)
+    mono = FrameStream.from_bytes(open(os.path.join(
+        keep, "mono", f"gs_step{TILE_GS_STEP:g}.r3tc"), "rb").read())
+    gframe = tp.prepare_voxel_frame(V, np.zeros((len(V), D)), DEPTH, bucket=BUCKET,
+                                    dtype=torch.float32)
+    vals_T = np.zeros((D, gframe.codes.shape[0]), np.int32)
+    tp.decode_entropy_channels(mono, mono.n_voxels, vals_T)
+    inv = sv.build_inverse_order(gframe.codes, gframe.weights, mono.n_voxels, DEPTH,
+                                 mono.order_mode)
+    vals_dev = sv.upload_quantized(sv.pack_quantized_upload(vals_T))
+    fargs = (vals_dev, inv, np.asarray(mono.steps, np.float32), gframe.codes, gframe.weights,
+             float(mono.width) / (1 << DEPTH), np.asarray(mono.vmin), svms, sKs)
+    fkw = dict(depth=DEPTH, width=SERVE_SIZE, height=SERVE_SIZE, quant_mode=mono.quant_mode,
+               rec_delta=mono.rec_delta)
+    reader = tl.TiledReader(open(os.path.join(keep, "tiled", f"gs_tiled{TILE_GS_DEPTH}_step"
+                                              f"{TILE_GS_STEP:g}.r3tt"), "rb").read())
+    roi_sel = reader.select_roi(*GS_ROI)
+    seq_path = os.path.join(keep, "serve.r3ts")
+    skw = dict(width=SERVE_SIZE, height=SERVE_SIZE)
+
+    def render_plain():
+        imgs, dups, tiles = [], [], []
+        for v in range(RENDER_VIEWS):
+            img, meta = tr.rasterize_gaussians(*scene, rvms[v], rKs[v], RENDER_SIZE,
+                                               RENDER_SIZE)
+            imgs.append(torch.as_tensor(img))
+            dups.append(meta.dup_clipped)
+            tiles.append(meta.tile_clipped)
+        return torch.stack(imgs), torch.stack(dups).cpu(), torch.stack(tiles).cpu()
+
+    def render_mesh(mesh):
+        imgs, meta = render_views_sharded(*scene, rvms, rKs, RENDER_SIZE, RENDER_SIZE,
+                                          mesh=mesh)
+        return imgs.cpu(), meta.dup_clipped.cpu(), meta.tile_clipped.cpu()
+
+    def views_legs(mesh, label, counted_paths=True):
+        legs = {
+            "mesh_render": (render_plain, lambda: render_mesh(mesh), RENDER_VIEWS),
+            "mesh_serve_views": (lambda: sv.serve_frame(*fargs, **fkw),
+                                 lambda: sv.serve_views_sharded(*fargs, mesh=mesh, **fkw),
+                                 SERVE_VIEWS),
+            "mesh_serve_tiled": (lambda: sv.serve_tiled_frame(reader, svms, sKs, **skw),
+                                 lambda: sv.serve_tiled_frame(reader, svms, sKs, mesh=mesh,
+                                                              **skw), SERVE_VIEWS),
+            "mesh_serve_tiled_roi": (
+                lambda: sv.serve_tiled_frame(reader, svms, sKs, bricks=roi_sel, **skw),
+                lambda: sv.serve_tiled_frame(reader, svms, sKs, bricks=roi_sel, mesh=mesh,
+                                             **skw), SERVE_VIEWS),
+            "mesh_serve_sequence": (
+                lambda: [r for r in sv.serve_sequence(seq_path, svms, sKs, **skw)],
+                lambda: [r for r in sv.serve_sequence(seq_path, svms, sKs, mesh=mesh,
+                                                      **skw)], SERVE_VIEWS)}
+        rows = {}
+        for path, (plain, sharded, n_views) in legs.items():
+            counts = None if counted_paths else {name: 0 for name in ds.LAUNCHES}
+            want, wall0, l0, got, wall, l1 = unsharded_and_sharded(path, plain, sharded, counts)
+            if path == "mesh_serve_sequence":
+                pairs = list(zip(got, want))
+                check(len(got) == len(want) == SERVE_SEQ_FRAMES, f"{label}: sequence frames")
+            elif path.startswith("mesh_serve_tiled"):
+                check(got[3] == want[3], f"{label} {path}: brick selections differ")
+                pairs = [(got[:3], want[:3])]
+            else:
+                pairs = [(got, want)]
+            for g, wt in pairs:
+                check(g[0].shape[0] == n_views and equal(g, wt),
+                      f"{label} {path}: images or clip counts differ from the unsharded call")
+            dups = sum(int(g[1].sum()) for g, _ in pairs)
+            tiles = sum(int(g[2].sum()) for g, _ in pairs)
+            check(l1["ds_cumsum_batched"] == l0["ds_cumsum_batched"] == 0,
+                  f"{label} {path}: batched launches {l1} / {l0}")
+            rows[path] = {"views": n_views, "frames": len(pairs), "bitwise_unsharded": True,
+                          "dup_clipped": dups, "tile_clipped": tiles, "wall_s": wall,
+                          "unsharded_wall_s": wall0, "launches": l1, "unsharded_launches": l0}
+            say(label, path=path, card=json.dumps(card), mesh=json.dumps(mesh.shape),
+                **{k: json.dumps(v) if isinstance(v, dict) else v for k, v in rows[path].items()})
+        # every slot decodes the frame itself; the others decode once
+        check(rows["mesh_serve_views"]["launches"]["ds_cumsum_t"]
+              == mesh.shape["dp"] * rows["mesh_serve_views"]["unsharded_launches"]["ds_cumsum_t"],
+              f"{label}: serve_views_sharded launches")
+        for p in ("mesh_serve_tiled", "mesh_serve_tiled_roi", "mesh_serve_sequence",
+                  "mesh_render"):
+            check(rows[p]["launches"] == rows[p]["unsharded_launches"], f"{label} {p}: launches")
+        return rows
+
+    out["views"] = views_legs(mesh4, "mesh_views")
+
+    # (f) the real cards
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        use = max(n for n in (1, 2, 4) if n <= n_cards)
+        real = sh.make_mesh(use)
+        out["real"] = {"cards": n_cards, "mesh": real.shape,
+                       "dataset": dataset_leg(real, "mesh_real_dataset",
+                                              {name: 0 for name in ds.LAUNCHES})}
+        out["real"]["views"] = views_legs(real, "mesh_real_views", counted_paths=False)
+    else:
+        out["real"] = {"cards": n_cards, "ran": False}
+        say("mesh_real", ran=False, cards=n_cards,
+            note=json.dumps("the real-card leg was not run: it needs a second CUDA card"))
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    say("mesh", seconds=round(out["seconds"], 1), launches=json.dumps(launches))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3687,6 +4025,7 @@ def main() -> int:
         seq = phase_sequence(torch, ds, data, keep)
         serving = phase_serving(torch, ds, keep)
         transforms, j21_body, j21_weights = phase_transforms(torch, ds, keep)
+        mesh = phase_mesh(torch, ds, keep)
     finally:
         shutil.rmtree(keep, ignore_errors=True)
     add_device_ms(torch, ds, vox["pack"], vox_vals)
@@ -3706,7 +4045,7 @@ def main() -> int:
              "entropy_cli": entropy["colour"]["launches"],
              "entropy_gs_cli": entropy["gs"]["launches"],
              **predict["launches"], **rate["launches"], **seq["launches"],
-             **serving["launches"], **transforms["launches"]}
+             **serving["launches"], **transforms["launches"], **mesh["launches"]}
     rows.append(data["row"])
     for row in rows:
         # `launches`: the codec's main path (phase 3) for the single entry,
@@ -3727,7 +4066,8 @@ def main() -> int:
         rate_phase_seconds=round(rate["seconds"], 1),
         sequence_phase_seconds=round(seq["seconds"], 1),
         serving_phase_seconds=round(serving["seconds"], 1),
-        transforms_phase_seconds=round(transforms["seconds"], 1))
+        transforms_phase_seconds=round(transforms["seconds"], 1),
+        mesh_phase_seconds=round(mesh["seconds"], 1))
 
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -4,8 +4,9 @@ Counterpart of ``raht3dgs_tpu/cli/encode_dataset.py``: loops the colour
 codec over the frames of an 8iVFBv2/MVUB sequence, each frame's depth from
 its PLY header, logging the reference 11-column CSV; with ``--batch B`` it
 encodes B frames per call through the batched codec
-(``models/batch_codec.py``). Runs on CUDA unless ``--platform cpu``, on one
-device. Example:
+(``models/batch_codec.py``), sharded over every visible card (frames over
+dp) when there is more than one. Runs on CUDA unless ``--platform cpu``.
+Example:
 
     python -m raht3dgs_tpu_torch.cli.encode_dataset --dataset 8iVFBv2 \\
         --sequence redandblack --data-root /data --frames 1 10 --batch 4
@@ -300,14 +301,15 @@ def _run_frames(args, first: int, last: int, log, device, seq) -> None:
 
 
 def _run_batched(args, first: int, last: int, log, device, seq) -> None:
-    """Batched path: ``--batch`` frames per call on one device, each chunk
-    split into equal-depth batches (a frame's depth is its PLY header's)."""
+    """Batched path: ``--batch`` frames per call, sharded over the local
+    device mesh when more than one device exists, each chunk split into
+    equal-depth batches (a frame's depth is its PLY header's)."""
     from raht3dgs_tpu_torch.io.datasets import get_pointcloud
+    from raht3dgs_tpu_torch.parallel import sharding
 
-    if device.type == "cuda" and torch.cuda.device_count() > 1:
-        print(f"--batch: {torch.cuda.device_count()} CUDA devices visible; the batch "
-              f"runs on {device} alone (a device mesh is ROADMAP queue A, item 18)",
-              file=sys.stderr)
+    devices = sharding.local_devices(device)
+    n_dev = len(devices)
+    mesh = sharding.make_mesh(n_dev, dp=n_dev, tp=1, devices=devices) if n_dev > 1 else None
     frames_idx = list(range(first, last + 1))
     codecs = {}
     for start in range(0, len(frames_idx), args.batch):
@@ -322,29 +324,35 @@ def _run_batched(args, first: int, last: int, log, device, seq) -> None:
         if not by_depth:
             continue
         for depth, members in by_depth.items():
-            _encode_depth_batch(args, members, depth, log, codecs, device, seq)
+            _encode_depth_batch(args, members, depth, log, codecs, device, seq, mesh)
         print(f"frames {chunk[0]}..{chunk[-1]} done (batched)")
 
 
-def _encode_depth_batch(args, members, depth: int, log, codecs, device, seq) -> None:
+def _encode_depth_batch(args, members, depth: int, log, codecs, device, seq, mesh) -> None:
     """Encode one equal-depth batch of loaded frames: one transform and one
     inverse order for the batch, the pipelined step sweep, a batched decode
     per step, and one CSV row per real frame and step; with
-    ``--save-sequence`` each step's streams go to ``seq`` in frame order."""
+    ``--save-sequence`` each step's streams go to ``seq`` in frame order.
+    On a ``mesh`` the batch is padded to a multiple of dp with copies of its
+    last frame, which are encoded and dropped from every output."""
     from raht3dgs_tpu_torch.models.batch_codec import BatchAttributeCodec, prepare_frame_batch
     from raht3dgs_tpu_torch.models.color_codec import RDPoint, y_psnr_db
     from raht3dgs_tpu_torch.ops.color import rgb_to_yuv
     from raht3dgs_tpu_torch.utils.timing import StageTimer
 
     dtype = torch_dtype(args.dtype)
-    pos = [np.floor(np.asarray(v)).astype(np.int64) for _, (v, _, _) in members]
+    n_real = len(members)
+    padded = list(members)
+    while mesh is not None and len(padded) % mesh.shape["dp"]:
+        padded.append(padded[-1])
+    pos = [np.floor(np.asarray(v)).astype(np.int64) for _, (v, _, _) in padded]
     yuv = [rgb_to_yuv(torch.as_tensor(np.asarray(c), device=device), dtype=dtype).cpu().numpy()
-           for _, (_, c, _) in members]
+           for _, (_, c, _) in padded]
     frames = prepare_frame_batch(pos, yuv, depth, bucket=args.bucket, dtype=dtype,
                                  device=device)
     if depth not in codecs:
         codecs[depth] = BatchAttributeCodec(depth, dtype=dtype, chunk=args.entropy_chunk,
-                                            device=device, **quant_kwargs(args))
+                                            mesh=mesh, device=device, **quant_kwargs(args))
     bc = codecs[depth]
     # a predicted codec runs each frame's own closed loop and decodes frame
     # by frame: the batched transform and inverse order would go unused
@@ -358,7 +366,7 @@ def _encode_depth_batch(args, members, depth: int, log, codecs, device, seq) -> 
     # for the whole pipeline (the reporting scripts' contract)
     transform_share = {k: v / len(args.steps) for k, v in t_timer.stages.items()}
     refs = [f.attributes[:f.n_voxels, 0].cpu().numpy() for f in frames]
-    geoms = [_intra_geometry(args, p, depth) for p in pos]
+    geoms = [_intra_geometry(args, p, depth) for p in pos[:n_real]]
     sweep = bc.encode_sweep(frames, [float(s) for s in args.steps], coeffs=coeffs,
                             orderp=orderp)
     for step, (streams, timer) in zip(args.steps, sweep):
@@ -370,7 +378,7 @@ def _encode_depth_batch(args, members, depth: int, log, codecs, device, seq) -> 
         if args.save_sequence:
             for st, g in zip(streams, geoms):
                 st.geometry = g
-            seq.extend(streams)
+            seq.extend(streams[:n_real])
         # stage times cover the whole batch: each row takes a frame's share
         per_frame = {k: v / len(frames) for k, v in timer.stages.items()}
         for i, (fr, _) in enumerate(members):

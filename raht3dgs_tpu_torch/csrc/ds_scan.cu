@@ -83,6 +83,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -938,18 +940,33 @@ __global__ void __launch_bounds__(kThreads, kPair ? 1 : 2)
   wide_stage_out(s_wide, row_major, out_lo + o, ors, ocs, w.R, w.kv);
 }
 
+// Whether the current device still lacks the opt-in that `done` records,
+// one bit a device: cudaFuncSetAttribute binds a kernel's attributes on the
+// current device only, so each device opts in on its first launch there.
+// The caller sets the attributes, then mark_raised. Devices past the 64
+// bits opt in on every launch.
+bool needs_raise(const std::atomic<uint64_t>& done, int* dev) {
+  if (cudaGetDevice(dev) != cudaSuccess) return true;
+  return *dev >= 64 || !((done.load() >> *dev) & 1);
+}
+
+void mark_raised(std::atomic<uint64_t>& done, int dev) {
+  if (dev >= 0 && dev < 64) done.fetch_or(uint64_t{1} << dev);
+}
+
 template <int K, bool kPair, bool kBatch>
 size_t stage_bytes() {
   const size_t bytes = sizeof(float) * stage_floats(K);
-  static bool raised = false;  // above 48 KB needs the opt-in, once
-  if (bytes > 48 * 1024 && !raised) {
+  static std::atomic<uint64_t> raised{0};  // above 48 KB needs the opt-in
+  int dev = -1;
+  if (bytes > 48 * 1024 && needs_raise(raised, &dev)) {
     cudaFuncSetAttribute(ds_tile_total<K, kPair, kBatch>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)bytes);
     cudaFuncSetAttribute(ds_tile_scan<K, kPair, kBatch>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)bytes);
-    raised = true;
+    mark_raised(raised, dev);
   }
   return bytes;
 }
@@ -1005,8 +1022,9 @@ void scan_level(const float* in_hi, const float* in_lo, long long n,
 template <bool kPair, bool kBatch>
 size_t wide_stage_bytes() {
   const size_t bytes = sizeof(float) * kWideStage * (kPair ? 2 : 1);
-  static bool raised = false;
-  if (!raised) {
+  static std::atomic<uint64_t> raised{0};
+  int dev = -1;
+  if (needs_raise(raised, &dev)) {
     for (const void* f : {(const void*)ds_wide_total<kPair, kBatch>,
                           (const void*)ds_wide_scan<kPair, kBatch>}) {
       cudaFuncSetAttribute(f, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1014,7 +1032,7 @@ size_t wide_stage_bytes() {
       cudaFuncSetAttribute(f, cudaFuncAttributePreferredSharedMemoryCarveout,
                            cudaSharedmemCarveoutMaxShared);
     }
-    raised = true;
+    mark_raised(raised, dev);
   }
   return bytes;
 }
@@ -1109,7 +1127,8 @@ extern "C" {
 // wide path's column blocks. scratch holds scratch_floats floats. Launches
 // on `stream`, does not synchronise, and returns cudaGetLastError() after
 // the launches, or without launching -1 for k < 1, -2 for an unsupported
-// layout, -3 for too little scratch.
+// layout, -3 for too little scratch. `stream` and x belong to the current
+// device, on which the kernels' shared-memory opt-in is made.
 int ds_cumsum_f32(const float* x, long long n, int k, long long rs,
                   long long cs, int pack, float* out, float* scratch,
                   long long scratch_floats, void* stream) {

@@ -1,12 +1,15 @@
 """Batched multi-frame codec: encode/decode a stack of frames per call.
 
-Counterpart of ``raht3dgs_tpu/models/batch_codec.py`` on one device. The
-reference's dataset sweep runs one frame at a time; here frames are padded
-to one shared bucket, stacked into (B, N, D) and transformed together
+Counterpart of ``raht3dgs_tpu/models/batch_codec.py``. The reference's
+dataset sweep runs one frame at a time; here frames are padded to one
+shared bucket, stacked into (B, N, D) and transformed together
 (``parallel/sharding.py``): the scan kernel's batched entry runs every
-frame's prefix sums in one launch per pass. Each frame's stream is the
-bytes of a per-frame :meth:`AttributeCodec.encode`, and its decode the
-per-frame decode.
+frame's prefix sums in one launch per pass. With a ``mesh`` the stack is
+sharded (``shard_batch``: frames over dp, points over sp, channels over
+tp) and the transform, inverse order and inverse run on every device of
+the mesh, their results gathered on its first device. Each frame's stream
+is the bytes of a per-frame :meth:`AttributeCodec.encode`, with or without
+a mesh, and its decode the per-frame decode.
 
 Symbols cross to the host as int32 through the pinned-buffer fetch thread
 of ``AttributeCodec.encode_sweep`` (the JAX package's wire-narrowing tiers,
@@ -15,8 +18,8 @@ built for a remote TPU link, are not ported). Every entropy choice
 ``predict=True`` every frame goes to the single-frame codec (the
 predicted loop is per frame): the streams are its bytes, and predicted
 streams decode frame by frame; ``transform`` and ``inverse_order`` still
-return the plain batched outputs, as in the JAX package. A ``mesh``
-(ROADMAP queue A, item 18) raises, naming its item.
+return the plain batched outputs, as in the JAX package (the mesh changes
+no predicted stream).
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ from raht3dgs_tpu_torch.parallel.sharding import (
     batched_quant_reorder,
     batched_quant_T,
     batched_reorder_T,
+    shard_batch,
 )
 from raht3dgs_tpu_torch.utils.device import DeviceLike, resolve_device
 from raht3dgs_tpu_torch.utils.padding import round_up_bucket
@@ -71,7 +75,8 @@ def prepare_frame_batch(
 
 class BatchAttributeCodec:
     """Encode/decode stacks of equally bucketed frames on one device (CUDA
-    unless ``device="cpu"``)."""
+    unless ``device="cpu"``), or sharded over a ``mesh``
+    (``parallel/sharding.py:make_mesh``; its first device by default)."""
 
     def __init__(
         self,
@@ -88,11 +93,10 @@ class BatchAttributeCodec:
         *,
         device: DeviceLike = None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a device mesh is not ported yet (ROADMAP queue A, item 18)")
-        # the single-frame codec checks the options (refusing the unported
-        # ones by item), assembles every stream and runs every predicted frame
+        if mesh is not None and device is None:
+            device = mesh.first
+        # the single-frame codec checks the options, assembles every stream
+        # and runs every predicted frame
         self._codec = AttributeCodec(
             depth, dtype=dtype, order_mode=order_mode, chunk=chunk,
             quant_mode=quant_mode, quant_f=quant_f, rec_delta=rec_delta,
@@ -102,6 +106,7 @@ class BatchAttributeCodec:
         self.depth = depth
         self.dtype = dtype
         self.order_mode = order_mode
+        self.mesh = mesh
 
     def _stack(self, frames: Sequence[VoxelFrame]):
         if not frames:
@@ -110,9 +115,10 @@ class BatchAttributeCodec:
             raise ValueError("batched frames must share one padded size "
                              "(prepare_frame_batch)")
         on = self._codec._on_device
-        return (torch.stack([on(f.codes) for f in frames]),
-                torch.stack([on(f.attributes) for f in frames]),
-                torch.stack([on(f.weights) for f in frames]))
+        stack = (torch.stack([on(f.codes) for f in frames]),
+                 torch.stack([on(f.attributes) for f in frames]),
+                 torch.stack([on(f.weights) for f in frames]))
+        return stack if self.mesh is None else shard_batch(self.mesh, *stack)
 
     def _nvox(self, frames: Sequence[VoxelFrame]) -> torch.Tensor:
         return torch.tensor([f.n_voxels for f in frames], dtype=torch.int32,

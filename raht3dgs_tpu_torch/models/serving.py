@@ -1,6 +1,6 @@
 """3DGS serving: compressed stream -> scene on the device -> rendered views.
 
-Counterpart of the one-card half of ``raht3dgs_tpu/models/serving.py``.
+Counterpart of ``raht3dgs_tpu/models/serving.py``.
 The serving consumer of a 3DGS codec is a renderer. Per frame the host
 entropy-decodes the symbols, uploads them once through the narrowing tiers
 (``pack_quantized_upload`` / ``upload_quantized``), and the device runs
@@ -23,8 +23,13 @@ device and a loop over the views.
   resident on the device across I/P frames (non-normative display decode;
   v2 derived-motion streams are refused).
 
-Sharded serving (``serve_views_sharded`` and ``mesh=``) is ROADMAP queue A
-item 18 and raises.
+Sharded serving renders the views over the devices of a mesh axis
+(``parallel/render.py``), the images gathered on its first device:
+:func:`serve_views_sharded` decodes the frame on every device of the axis,
+as the JAX package's replicated program does; ``serve_tiled_frame`` and
+``serve_sequence`` with ``mesh=`` decode on the first device and copy the
+scene to the others. Images are bitwise the unsharded call's when the
+devices are of one kind.
 """
 
 from __future__ import annotations
@@ -34,7 +39,6 @@ import os
 import numpy as np
 import torch
 
-from raht3dgs_tpu_torch.eval.rasterize import _rasterize_tiled
 from raht3dgs_tpu_torch.models.pipeline import (  # noqa: F401  (re-exported)
     _dequant_gather_device,
     _inverse_order_device,
@@ -53,7 +57,8 @@ from raht3dgs_tpu_torch.ops.morton import (
 from raht3dgs_tpu_torch.ops.morton import morton_decode
 from raht3dgs_tpu_torch.ops.praht_device import praht_device_decode, praht_device_plan
 from raht3dgs_tpu_torch.ops.raht_span import raht_inverse_span, raht_structure_span
-from raht3dgs_tpu_torch.parallel.sharding import _mesh_not_ported
+from raht3dgs_tpu_torch.parallel.render import render_sharded
+from raht3dgs_tpu_torch.parallel.render import render_views as _render_views
 from raht3dgs_tpu_torch.utils.device import DeviceLike, device_of, resolve_device
 
 __all__ = [
@@ -151,24 +156,6 @@ def decode_scene_device_predicted(vals_T, inv, plan, predict_mask, steps, codes,
     return _scene_from_attrs(attrs, codes, weights, voxel_size, vmin, depth)
 
 
-def _render_views(scene, viewmats, Ks, bg, *, width, height, sh_degree, tile,
-                  max_tiles_per_gauss, max_per_tile, chunk):
-    """The single-view rasterizer over (V, 4, 4) cameras, one view at a
-    time; returns (images (V, H, W, 3), dup_clipped (V,), tile_clipped
-    (V,))."""
-    means, quats, scales, opac, colors = scene
-    imgs, dups, tiles = [], [], []
-    for vm, Km in zip(viewmats, Ks):
-        img, meta = _rasterize_tiled(
-            means, quats, scales, opac, colors, vm, Km, bg, width=width, height=height,
-            sh_degree=sh_degree, tile=tile, max_tiles_per_gauss=max_tiles_per_gauss,
-            max_per_tile=max_per_tile, chunk=chunk)
-        imgs.append(img)
-        dups.append(meta.dup_clipped)
-        tiles.append(meta.tile_clipped)
-    return torch.stack(imgs), torch.stack(dups), torch.stack(tiles)
-
-
 def _render_scene_views(scene, viewmats, Ks, bg, *, width, height, sh_degree=3, tile=16,
                         max_tiles_per_gauss=16, max_per_tile=8192, chunk=128,
                         image_dtype=torch.float32):
@@ -184,6 +171,15 @@ def _render_scene_views(scene, viewmats, Ks, bg, *, width, height, sh_degree=3, 
     if image_dtype != torch.float32:
         imgs = (torch.clip(imgs, 0.0, 1.0) * 255.0).to(image_dtype)
     return imgs, dups, tiles
+
+
+def _render_on(devices, scene, viewmats, Ks, bg, **kw):
+    """:func:`_render_scene_views` on the scene's device, or with
+    ``devices`` the views sharded over them, the scene copied to each."""
+    if devices is None:
+        return _render_scene_views(scene, viewmats, Ks, bg, **kw)
+    return render_sharded(devices, lambda d: tuple(t.to(d) for t in scene), viewmats, Ks,
+                          np.ones(3) if bg is None else bg, **kw)
 
 
 def serve_frame(vals_T, inv, steps, codes, weights, voxel_size, vmin, viewmats, Ks, bg=None,
@@ -225,9 +221,28 @@ def serve_frame_predicted(vals_T, inv, plan, predict_mask, steps, codes, weights
         chunk=chunk, image_dtype=image_dtype)
 
 
-def serve_views_sharded(*args, mesh=None, **kwargs):
-    """Views sharded over a device mesh: ROADMAP queue A item 18."""
-    raise _mesh_not_ported("serve_views_sharded")
+def serve_views_sharded(vals_T, inv, steps, codes, weights, voxel_size, vmin, viewmats, Ks,
+                        bg=None, *, mesh, depth: int, width: int, height: int,
+                        sh_degree: int = 3, axis: str = "dp", tile: int = 16,
+                        max_tiles_per_gauss: int = 16, max_per_tile: int = 8192,
+                        chunk: int = 128, image_dtype=torch.float32, quant_mode: str = "mid",
+                        rec_delta=0.0):
+    """:func:`serve_frame` with the views sharded over ``mesh[axis]``: every
+    device of the axis decodes the frame itself (nothing is broadcast) and
+    renders its share of the views, V padded to a multiple of the axis size
+    (padding views rendered and dropped). Returns (images (V, H, W, 3),
+    dup_clipped (V,), tile_clipped (V,)) on the axis's first device."""
+
+    def scene_on(dev):
+        return decode_scene_device(vals_T, inv, steps, codes, weights, voxel_size, vmin,
+                                   depth=depth, quant_mode=quant_mode, rec_delta=rec_delta,
+                                   device=dev)
+
+    return render_sharded(
+        mesh.axis_devices(axis), scene_on, viewmats, Ks, np.ones(3) if bg is None else bg,
+        width=width, height=height, sh_degree=sh_degree, tile=tile,
+        max_tiles_per_gauss=max_tiles_per_gauss, max_per_tile=max_per_tile, chunk=chunk,
+        image_dtype=image_dtype)
 
 
 def _padded_frame_np(Vt, depth: int, P: int):
@@ -348,16 +363,18 @@ def serve_tiled_frame(data, viewmats, Ks, bg=None, *, width, height, positions=N
     and all of them cross in one upload; the device decodes brick by brick
     (predicted bricks through the non-normative device loop), concatenates
     the scenes in key order and renders every view. Runs on CUDA unless
-    ``device="cpu"``.
+    ``device="cpu"``. ``mesh`` / ``axis`` shard the views over
+    ``mesh[axis]``: the bricks decode once on the axis's first device, the
+    scene is copied to the others, and V is padded to a multiple of the
+    axis size (padding views rendered and dropped).
 
     Returns ``(images (V, H, W, 3), dup_clipped (V,), tile_clipped (V,),
     selected brick indices)``."""
     from raht3dgs_tpu_torch.codec.geometry import positions_from_geometry
     from raht3dgs_tpu_torch.models.tiling import TiledReader, positions_by_brick
 
-    if mesh is not None:
-        raise _mesh_not_ported("serve_tiled_frame(mesh=...)")
-    dev = resolve_device(device)
+    devices = None if mesh is None else mesh.axis_devices(axis)
+    dev = resolve_device(device) if devices is None else devices[0]
     reader = data if isinstance(data, TiledReader) else TiledReader(data)
     depth = reader.depth
     meta = reader.meta
@@ -423,8 +440,8 @@ def serve_tiled_frame(data, viewmats, Ks, bg=None, *, width, height, positions=N
         predicted=tuple(bool(st.predict) for st, _ in host),
         order_mode=stream0.order_mode, quant_mode=stream0.quant_mode,
         rec_delta=stream0.rec_delta)
-    imgs, dups, tiles = _render_scene_views(
-        scene, viewmats, Ks, bg, width=width, height=height, sh_degree=sh_degree,
+    imgs, dups, tiles = _render_on(
+        devices, scene, viewmats, Ks, bg, width=width, height=height, sh_degree=sh_degree,
         tile=tile, max_tiles_per_gauss=max_tiles_per_gauss, max_per_tile=max_per_tile,
         chunk=chunk, image_dtype=image_dtype)
     return imgs, dups, tiles, sorted(sel)
@@ -435,13 +452,14 @@ def _seq_step_body(vals_T, codes, weights, nvox, steps, mv, prev_codes, prev_att
                    depth: int, probes: int, order_mode: str, quant_mode: str, rec_delta=0.0,
                    width: int, height: int, sh_degree: int = 3, tile: int = 16,
                    max_tiles_per_gauss: int = 16, max_per_tile: int = 8192,
-                   chunk: int = 128, image_dtype=torch.float32):
+                   chunk: int = 128, image_dtype=torch.float32, devices=None):
     """One playback frame: the residual decode (the device predicted loop
     when ``predict_mask`` is not None), plus for an inter frame (``mv`` not
     None) the motion-compensated prediction from the previous frame's
     reconstruction on the device, then the scene and the V views. Returns
     ``(imgs, dups, tiles, attrs)``; ``attrs`` is the padded reconstruction
-    (zero pad rows) that becomes the next frame's ``prev_attrs``."""
+    (zero pad rows) that becomes the next frame's ``prev_attrs``. With
+    ``devices`` the views are sharded over them."""
     from raht3dgs_tpu_torch.ops.temporal import predict_from_previous
 
     inv = _inverse_order_device(codes, weights, nvox, depth, order_mode)
@@ -457,8 +475,8 @@ def _seq_step_body(vals_T, codes, weights, nvox, steps, mv, prev_codes, prev_att
         attrs = attrs + pred
     attrs = attrs * (weights > 0)[:, None]
     scene = _scene_from_attrs(attrs, codes, weights, voxel_size, vmin, depth)
-    imgs, dups, tiles = _render_scene_views(
-        scene, viewmats, Ks, bg, width=width, height=height, sh_degree=sh_degree,
+    imgs, dups, tiles = _render_on(
+        devices, scene, viewmats, Ks, bg, width=width, height=height, sh_degree=sh_degree,
         tile=tile, max_tiles_per_gauss=max_tiles_per_gauss, max_per_tile=max_per_tile,
         chunk=chunk, image_dtype=image_dtype)
     return imgs, dups, tiles, attrs
@@ -491,23 +509,26 @@ def serve_sequence(streams, viewmats, Ks, bg=None, *, width, height, positions=N
             (0 = all): a coarse preview from a stream prefix. All-intra
             sequences only (a cut residual would corrupt the prediction
             chain).
+        mesh/axis: shard each frame's views over ``mesh[axis]``; the
+            reconstruction stays on the axis's first device and each
+            frame's scene is copied to the others. V is padded to a
+            multiple of the axis size (padding views rendered and dropped).
 
     Predicted-RAHT streams run the device predicted loop on their
     (residual) symbols. v2 derived-motion inter streams are refused: their
     prediction is the frozen host pipeline; decode those with
     ``SequenceCodec.decode_sequence``."""
-    if mesh is not None:
-        raise _mesh_not_ported("serve_sequence(mesh=...)")
-    dev = resolve_device(device)
-    return _serve_sequence(streams, viewmats, Ks, bg, dev, width=width, height=height,
+    devices = None if mesh is None else mesh.axis_devices(axis)
+    dev = resolve_device(device) if devices is None else devices[0]
+    return _serve_sequence(streams, viewmats, Ks, bg, dev, devices, width=width, height=height,
                            positions=positions, bucket=bucket, progressive=progressive,
                            sh_degree=sh_degree, tile=tile,
                            max_tiles_per_gauss=max_tiles_per_gauss,
                            max_per_tile=max_per_tile, chunk=chunk, image_dtype=image_dtype)
 
 
-def _serve_sequence(streams, viewmats, Ks, bg, dev, *, width, height, positions, bucket,
-                    progressive, **raster):
+def _serve_sequence(streams, viewmats, Ks, bg, dev, devices, *, width, height, positions,
+                    bucket, progressive, **raster):
     from raht3dgs_tpu_torch.codec.bitstream import FrameStream, SequenceReader
     from raht3dgs_tpu_torch.codec.geometry import positions_from_geometry
     from raht3dgs_tpu_torch.models.temporal import _unpack_motion
@@ -563,6 +584,6 @@ def _serve_sequence(streams, viewmats, Ks, bg, dev, *, width, height, positions,
             float(stream.width) / (1 << depth), np.asarray(stream.vmin), vms, Kms, bg,
             depth=depth, probes=stream.probes, order_mode=stream.order_mode,
             quant_mode=stream.quant_mode, rec_delta=stream.rec_delta, width=width,
-            height=height, **raster)
+            height=height, devices=devices, **raster)
         prev = (codes_dev, attrs, weights_dev)
         yield imgs, dups, tiles

@@ -5,7 +5,9 @@ Counterpart of ``raht3dgs_tpu/ops/pallas_scan.py`` (``ds_cumsum_pallas``
 and ``ds_cumsum_pallas_t``). The kernel is ``csrc/ds_scan.cu``, with two
 entries: one matrix, and a (B, N, K) stack of frames (the TPU kernel under
 ``jax.vmap``). It is built with nvcc for ``sm_90a`` into ``_build/`` at
-first use and called through ctypes on PyTorch's current stream. The
+first use and called through ctypes on PyTorch's current stream of the
+tensor's device, with that device made current for the launch (the
+kernel's shared-memory opt-in is per device). The
 wrappers take the plain version only for a tensor that lies on the CPU;
 for a CUDA tensor they launch the kernel or raise. :func:`ds_prefix_pack`
 gives the codec's prefix pack (a zero row, then ``[hi | lo]``), which on
@@ -185,13 +187,18 @@ def _launch(x: torch.Tensor, n: int, k: int, rs: int, cs: int, entry: str,
 
     Returns ``(hi, lo)`` in ``x``'s layout, or with ``pack`` the
     ``(n+1, 2k)`` matrix ``[0; hi | lo]`` written by the kernel itself. One
-    allocation holds the outputs and the kernel's scratch."""
+    allocation holds the outputs and the kernel's scratch. The launch runs
+    with ``x``'s device current, on that device's current stream: the
+    kernel's shared-memory opt-in binds to the current device."""
     if k < 1:
         raise ValueError(f"ds scan kernel takes at least one column, got {k}")
     if not x.is_contiguous():
         raise ValueError("ds scan kernel takes a contiguous tensor")
     if x.device.type != "cuda":
         raise ValueError(f"ds scan kernel needs a CUDA tensor, got {x.device}")
+    if x.get_device() != torch.cuda.current_device():
+        with torch.cuda.device(x.device):
+            return _launch(x, n, k, rs, cs, entry, pack)
     lib = KERNEL.load()
     if n == 0:
         if pack:
@@ -258,7 +265,8 @@ def _launch_batched(x: torch.Tensor, pack: bool):
     """Launch the batched entry on the (B, N, K) stack ``x``: ``(hi, lo)``
     as (B, N, K) views of one (B, 2, N, K) block, or with ``pack`` the
     (B, N + 1, 2K) stack of packs. One allocation holds the outputs and
-    every frame's scratch."""
+    every frame's scratch. Runs with ``x``'s device current, as
+    :func:`_launch` does."""
     B, N, K = x.shape
     if K < 1:
         raise ValueError(f"ds scan kernel takes at least one column, got {K}")
@@ -268,6 +276,9 @@ def _launch_batched(x: torch.Tensor, pack: bool):
         raise ValueError(f"ds scan kernel needs a CUDA tensor, got {x.device}")
     if B > MAX_FRAMES:
         raise ValueError(f"batched ds scan takes at most {MAX_FRAMES} frames, got {B}")
+    if x.get_device() != torch.cuda.current_device():
+        with torch.cuda.device(x.device):
+            return _launch_batched(x, pack)
     lib = KERNEL.load()
     if B == 0 or N == 0:
         if pack:

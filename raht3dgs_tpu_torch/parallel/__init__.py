@@ -1,4 +1,5 @@
-"""Batched frames on one device (the mesh half is not ported yet)."""
+"""Batched frames on one device or over a (dp, sp, tp) device mesh, and
+views rendered over a mesh axis."""
 
 from raht3dgs_tpu_torch.parallel.sharding import (  # noqa: F401
     batched_roundtrip_step,

@@ -1,5 +1,4 @@
-"""Batched frames on one device: the single-device half of the JAX
-package's multi-chip module.
+"""Batched frames, on one device or over a (dp, sp, tp) device mesh.
 
 Counterpart of ``raht3dgs_tpu/parallel/sharding.py``. Each function there
 ``jax.vmap``s the per-frame codec over a (B, N, ...) stack of frames that
@@ -12,12 +11,36 @@ stream order, and every frame keeps its own real count ``nvox``. Each
 frame's result equals the single-frame codec's (``models/pipeline.py``)
 on that frame, bit for bit.
 
-The mesh half (``make_mesh``, ``shard_batch``,
-``batched_transform_step_tp``) is ROADMAP queue A item 18 and raises.
+The mesh is single-controller, as the JAX package's is: one process holds
+a (dp, sp, tp) array of devices (:class:`Mesh`, :func:`make_mesh`) and
+:func:`shard_batch` places a stack on it, frames over dp, points over sp,
+channels over tp (:class:`Sharded`). Given sharded values, every batched
+function runs the single-device code above on each (dp, tp) group's frames
+and channels, with the group's device current, and gathers the result onto
+the mesh's first device in the unsharded layout (the input and output
+reshards the JAX docstring allows). CUDA launches are asynchronous, so the
+one host thread keeps several cards busy. dp and tp move nothing else: a
+tp group transforms its channel slice with its own weight column and
+structure pass, and the scan's columns are independent, so each column is
+bitwise the unsharded program's (the JAX package's ``shard_map`` stance).
+sp has its collective written out: each group first gathers its frames'
+point shards onto its sp-first device (``COUNTS["sp_gather_bytes"]``). That
+gives the results of XLA's sharded scans, not a distributed scan (ROADMAP
+queue A, item 18b). :func:`batched_roundtrip_step` sums each group's squared
+errors per frame and channel and adds them up on the first device (the
+psum).
+
+A mesh may name one device many times: ``devices=[torch.device("cpu")] *
+8`` is the tests' virtual mesh, ``[torch.device("cuda", 0)] * n`` a
+virtual mesh on one card.
 """
 
 from __future__ import annotations
 
+import contextlib
+from typing import List, NamedTuple, Optional, Sequence
+
+import numpy as np
 import torch
 
 from raht3dgs_tpu_torch.models.pipeline import _quant_T_device
@@ -29,25 +52,248 @@ from raht3dgs_tpu_torch.ops.raht_span import (
     raht_structure_span_batched,
 )
 from raht3dgs_tpu_torch.ops.reorder import coefficient_order_batched
+from raht3dgs_tpu_torch.utils.device import DeviceLike, resolve_device
+
+AXES = ("dp", "sp", "tp")
+
+# Group runs of the batched functions on a mesh, and the bytes of point
+# shards the sp gathers brought to their groups' devices (on a virtual
+# mesh, copies on one device). Callers reset and read them.
+COUNTS = {"groups": 0, "sp_gather_bytes": 0}
 
 
-def _mesh_not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what}: a device mesh is not ported yet (ROADMAP queue A, item 18); "
-        "run on one device")
+def reset_counts() -> None:
+    for name in COUNTS:
+        COUNTS[name] = 0
 
 
-def make_mesh(n_devices=None, dp=None, tp=None, sp=1):
-    raise _mesh_not_ported("make_mesh")
+class Mesh:
+    """A (dp, sp, tp) array of devices, the JAX package's ``Mesh`` for this
+    package: ``devices`` a numpy object array of ``torch.device``,
+    ``shape`` ``{"dp": .., "sp": .., "tp": ..}``."""
+
+    axis_names = AXES
+
+    def __init__(self, devices: np.ndarray):
+        if devices.ndim != 3:
+            raise ValueError(f"a mesh is a (dp, sp, tp) array, got shape {devices.shape}")
+        self.devices = devices
+        self.shape = dict(zip(AXES, devices.shape))
+
+    @property
+    def first(self) -> torch.device:
+        """The device that gathered results land on."""
+        return self.devices[0, 0, 0]
+
+    def axis_devices(self, axis: str) -> List[torch.device]:
+        """The devices along ``axis``, at index 0 of the other axes."""
+        idx = [0, 0, 0]
+        idx[AXES.index(axis)] = slice(None)
+        return list(self.devices[tuple(idx)])
 
 
-def shard_batch(mesh, codes, attrs, weights):
-    raise _mesh_not_ported("shard_batch")
+def local_devices(device: DeviceLike = None) -> List[torch.device]:
+    """The visible CUDA cards in index order, or ``[cpu]`` for
+    ``device="cpu"``; raises without a card unless the CPU is asked for."""
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        return [torch.device("cpu")]
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
-def batched_transform_step_tp(mesh, codes, attrs, weights, steps, depth,
-                              order_mode="ragft", nvox=None):
-    raise _mesh_not_ported("batched_transform_step_tp")
+def make_mesh(n_devices: Optional[int] = None, dp: Optional[int] = None,
+              tp: Optional[int] = None, sp: int = 1, *,
+              devices: Optional[Sequence] = None) -> Mesh:
+    """Build a (dp, sp, tp) mesh over ``devices`` (every visible CUDA card
+    by default).
+
+    Axes: ``dp`` shards the frame batch, ``sp`` the point dimension, ``tp``
+    the attribute channels. Defaults: all devices on dp. ``dp * sp * tp``
+    must equal the device count used. ``devices`` may repeat an entry (a
+    virtual mesh)."""
+    devs = list(local_devices() if devices is None else devices)
+    n = n_devices or len(devs)
+    if len(devs) < n:
+        raise ValueError(
+            f"make_mesh needs {n} devices but {len(devs)} are given. For a virtual "
+            f"mesh, pass devices= with repeated entries (devices=[torch.device('cuda', "
+            f"0)] * {n} on one card, [torch.device('cpu')] * {n} on the CPU).")
+    if dp is None and tp is None:
+        dp, tp = n // sp, 1
+    elif dp is None:
+        dp = n // (tp * sp)
+    elif tp is None:
+        tp = n // (dp * sp)
+    if dp * sp * tp != n:
+        raise ValueError(f"dp*sp*tp = {dp}*{sp}*{tp} != n_devices {n}")
+    arr = np.empty(n, dtype=object)
+    for i, d in enumerate(devs[:n]):
+        arr[i] = torch.device(d)
+    return Mesh(arr.reshape(dp, sp, tp))
+
+
+def _on(dev: torch.device):
+    """``dev`` made the current device (nothing to do for the CPU)."""
+    return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
+
+
+def _split(mesh: Mesh, size: int, axis: str, c: int) -> slice:
+    w = size // mesh.shape[axis]
+    return slice(c * w, (c + 1) * w)
+
+
+class Sharded:
+    """A tensor placed on a mesh. ``spec`` names the mesh axis each
+    dimension is split over (None: whole); ``blocks[(i, j, k)]`` is the
+    block on ``mesh.devices[i, j, k]``, replicated over the axes the spec
+    leaves out."""
+
+    def __init__(self, mesh: Mesh, spec: tuple, shape: tuple, blocks: dict):
+        self.mesh = mesh
+        self.spec = spec
+        self.shape = shape
+        self.blocks = blocks
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.blocks[(0, 0, 0)].dtype
+
+    def gather(self) -> torch.Tensor:
+        """The whole tensor on the mesh's first device."""
+        first = self.mesh.first
+        out = torch.empty(self.shape, dtype=self.dtype, device=first)
+        for idx, block in self.blocks.items():
+            out[_block_slices(self.mesh, self.shape, self.spec, idx)] = block.to(first)
+        return out
+
+
+def _block_slices(mesh: Mesh, shape: tuple, spec: tuple, idx: tuple) -> tuple:
+    return tuple(slice(None) if ax is None else _split(mesh, shape[d], ax, idx[AXES.index(ax)])
+                 for d, ax in enumerate(spec))
+
+
+def shard(mesh: Mesh, x, spec: tuple) -> Sharded:
+    """Place ``x`` on ``mesh``: dimension d split over the mesh axis
+    ``spec[d]`` (None or beyond the spec: whole). Raises ``ValueError`` when
+    a split dimension does not divide by its axis size."""
+    x = torch.as_tensor(x)
+    spec = tuple(spec) + (None,) * (x.dim() - len(spec))
+    for d, ax in enumerate(spec):
+        if ax is not None and x.shape[d] % mesh.shape[ax]:
+            raise ValueError(
+                f"dimension {d} of shape {tuple(x.shape)} does not divide by mesh axis "
+                f"{ax!r} of size {mesh.shape[ax]}")
+    blocks = {idx: x[_block_slices(mesh, x.shape, spec, idx)].to(mesh.devices[idx])
+              .contiguous() for idx in np.ndindex(*mesh.devices.shape)}
+    return Sharded(mesh, spec, tuple(x.shape), blocks)
+
+
+def shard_batch(mesh: Mesh, codes, attrs, weights):
+    """Place a frame batch on the mesh: batch over dp, points over sp,
+    channels over tp (``P("dp", "sp")``, ``P("dp", "sp", "tp")``,
+    ``P("dp", "sp")``)."""
+    return (shard(mesh, codes, ("dp", "sp")), shard(mesh, attrs, ("dp", "sp", "tp")),
+            shard(mesh, weights, ("dp", "sp")))
+
+
+# -- running the single-device code on a mesh -----------------------------------
+
+_F = ("dp",)                  # (B, ...): frames over dp
+_FC = ("dp", None, "tp")      # (B, N, D)
+_FCT = ("dp", "tp", None)     # (B, D, N)
+
+
+class _Group(NamedTuple):
+    i: int                    # dp index
+    k: int                    # tp index
+    dev: torch.device         # the group's sp-first device
+    frames: slice
+    chans: slice
+
+
+def _mesh_of(*xs) -> Optional[Mesh]:
+    return next((x.mesh for x in xs if isinstance(x, Sharded)), None)
+
+
+def _channel_spec(v, D: int) -> tuple:
+    """A (D,) per-channel vector rides the channel shards; anything else is
+    replicated."""
+    if isinstance(v, (torch.Tensor, np.ndarray)) and v.ndim == 1 and v.shape[0] == D > 1:
+        return ("tp",)
+    return ()
+
+
+def _local(x, spec, g: _Group):
+    """Argument ``x`` as group ``g`` sees it on its device: a sharded value's
+    blocks of the group, its point shards concatenated (the sp gather); a
+    tensor sliced to the group's frames (``"dp"`` in ``spec``) and channels
+    (``"tp"``). Other values pass as they are."""
+    if spec is None or not isinstance(x, (Sharded, torch.Tensor, np.ndarray, list, tuple)):
+        return x
+    if isinstance(x, Sharded):
+        mesh = x.mesh
+        parts = [x.blocks[(g.i, j, g.k)] for j in range(mesh.shape["sp"])]
+        if len(parts) > 1 and "sp" in x.spec:
+            COUNTS["sp_gather_bytes"] += sum(p.numel() * p.element_size() for p in parts[1:])
+            t = torch.cat([p.to(g.dev) for p in parts], dim=x.spec.index("sp"))
+        else:
+            t = parts[0]
+        have = x.spec
+    else:
+        t = torch.as_tensor(x)
+        have = (None,) * t.dim()
+    sl = []
+    for d in range(t.dim()):
+        want = spec[d] if d < len(spec) else None
+        if have[d] in ("dp", "tp") and have[d] != want:
+            raise ValueError(f"an argument split over {have[d]!r} in dimension {d} where "
+                             f"the function takes it {want or 'whole'}")
+        sl.append({"dp": g.frames, "tp": g.chans}[want]
+                  if want in ("dp", "tp") and have[d] != want else slice(None))
+    return t[tuple(sl)].to(g.dev).contiguous()
+
+
+def _assemble(mesh: Mesh, outs: dict, spec: tuple) -> torch.Tensor:
+    """The groups' outputs in the unsharded layout on the first device."""
+    first = mesh.first
+    rows = []
+    for i in range(mesh.shape["dp"]):
+        if "tp" in spec and mesh.shape["tp"] > 1:
+            row = torch.cat([outs[(i, k)].to(first) for k in range(mesh.shape["tp"])],
+                            dim=spec.index("tp"))
+        else:
+            row = outs[(i, 0)].to(first)
+        rows.append(row)
+    return rows[0] if len(rows) == 1 else torch.cat(rows, dim=spec.index("dp"))
+
+
+def _map(mesh: Mesh, fn, args: tuple, specs: tuple, out_specs: tuple, B: int, D: int):
+    """``fn`` on every (dp, tp) group's share of ``args`` (``specs`` their
+    layouts, None for values that pass as they are), with the group's device
+    current; the outputs (``out_specs`` their layouts) gathered onto the
+    first device. Without a channel axis in the outputs only tp group 0
+    runs."""
+    dp, tp = mesh.shape["dp"], mesh.shape["tp"]
+    if B % dp:
+        raise ValueError(f"a batch of {B} frames does not divide over dp={dp}")
+    per_channel = any("tp" in s for s in out_specs)
+    if per_channel and D % tp:
+        raise ValueError(f"{D} channels do not divide over tp={tp}")
+    outs = [{} for _ in out_specs]
+    for i in range(dp):
+        for k in range(tp if per_channel else 1):
+            g = _Group(i, k, mesh.devices[i, 0, k], _split(mesh, B, "dp", i),
+                       _split(mesh, D, "tp", k) if per_channel else slice(None))
+            with _on(g.dev):
+                res = fn(*[_local(a, s, g) for a, s in zip(args, specs)])
+            COUNTS["groups"] += 1
+            for o, r in zip(outs, res if isinstance(res, tuple) else (res,)):
+                o[(i, k)] = r
+    got = tuple(_assemble(mesh, o, s) for o, s in zip(outs, out_specs))
+    return got if len(got) > 1 else got[0]
+
+
+# -- the batched functions -------------------------------------------------------
 
 
 def _nvox(nvox, codes: torch.Tensor) -> torch.Tensor:
@@ -68,10 +314,15 @@ def batched_forward(codes, attrs, weights, depth, order_mode="ragft", nvox=None)
     """Forward RAHT + pads-last coefficient order per frame (no quant).
 
     codes (B, N) | attrs (B, N, D) | weights (B, N) | nvox (B,) real voxel
-    counts. Returns (coeffs (B, N, D), order (B, N) int32) — the
-    step-independent half of the encode, reusable across a step sweep.
-    ``weight_desc`` takes its order from the structure pass the decoder
-    runs, as the single-frame codec does."""
+    counts; tensors, or the :func:`shard_batch` values. Returns (coeffs
+    (B, N, D), order (B, N) int32) — the step-independent half of the
+    encode, reusable across a step sweep. ``weight_desc`` takes its order
+    from the structure pass the decoder runs, as the single-frame codec
+    does."""
+    mesh = _mesh_of(codes, attrs, weights)
+    if mesh is not None:
+        return _map(mesh, batched_forward, (codes, attrs, weights, depth, order_mode, nvox),
+                    (_F, _FC, _F, None, None, _F), (_FC, _F), attrs.shape[0], attrs.shape[2])
     res = raht_forward_span_batched(codes, attrs, weights, depth)
     structure = res.structure
     if order_mode == "weight_desc":
@@ -84,18 +335,32 @@ def batched_reorder_T(coeffs, orderp):
     """The per-frame reorder gather + channel-major transpose:
     (B, N, D) -> (B, D, N). Quantization is elementwise and commutes with
     the permutation bitwise, so a sweep reorders once for all its steps."""
+    mesh = _mesh_of(coeffs, orderp)
+    if mesh is not None:
+        return _map(mesh, batched_reorder_T, (coeffs, orderp), (_FC, _F), (_FCT,),
+                    coeffs.shape[0], coeffs.shape[2])
     return _rows_batched(coeffs, orderp).transpose(1, 2).contiguous()
 
 
 def batched_quant_T(coeffs_T, steps, quant_mode="mid", qf=0.0):
     """Quantize reordered (B, D, N) coefficients to int32 symbols; ``steps``
     a (1,) or per-channel (D,) tensor on the coefficients' device."""
+    mesh = _mesh_of(coeffs_T)
+    if mesh is not None:
+        D = coeffs_T.shape[1]
+        return _map(mesh, batched_quant_T, (coeffs_T, steps, quant_mode, qf),
+                    (_FCT, _channel_spec(steps, D), None, ()), (_FCT,), coeffs_T.shape[0], D)
     return _quant_T_device(coeffs_T, steps, quant_mode, qf)
 
 
 def batched_quant_reorder(coeffs, steps, orderp, quant_mode="mid", qf=0.0):
     """Quantize + apply the per-frame pads-last order; (B, D, N) int32,
     each frame's channel a row whose ``[:nvox]`` prefix is its payload."""
+    mesh = _mesh_of(coeffs, orderp)
+    if mesh is not None:
+        D = coeffs.shape[2]
+        return _map(mesh, batched_quant_reorder, (coeffs, steps, orderp, quant_mode, qf),
+                    (_FC, _channel_spec(steps, D), _F, None, ()), (_FCT,), coeffs.shape[0], D)
     return batched_quant_T(batched_reorder_T(coeffs, orderp), steps, quant_mode, qf)
 
 
@@ -103,13 +368,55 @@ def batched_transform_step(codes, attrs, weights, steps, depth, order_mode="ragf
                            nvox=None):
     """:func:`batched_forward` + :func:`batched_quant_reorder` in one call
     (sweeps should use the split pair to reuse the transform)."""
+    mesh = _mesh_of(codes, attrs, weights)
+    if mesh is not None:
+        D = attrs.shape[2]
+        return _map(mesh, batched_transform_step,
+                    (codes, attrs, weights, steps, depth, order_mode, nvox),
+                    (_F, _FC, _F, _channel_spec(steps, D), None, None, _F), (_FCT,),
+                    attrs.shape[0], D)
     coeffs, orderp = batched_forward(codes, attrs, weights, depth, order_mode, nvox)
     return batched_quant_reorder(coeffs, steps, orderp)
+
+
+def batched_transform_step_tp(mesh: Mesh, codes, attrs, weights, steps, depth,
+                              order_mode="ragft", nvox=None):
+    """Channel-parallel encode over (dp, tp): each group transforms its
+    frames' channel slice (D/tp channels) with its own weight column and
+    structure pass, with nothing crossing between groups, and the result
+    equals :func:`batched_transform_step`'s, channel-major (B, D, N) int32.
+
+    ``codes`` / ``attrs`` / ``weights`` are tensors or sharded values;
+    ``steps`` a scalar, its ``(1,)`` form, or a (D,) per-channel vector
+    (sharded over tp with the channels). Requires sp == 1."""
+    if mesh.shape["sp"] != 1:
+        raise ValueError(
+            "batched_transform_step_tp shards channels, not points; use the "
+            "GSPMD batched_transform_step for sp > 1"
+        )
+    B, D = attrs.shape[0], attrs.shape[2]
+    steps = torch.as_tensor(steps)
+    if steps.dim() == 0 or (steps.dim() == 1 and steps.shape[0] == 1):
+        steps, step_spec = steps.reshape(1), ()
+    elif steps.dim() == 1 and steps.shape[0] == D:
+        step_spec = ("tp",)
+    else:
+        raise ValueError(
+            f"steps must be a scalar or a ({D},) per-channel "
+            f"vector, got shape {tuple(steps.shape)}"
+        )
+    return _map(mesh, batched_transform_step,
+                (codes, attrs, weights, steps, depth, order_mode, nvox),
+                (_F, _FC, _F, step_spec, None, None, _F), (_FCT,), B, D)
 
 
 def batched_inverse_order(codes, weights, nvox, depth, order_mode="ragft"):
     """Per-frame inverse of the pads-last stream permutation (decoder side),
     int32 (B, N)."""
+    mesh = _mesh_of(codes, weights)
+    if mesh is not None:
+        return _map(mesh, batched_inverse_order, (codes, weights, nvox, depth, order_mode),
+                    (_F, _F, _F, None, None), (_F,), codes.shape[0], 1)
     structure = raht_structure_span_batched(codes, weights, depth)
     order2 = _pads_last_batched(coefficient_order_batched(structure, order_mode),
                                 _nvox(nvox, codes))
@@ -121,6 +428,13 @@ def batched_decode_step(codes, weights, qfull, inv, steps, depth,
     """Dequantize + inverse RAHT for a batch of frames: ``qfull`` (B, D, N)
     stream-order symbols (pads last), ``inv`` (B, N) from
     :func:`batched_inverse_order`. Returns (B, N, D)."""
+    mesh = _mesh_of(codes, weights, qfull, inv)
+    if mesh is not None:
+        D = qfull.shape[1]
+        return _map(mesh, batched_decode_step,
+                    (codes, weights, qfull, inv, steps, depth, dtype, quant_mode, delta),
+                    (_F, _F, _FCT, _F, _channel_spec(steps, D), None, None, None, ()),
+                    (_FC,), codes.shape[0], D)
     q = _rows_batched(qfull.transpose(1, 2), inv)
     if quant_mode == "deadzone":
         coeffs = dequantize_biased(q, steps, delta, dtype=dtype)
@@ -129,9 +443,10 @@ def batched_decode_step(codes, weights, qfull, inv, steps, depth,
     return raht_inverse_span_batched(coeffs, codes, weights, depth)
 
 
-def batched_roundtrip_step(codes, attrs, weights, steps, depth):
-    """Forward, quantize, dequantize and inverse over a batch, and the mean
-    squared reconstruction error over every real voxel's channels."""
+def _roundtrip_sums(codes, attrs, weights, steps, depth):
+    """Squared reconstruction error per frame and channel, (B, D) (each
+    channel's row summed alone, so a channel slice sums as the whole does),
+    and the real voxels' channel count per frame, (B, 1)."""
     res = raht_forward_span_batched(codes, attrs, weights, depth)
     rec = raht_inverse_span_batched(
         dequantize(quantize(res.coeffs, steps), steps, dtype=attrs.dtype),
@@ -139,5 +454,21 @@ def batched_roundtrip_step(codes, attrs, weights, steps, depth):
     valid = (weights > 0)[..., None]
     err = torch.where(valid, rec - attrs, torch.zeros((), dtype=attrs.dtype,
                                                       device=attrs.device))
-    count = valid.sum() * attrs.shape[2]
-    return (err * err).sum() / torch.clamp_min(count, 1)
+    sq = (err * err).transpose(1, 2).contiguous().sum(dim=2)
+    return sq, valid.sum(dim=(1, 2))[:, None] * attrs.shape[2]
+
+
+def batched_roundtrip_step(codes, attrs, weights, steps, depth):
+    """Forward, quantize, dequantize and inverse over a batch, and the mean
+    squared reconstruction error over every real voxel's channels. On a
+    mesh each group sums its own frames and channels, and the sums meet on
+    the first device (the psum)."""
+    mesh = _mesh_of(codes, attrs, weights)
+    if mesh is not None:
+        D = attrs.shape[2]
+        sq, count = _map(mesh, _roundtrip_sums, (codes, attrs, weights, steps, depth),
+                         (_F, _FC, _F, _channel_spec(steps, D), None),
+                         (("dp", "tp"), ("dp", "tp")), attrs.shape[0], D)
+    else:
+        sq, count = _roundtrip_sums(codes, attrs, weights, steps, depth)
+    return sq.sum() / torch.clamp_min(count.sum(), 1)

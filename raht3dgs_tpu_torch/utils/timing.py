@@ -1,8 +1,10 @@
 """Per-stage wall-clock timing with device synchronization.
 
 Counterpart of ``raht3dgs_tpu/utils/timing.py``: each stage is bracketed by
-``torch.cuda.synchronize()`` so launch overhead and device execution are
-both captured. Stage names mirror the reference CSV schemas.
+a synchronization of every CUDA device that holds PyTorch memory, so launch
+overhead and device execution are both captured, on a device mesh too
+(``torch.cuda.synchronize()`` alone waits for the current device only).
+Stage names mirror the reference CSV schemas.
 """
 
 from __future__ import annotations
@@ -14,8 +16,17 @@ import torch
 
 
 def _sync() -> None:
-    if torch.cuda.is_available() and torch.cuda.is_initialized():
+    if not (torch.cuda.is_available() and torch.cuda.is_initialized()):
+        return
+    n = torch.cuda.device_count()
+    if n == 1:
         torch.cuda.synchronize()
+        return
+    # a device without memory of PyTorch's ran none of the timed work;
+    # synchronizing it would create a context there
+    for d in range(n):
+        if torch.cuda.memory_reserved(d):
+            torch.cuda.synchronize(d)
 
 
 class StageTimer:

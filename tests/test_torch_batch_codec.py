@@ -257,11 +257,20 @@ def test_sharding_orders_and_deadzone_match_jax(rng, order_mode, quant_mode):
     np.testing.assert_array_equal(t_sym.numpy(), np.asarray(j_sym))
 
 
-def test_mesh_functions_name_their_item():
-    for call in (lambda: tsh.make_mesh(4), lambda: tsh.shard_batch(None, 0, 0, 0),
-                 lambda: tsh.batched_transform_step_tp(None, 0, 0, 0, 1.0, 5)):
-        with pytest.raises(NotImplementedError, match="item 18"):
-            call()
+def test_mesh_functions_name_their_item(rng):
+    """The mesh functions run (``tests/test_torch_sharding.py`` holds them
+    against the JAX package): ``make_mesh`` over 4 CPU slots,
+    ``shard_batch``, and the tp step bitwise the unsharded step."""
+    _, tf = _both_batches(rng, jnp.float64, d_attr=8)
+    tc, ta, tw = _stacks(tf, torch)
+    mesh = tsh.make_mesh(4, dp=2, devices=[torch.device("cpu")] * 4)
+    assert mesh.shape == {"dp": 2, "sp": 1, "tp": 2}
+    cs, as_, ws = tsh.shard_batch(mesh, tc, ta, tw)
+    assert torch.equal(as_.gather(), ta)
+    steps = torch.tensor([4.0], dtype=torch.float64)
+    want = tsh.batched_transform_step(tc, ta, tw, steps, DEPTH)
+    assert torch.equal(tsh.batched_transform_step_tp(mesh, cs, as_, ws, steps, DEPTH), want)
+    assert torch.equal(tsh.batched_transform_step(cs, as_, ws, steps, DEPTH), want)
 
 
 # -- BatchAttributeCodec ------------------------------------------------------
@@ -395,8 +404,14 @@ def test_batch_codec_matches_jax_batch_codec(rng, jdt, d_attr):
 
 
 def test_batch_codec_refuses_unported_and_mixed(rng):
-    with pytest.raises(NotImplementedError, match="item 18"):
-        tbc.BatchAttributeCodec(DEPTH, device="cpu", mesh=object())
+    """Bad options and mixed streams are refused; a mesh is taken (two CPU
+    slots: the same bytes as without one)."""
+    pos2, attrs2 = _cloud(rng, (100, 120))
+    frames2 = tbc.prepare_frame_batch(pos2, attrs2, DEPTH, bucket=128, device="cpu")
+    mesh = tsh.make_mesh(2, devices=[torch.device("cpu")] * 2)
+    meshed, _ = tbc.BatchAttributeCodec(DEPTH, mesh=mesh).encode(frames2, 2.0)
+    alone, _ = tbc.BatchAttributeCodec(DEPTH, device="cpu").encode(frames2, 2.0)
+    assert [s.to_bytes() for s in meshed] == [s.to_bytes() for s in alone]
     with pytest.raises(ValueError):
         tbc.BatchAttributeCodec(DEPTH, quant_mode="bogus", device="cpu")
     pos, attrs = _cloud(rng, (100, 120))

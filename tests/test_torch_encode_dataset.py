@@ -16,6 +16,7 @@ import warnings
 
 import numpy as np
 import pytest
+import torch
 
 from raht3dgs_tpu.cli import encode_dataset as jcli
 from raht3dgs_tpu.io import datasets as jds
@@ -45,6 +46,17 @@ def _write_tree(root, dataset, rng):
         save_ply_ascii(path, pts[first].astype(float), base_cols[first].astype(float),
                        width=2**depth - 1 if dataset == "8iVFBv2" else None)
     return root
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One torch thread: under the suite's parallel workers torch's default
+    threads oversubscribe the cores (one case took 344 s under six workers
+    and 27 s alone with one thread)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

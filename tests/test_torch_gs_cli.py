@@ -31,6 +31,17 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PSNR_TOL = {"float64": 1e-6, "float32": 1e-3}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One torch thread: under the suite's parallel workers torch's default
+    threads oversubscribe the cores (one case took 344 s under six workers
+    and 27 s alone with one thread)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def no_jax_cache(monkeypatch):
     # the JAX CLIs turn on a persistent compile cache unless this is empty

@@ -41,6 +41,7 @@ def test_every_module_imports_without_jax():
               "raht_scan", "prelude"):
         assert f"raht3dgs_tpu_torch.ops.{m}" in mods
     assert "raht3dgs_tpu_torch.crosscheck" in mods
+    assert "raht3dgs_tpu_torch.parallel.render" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -527,15 +527,34 @@ def test_serve_sequence_refusals_match_jax():
         assert str(et.value) == str(ej.value)
 
 
-def test_mesh_serving_names_item_18(tiled):
-    """Sharded serving is not ported: serve_views_sharded and mesh= raise
-    NotImplementedError naming ROADMAP item 18."""
-    vms, Kms = _cameras(1)
-    calls = (lambda: ts.serve_views_sharded(None, None, mesh=object()),
-             lambda: ts.serve_tiled_frame(tiled["plain"], vms, Kms, width=SIZE, height=SIZE,
-                                          mesh=object(), device="cpu"),
-             lambda: ts.serve_sequence([], vms, Kms, width=SIZE, height=SIZE, mesh=object(),
-                                       device="cpu"))
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="item 18"):
-            call()
+def test_mesh_serving_names_item_18(served, tiled):
+    """Sharded serving runs: ``serve_views_sharded`` and the ``mesh=``
+    branches of ``serve_tiled_frame`` and ``serve_sequence`` over two CPU
+    slots give the unsharded images bitwise (3 views, padded to 4)
+    (``tests/test_torch_sharded_serving.py`` holds them against the JAX
+    package)."""
+    from raht3dgs_tpu_torch.parallel.sharding import make_mesh
+
+    mesh = make_mesh(2, devices=[torch.device("cpu")] * 2)
+    vms, Kms = _cameras(3)
+    kw = dict(width=SIZE, height=SIZE, **RASTER)
+    tf, p = served["tf"], served["plain"]
+    args = (p["vals_T"], p["t_inv"], STEP, tf.codes, tf.weights, served["vs"], VMIN, vms, Kms)
+    got = ts.serve_views_sharded(*args, mesh=mesh, depth=DEPTH, **kw)
+    for a, b in zip(got, ts.serve_frame(*args, depth=DEPTH, **kw)):
+        assert torch.equal(a, b)
+    got = ts.serve_tiled_frame(tiled["plain"], vms, Kms, bucket=64, margin=4.0, mesh=mesh,
+                               **kw)
+    want = ts.serve_tiled_frame(tiled["plain"], vms, Kms, bucket=64, margin=4.0,
+                                device="cpu", **kw)
+    assert got[3] == want[3]
+    for a, b in zip(got[:3], want[:3]):
+        assert torch.equal(a, b)
+    stream = tbs.FrameStream.from_bytes(p["stream"].to_bytes())
+    pos = [_positions(np.asarray(served["jf"].codes)[:stream.n_voxels])]
+    seq = list(ts.serve_sequence([stream], vms, Kms, positions=pos, bucket=64, mesh=mesh,
+                                 **kw))
+    alone = list(ts.serve_sequence([stream], vms, Kms, positions=pos, bucket=64,
+                                   device="cpu", **kw))
+    for a, b in zip(seq[0], alone[0]):
+        assert torch.equal(a, b)
