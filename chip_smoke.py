@@ -248,11 +248,13 @@ REPLACES = {
     "ds_cumsum": "raht3dgs_tpu/ops/pallas_scan.py:57",          # _scan_kernel
     "ds_cumsum_t": "raht3dgs_tpu/ops/pallas_scan.py:94",        # _scan_kernel_t
     "ds_cumsum_batched": "raht3dgs_tpu/ops/pallas_scan.py:57",  # _scan_kernel under vmap
+    "ds_cumsum_sharded": "raht3dgs_tpu/ops/pallas_scan.py:57",  # _scan_kernel over sp shards
 }
 SOURCE = {
     "ds_cumsum": "raht3dgs_tpu_torch/csrc/ds_scan.cu",
     "ds_cumsum_t": "raht3dgs_tpu_torch/csrc/ds_scan.cu",
     "ds_cumsum_batched": "raht3dgs_tpu_torch/csrc/ds_scan.cu",
+    "ds_cumsum_sharded": "raht3dgs_tpu_torch/csrc/ds_scan.cu",
 }
 SINGLE = ("ds_cumsum", "ds_cumsum_t")   # the single-matrix entry's counts
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
@@ -656,7 +658,8 @@ def phase_main(torch, ds):
         for name in SINGLE:
             check(launches[name] >= 1, f"{name} not launched on the main path")
         # one forward pack, two one-column weight scans in the decode
-        check(launches == {"ds_cumsum": 1, "ds_cumsum_t": 2, "ds_cumsum_batched": 0},
+        check(launches == {"ds_cumsum": 1, "ds_cumsum_t": 2, "ds_cumsum_batched": 0,
+                           "ds_cumsum_sharded": 0},
               f"scan launches in one encode+decode {launches}")
 
         want = frame.attributes[:n].cpu().numpy()
@@ -797,7 +800,7 @@ def phase_voxelize(torch, ds):
         check(mean_err <= (0.0 if method == "shift" else 1e-6 * float(c.attributes.abs().max())),
               f"{method}: means off the voxelizer's by {mean_err}")
         check(launches == {"ds_cumsum": int(method == "prefix"), "ds_cumsum_t": 0,
-                           "ds_cumsum_batched": 0},
+                           "ds_cumsum_batched": 0, "ds_cumsum_sharded": 0},
               f"{method}: scan launches {launches}")
         ms = cuda_ms(torch, lambda: sorted_segment_sums(*on_card, method=method), reps=5, warm=1)
         out[method] = {"ms": ms, "launches": launches,
@@ -960,7 +963,7 @@ def phase_cli(torch, ds, keep):
         check(launches[name] >= 1, f"{name} not launched on the CLI path")
     # one forward pack; two weight scans per decode (11 in the sweep, 1 in the CLI)
     check(launches == {"ds_cumsum": 1, "ds_cumsum_t": 2 * (len(steps) + 1),
-                       "ds_cumsum_batched": 0},
+                       "ds_cumsum_batched": 0, "ds_cumsum_sharded": 0},
           f"scan launches on the CLI path {launches}")
     out = {"nvox": nvox, "steps": len(steps), "encode_ply_s": enc_s,
            "sweep_mpts": nvox * len(steps) / enc_s / 1e6, "decode_cli_s": dec_s,
@@ -1179,7 +1182,7 @@ def phase_gs(torch, ds, keep):
     for name in SINGLE:
         check(launches[name] >= 1, f"{name} not launched on the 3DGS path")
     check(launches == {"ds_cumsum": 1, "ds_cumsum_t": 2 * (len(steps) + 1),
-                       "ds_cumsum_batched": 0},
+                       "ds_cumsum_batched": 0, "ds_cumsum_sharded": 0},
           f"scan launches on the 3DGS path {launches}")
     out["cli"] = {"nvox": nvox, "steps": len(steps), "voxelize_3dgs_ms": float(vrow["Voxel_time_ms"]),
                   "voxelize_3dgs_s": vox_s, "encode_3dgs_s": enc_s,
@@ -1214,7 +1217,7 @@ def phase_gs(torch, ds, keep):
         torch.cuda.synchronize()
         n_scan = dict(ds.LAUNCHES)
         check(n_scan == {"ds_cumsum": int(method == "prefix"), "ds_cumsum_t": 0,
-                         "ds_cumsum_batched": 0},
+                         "ds_cumsum_batched": 0, "ds_cumsum_sharded": 0},
               f"{method}: scan launches {n_scan}")
         seg[method + "_ms"] = cuda_ms(torch, lambda: sorted_segment_sums(
             vals, first, method=method), reps=5, warm=1)
@@ -1378,11 +1381,12 @@ def phase_dataset(torch, ds, keep):
             say("dataset_cli", mode=mode, **{k: json.dumps(v) if isinstance(v, dict) else v
                                              for k, v in out[mode].items()})
         check(out["batch"]["launches"] == {"ds_cumsum": 0, "ds_cumsum_t": 0,
-                                           "ds_cumsum_batched": n_batches * (2 + len(steps))},
+                                           "ds_cumsum_batched": n_batches * (2 + len(steps)),
+                                           "ds_cumsum_sharded": 0},
               f"scan launches of the batched run {out['batch']['launches']}")
         check(out["loop"]["launches"] == {"ds_cumsum": N_FRAMES,
                                           "ds_cumsum_t": N_FRAMES * 2 * len(steps),
-                                          "ds_cumsum_batched": 0},
+                                          "ds_cumsum_batched": 0, "ds_cumsum_sharded": 0},
               f"scan launches of the frame loop {out['loop']['launches']}")
         for key, row in runs["batch"].items():
             check(row["Rate_bpp"] == runs["loop"][key]["Rate_bpp"],
@@ -1698,12 +1702,13 @@ def phase_render(torch, ds):
 
     n_steps = len(GsCodecConfig.steps)
     check(out["voxelize_3dgs"]["launches"] == {"ds_cumsum": 0, "ds_cumsum_t": 0,
-                                               "ds_cumsum_batched": 0}
+                                               "ds_cumsum_batched": 0, "ds_cumsum_sharded": 0}
           and out["encode_3dgs"]["launches"] == {"ds_cumsum": 1,
                                                  "ds_cumsum_t": 2 * (n_steps + 1),
-                                                 "ds_cumsum_batched": 0}
+                                                 "ds_cumsum_batched": 0, "ds_cumsum_sharded": 0}
           and out["encode_3dgs_debug"]["launches"] == {"ds_cumsum": 1, "ds_cumsum_t": 2,
-                                                       "ds_cumsum_batched": 0},
+                                                       "ds_cumsum_batched": 0,
+                                                       "ds_cumsum_sharded": 0},
           "scan launches on the render paths")
 
     # every view of both scenes, timed one at a time on a scene already on
@@ -1836,7 +1841,7 @@ def phase_entropy(torch, ds, cli, gs, keep):
     geo_line = [ln for ln in buf.getvalue().splitlines() if "bits/voxel" in ln]
     check(len(geo_line) == 1, f"encode_ply printed {geo_line}")
     check(launches["colour"] == {"ds_cumsum": 1, "ds_cumsum_t": 2 * len(steps),
-                                 "ds_cumsum_batched": 0},
+                                 "ds_cumsum_batched": 0, "ds_cumsum_sharded": 0},
           f"encode_ply --entropy auto: scan launches {launches['colour']}")
     with open(csv_path) as f:
         rows = list(csv.DictReader(f))
@@ -1895,7 +1900,7 @@ def phase_entropy(torch, ds, cli, gs, keep):
     cells = tg.decode_geometry_lod(geom, DEPTH, nvox, 6)
     check(len(read_ply(lod).vertices) == len(cells), "--geometry-lod 6 cell count")
     check(launches["colour"] == {"ds_cumsum": 1, "ds_cumsum_t": 2 * (len(steps) + 2),
-                                 "ds_cumsum_batched": 0},
+                                 "ds_cumsum_batched": 0, "ds_cumsum_sharded": 0},
           f"colour entropy path: scan launches {launches['colour']}")
     out["colour"].update(decode_without_positions_s=own_s, decode_with_positions_s=given_s,
                          geometry_lod6_s=lod_s, geometry_lod6_cells=len(cells),
@@ -1991,7 +1996,7 @@ def phase_entropy(torch, ds, cli, gs, keep):
           and np.array_equal(vmina, vminb),
           "3DGS decode without --positions differs from the decode with them")
     check(launches["gs"] == {"ds_cumsum": 1, "ds_cumsum_t": 2 * (len(gsteps) + 2),
-                             "ds_cumsum_batched": 0},
+                             "ds_cumsum_batched": 0, "ds_cumsum_sharded": 0},
           f"3DGS entropy path: scan launches {launches['gs']}")
     out["gs"] = {"nvox": gst.n_voxels, "encode_3dgs_s": genc_s,
                  "geometry_bits_per_voxel": gst.geometry_bpp(), "bpp_rac": gbpp,
@@ -2188,7 +2193,7 @@ def phase_predict(torch, ds, cli, gs, keep):
         out[key] = frame_checks(key, frame, dtype, steps16, full=f32,
                                 path="predict_codec_j10" if f32 else None)
     check(launches["predict_codec_j10"] == {"ds_cumsum": 1, "ds_cumsum_t": 0,
-                                            "ds_cumsum_batched": 0},
+                                            "ds_cumsum_batched": 0, "ds_cumsum_sharded": 0},
           f"predicted codec: scan launches {launches['predict_codec_j10']}")
     pts18, attrs18 = synthetic_positions(N_VOX, 18, D_ATTR, seed=1)
     frame = tp.prepare_voxel_frame(pts18, attrs18, 18, bucket=BUCKET, dtype=torch.float32)
@@ -2244,7 +2249,7 @@ def phase_predict(torch, ds, cli, gs, keep):
     Vh, Ch, _ = read_ply_8i(os.path.join(keep, "p_half.ply"))
     check(len(Vf) == len(Vh) == nvox and np.array_equal(Vf, Vh), "predicted decode CLI rows")
     check(launches["predict_cli"] == {"ds_cumsum": 1, "ds_cumsum_t": 0,
-                                      "ds_cumsum_batched": 0},
+                                      "ds_cumsum_batched": 0, "ds_cumsum_sharded": 0},
           f"predicted colour CLI path: scan launches {launches['predict_cli']}")
     k16 = csteps.index(STEP)
     out["cli"] = {"nvox": nvox, "encode_ply_s": enc_s, "decode_s": dec_s,
@@ -2282,7 +2287,7 @@ def phase_predict(torch, ds, cli, gs, keep):
             comp, "--color-space", "3dgs", "--dtype", "float32", "--bucket", str(BUCKET),
             "--output", os.path.join(keep, "gs_p.ply")])
     check(launches["predict_gs_cli"] == {"ds_cumsum": 1, "ds_cumsum_t": 0,
-                                         "ds_cumsum_batched": 0},
+                                         "ds_cumsum_batched": 0, "ds_cumsum_sharded": 0},
           f"predicted 3DGS CLI path: scan launches {launches['predict_gs_cli']}")
     out["gs_cli"] = {"nvox": gframe.n_voxels, "encode_3dgs_s": genc_s, "decode_s": gdec_s,
                      "psnr_all": gpsnr, "bpp": gbpp, "plain_rlgr_bpp": gs["cli"]["bpp"],
@@ -2460,7 +2465,8 @@ def phase_rate(torch, ds, cli, gs, data, keep):
     mse = float(np.mean((C2.astype(np.float64) - rgb_ref[order]) ** 2))
     psnr = 10 * np.log10(255.0**2 / mse)
     check(np.isfinite(psnr), f"rate-targeted decode PSNR {psnr}")
-    check(launches["rate_cli"] == {"ds_cumsum": 1, "ds_cumsum_t": 2, "ds_cumsum_batched": 0},
+    check(launches["rate_cli"] == {"ds_cumsum": 1, "ds_cumsum_t": 2, "ds_cumsum_batched": 0,
+                                   "ds_cumsum_sharded": 0},
           f"rate-targeted colour CLI path: scan launches {launches['rate_cli']}")
     out["cli"] = {"target_bpp": target, "bpp": stream.bpp(), "geometry_bpp":
                   stream.geometry_bpp(), "rgb_psnr": psnr, "encode_ply_s": enc_s,
@@ -2489,7 +2495,8 @@ def phase_rate(torch, ds, cli, gs, data, keep):
     check(rc == 0, "decode --color-space 3dgs of the rate-targeted stream failed")
     Vg, Ag, _, _ = read_compressed_3dgs_ply(os.path.join(keep, "rate_gs_rec.ply"))
     check(len(Vg) == GS_NVOX and np.isfinite(Ag).all(), "rate-targeted 3DGS decode")
-    check(launches["rate_gs_cli"] == {"ds_cumsum": 1, "ds_cumsum_t": 2, "ds_cumsum_batched": 0},
+    check(launches["rate_gs_cli"] == {"ds_cumsum": 1, "ds_cumsum_t": 2, "ds_cumsum_batched": 0,
+                                      "ds_cumsum_sharded": 0},
           f"rate-targeted 3DGS CLI path: scan launches {launches['rate_gs_cli']}")
     out["gs_cli"] = {"target_bpp": t3, "bpp": gstream.bpp(), "step": float(gstream.steps[0]),
                      "encode_3dgs_s": genc_s, "decode_s": gdec_s,
@@ -2537,7 +2544,8 @@ def phase_rate(torch, ds, cli, gs, data, keep):
                           f"{mode}: prefix mean {np.mean(seg[:k + 1])} over {td}")
         means[mode] = float(np.mean(bpp))
         # a forward pack and a decode (two one-column scans) a frame
-        want = {"ds_cumsum": RATE_FRAMES, "ds_cumsum_t": 2 * RATE_FRAMES, "ds_cumsum_batched": 0}
+        want = {"ds_cumsum": RATE_FRAMES, "ds_cumsum_t": 2 * RATE_FRAMES, "ds_cumsum_batched": 0,
+                "ds_cumsum_sharded": 0}
         check(launches[f"rate_dataset_{mode}"] == want,
               f"rate dataset path ({mode}): scan launches {launches[f'rate_dataset_{mode}']}")
         out[f"dataset_{mode}"] = {"target_bpp": td, "bpp": bpp, "mean_bpp": means[mode],
@@ -2679,7 +2687,7 @@ def phase_sequence(torch, ds, data, keep):
         check(a.dtype == b.dtype and np.array_equal(a, b),
               f"frame {i}: the encoder's reconstruction differs from decode_sequence")
     check(launches["seq_codec"] == {"ds_cumsum": n, "ds_cumsum_t": 4 * n,
-                                    "ds_cumsum_batched": 0},
+                                    "ds_cumsum_batched": 0, "ds_cumsum_sharded": 0},
           f"sequence codec: scan launches {launches['seq_codec']}")
     p_bytes, i_bytes, gmv = [], [], []
     for i, (f, s) in enumerate(zip(frames, streams)):
@@ -2715,7 +2723,8 @@ def phase_sequence(torch, ds, data, keep):
     n_p = sum(kinds)
     check(n_p >= 1, "--inter: no P-frame chosen")
     check(launches["seq_inter_cli"] == {"ds_cumsum": n + n - n // SEQ_GOP,
-                                        "ds_cumsum_t": 2 * n, "ds_cumsum_batched": 0},
+                                        "ds_cumsum_t": 2 * n, "ds_cumsum_batched": 0,
+                                        "ds_cumsum_sharded": 0},
           f"--inter CLI: scan launches {launches['seq_inter_cli']}")
     with open(os.path.join(keep, "inter.csv")) as f:
         rows = list(csv.DictReader(f))
@@ -2739,9 +2748,9 @@ def phase_sequence(torch, ds, data, keep):
     check(len(v["x"]) == reader.frame(5).n_voxels and np.isfinite(a5).all(),
           "decoded frame 5")
     check(launches["seq_all_frames"] == {"ds_cumsum": 0, "ds_cumsum_t": 2 * n,
-                                         "ds_cumsum_batched": 0}
+                                         "ds_cumsum_batched": 0, "ds_cumsum_sharded": 0}
           and launches["seq_frame_index"] == {"ds_cumsum": 0, "ds_cumsum_t": 4,
-                                              "ds_cumsum_batched": 0},
+                                              "ds_cumsum_batched": 0, "ds_cumsum_sharded": 0},
           f"decode: scan launches {launches['seq_all_frames']} / "
           f"{launches['seq_frame_index']}")
     sizes = [len(reader.frame_bytes(i)) for i in range(n)]
@@ -2768,9 +2777,10 @@ def phase_sequence(torch, ds, data, keep):
     check(blobs["loop"][0] == blobs["batch"][0],
           "--save-sequence: the frame loop and --batch 4 wrote different sequences")
     check(launches["seq_loop"] == {"ds_cumsum": n, "ds_cumsum_t": 2 * n,
-                                   "ds_cumsum_batched": 0}
+                                   "ds_cumsum_batched": 0, "ds_cumsum_sharded": 0}
           and launches["seq_batch"] == {"ds_cumsum": 0, "ds_cumsum_t": 0,
-                                        "ds_cumsum_batched": 3 * (-(-n // BATCH))},
+                                        "ds_cumsum_batched": 3 * (-(-n // BATCH)),
+                                        "ds_cumsum_sharded": 0},
           f"--save-sequence: scan launches {launches['seq_loop']} / {launches['seq_batch']}")
     out["save_sequence"] = {"bytes": len(blobs["loop"][0]), "loop_s": blobs["loop"][1],
                             "batch_s": blobs["batch"][1]}
@@ -2797,7 +2807,8 @@ def phase_sequence(torch, ds, data, keep):
     check(np.array_equal(got_pos, pos.astype(np.float32))
           and np.array_equal(np.load(lod_out + ".cellw.npy"), cw) and lod_err <= SEQ_LOD_TOL,
           f"--lod {SEQ_LOD}: the card differs from the CPU (err {lod_err})")
-    check(launches["seq_lod"] == {"ds_cumsum": 0, "ds_cumsum_t": 2, "ds_cumsum_batched": 0},
+    check(launches["seq_lod"] == {"ds_cumsum": 0, "ds_cumsum_t": 2, "ds_cumsum_batched": 0,
+                                  "ds_cumsum_sharded": 0},
           f"--lod: scan launches {launches['seq_lod']}")
     out["lod"] = {"cells": len(pos), "nvox": s0.n_voxels, "rel_err": lod_err, "wall_s": lod_s}
     say("sequence_lod", **out["lod"])
@@ -2817,7 +2828,7 @@ def phase_sequence(torch, ds, data, keep):
           and all(np.isfinite(float(r["psnr"])) for r in rows),
           f"--target-bpp --inter: {bpp} against {target}")
     check(launches["seq_target_inter"] == {"ds_cumsum": 2 * m - 1, "ds_cumsum_t": 2 * m,
-                                           "ds_cumsum_batched": 0},
+                                           "ds_cumsum_batched": 0, "ds_cumsum_sharded": 0},
           f"--target-bpp --inter: scan launches {launches['seq_target_inter']}")
     # the frame each candidate won ("[I]" or "[P]" in the CLI's frame lines)
     won = "".join(ln.split("[")[1][0] for ln in text.splitlines()
@@ -2918,7 +2929,8 @@ def phase_serving(torch, ds, keep):
         return run_counted(torch, ds, launches[path], fn, *args)
 
     def scan_counts(path, cumsum, cumsum_t):
-        want = {"ds_cumsum": cumsum, "ds_cumsum_t": cumsum_t, "ds_cumsum_batched": 0}
+        want = {"ds_cumsum": cumsum, "ds_cumsum_t": cumsum_t, "ds_cumsum_batched": 0,
+                "ds_cumsum_sharded": 0}
         check(launches[path] == want, f"{path}: scan launches {launches[path]}, want {want}")
 
     def in_box(V, box):
@@ -3410,7 +3422,8 @@ def phase_transforms(torch, ds, keep):
     run_frame(FrameStream, frame, codec)  # warm-up
     ((enc, rec, _), codec_peak), _, _ = counted(
         "j21_codec", peak_of, lambda: run_frame(FrameStream, frame, codec))
-    check(launches["j21_codec"] == {"ds_cumsum": 1, "ds_cumsum_t": 2, "ds_cumsum_batched": 0},
+    check(launches["j21_codec"] == {"ds_cumsum": 1, "ds_cumsum_t": 2, "ds_cumsum_batched": 0,
+                                    "ds_cumsum_sharded": 0},
           f"J21 encode + decode: scan launches {launches['j21_codec']}")
     want = frame.attributes[:nvox].cpu().numpy()
     check(rec.shape == (nvox, D_ATTR) and np.isfinite(rec).all(), "J21 decode output")
@@ -3487,7 +3500,7 @@ def phase_transforms(torch, ds, keep):
           and np.isfinite(Cd).all(), "J21 decode without positions: positions not exact")
     check(launches["j21_cli"]["ds_cumsum"] == 1 and launches["j21_cli"]["ds_cumsum_t"] == 2
           and launches["j21_decode_cli"] == {"ds_cumsum": 0, "ds_cumsum_t": 2,
-                                             "ds_cumsum_batched": 0},
+                                             "ds_cumsum_batched": 0, "ds_cumsum_sharded": 0},
           f"J21 CLIs: scan launches {launches['j21_cli']}, {launches['j21_decode_cli']}")
     out["j21_cli"] = {"encode_s": cli_s, "decode_s": dec_s,
                       "stream_bytes": os.path.getsize(stream_path),
@@ -3669,16 +3682,160 @@ def phase_transforms(torch, ds, keep):
     out["launches"] = launches
     out["seconds"] = time.perf_counter() - t_phase
     say("transforms", seconds=round(out["seconds"], 1), launches=json.dumps(launches))
-    return out, body, wt
+    return out, body, wt, frame
 
 
 MESH_SLOTS = 4             # phase 16 (a), (d): a virtual dp=4 mesh on one card
 MESH_TP = (2, 4)           # phase 16 (b): dp x tp, 14 of the 56 channels a tp slot
 MESH_DP_SP_TP = (2, 2, 2)  # phase 16 (c): the JAX package's dry-run mesh
-MESH_MSE_RTOL = 1e-10      # phase 16 (c): the roundtrip MSE, sharded against unsharded
+MESH_SP = 4                # phase 16 (g), (h): the J=21 frame over a virtual sp=4 mesh
+SP_EXCHANGE_SHARE = 0.01   # phase 16 (c): exchange over the bytes a point gather would move
+SP_PEAK_RATIO = 0.5        # phase 16 (g): sharded peak over unsharded peak, at most
+# phase 16 (h): (shape, sp) of the sharded entry alone: the path's widths,
+# shard edges inside tiles (600 000 rows), a stack, shards shorter than a tile
+SHARDED_SCAN_CASES = (
+    ((1 << 19, 4), 4), ((1 << 19, 57), 4), ((600_000, 4), 4), ((4, 1 << 20, 4), 2),
+    ((5000, 12), 4), ((3, 70_001, 9), 4))
 
 
-def phase_mesh(torch, ds, keep):
+def check_sharded_scan(torch, ds, x, sp):
+    """The sharded entry on ``x`` ((N, K) or (B, N, K)) split into ``sp``
+    row shards: each shard's pack bitwise its rows of the unsharded kernel's
+    pack (a second run too), integer lanes bitwise the plain version, the
+    sharded plain version bitwise the plain version. Returns (max abs error
+    against the plain version, rel. error against f64, halo rows)."""
+    batched = x.dim() == 3
+    dim = 1 if batched else 0
+    n = x.shape[dim]
+    sizes = [n // sp + (j < n % sp) for j in range(sp)]
+    xs = [c.contiguous() for c in x.split(sizes, dim=dim)]
+    P = ds.ds_prefix_pack_batched(x) if batched else ds.ds_prefix_pack(x)
+    R = (ds.ds_prefix_pack_batched_reference(x) if batched
+         else ds.ds_prefix_pack_reference(x))
+    got = ds.ds_prefix_pack_sharded(xs)
+    again = ds.ds_prefix_pack_sharded(xs)
+    plain = ds.ds_prefix_pack_sharded_reference(xs)
+    torch.cuda.synchronize()
+    K = x.shape[-1]
+    a = 0
+    for j, m in enumerate(sizes):
+        rows = (slice(None), slice(a, a + m + 1)) if batched else (slice(a, a + m + 1),)
+        check(torch.equal(got[j], P[rows]) and torch.equal(again[j], got[j]),
+              f"{tuple(x.shape)} over sp={sp}: shard {j} differs from the unsharded kernel")
+        check(torch.equal(plain[j], R[rows]),
+              f"{tuple(x.shape)} over sp={sp}: shard {j}'s plain pack differs")
+        a += m
+    ints = [k for k in range(K) if bool((x[..., k] == x[..., k].round()).all())]
+    for k in ints:
+        check(torch.equal(P[..., k], R[..., k]), f"{tuple(x.shape)}: integer lane {k}")
+    tot = P[..., 1:, :K].double() + P[..., 1:, K:].double()
+    ref = torch.cumsum(x.double(), dim)
+    rel = float((tot - ref).abs().max()) / max(float(ref.abs().max()), 1.0)
+    max_abs = float((tot - (R[..., 1:, :K].double() + R[..., 1:, K:].double())).abs().max())
+    check(rel < 1e-12, f"{tuple(x.shape)}: rel err {rel}")
+    halo = sum(p.halo for p in ds.shard_plan(sizes, ds.TILE))
+    say("sharded_scan", shape=tuple(x.shape), sp=sp, sizes=json.dumps(sizes), halo_rows=halo,
+        bitwise_unsharded=True, rel_err=rel, max_abs_err_vs_plain=max_abs, integer_lanes=ints)
+    return max_abs, rel, halo
+
+
+def mesh_sp_legs(torch, ds, sh, card, j21, j21_body, pair):
+    """Phase 16 (g) and (h) (see :func:`phase_mesh`): ``j21`` a J=21 voxel
+    frame and ``j21_body`` its forward's (N, 4) pack body, on the card;
+    ``pair(fn_plain, fn_mesh)`` runs both calls counted, as
+    ``phase_mesh.unsharded_and_sharded`` does. Returns (the J=21 legs'
+    record, the sharded entry's kernel row)."""
+    cuda0 = j21.codes.device
+    mesh_sp = sh.make_mesh(MESH_SP, dp=1, sp=MESH_SP, devices=[cuda0] * MESH_SP)
+    c21, a21, w21 = (t[None] for t in (j21.codes, j21.attributes, j21.weights))
+    nv21 = torch.tensor([j21.n_voxels], dtype=torch.int32, device=cuda0)
+    st21 = torch.tensor([STEP], dtype=torch.float32, device=cuda0)
+    sc, sa, sw = sh.shard_batch(mesh_sp, c21, a21, w21)
+
+    def peak_above(fn):
+        """``fn()`` and its peak device memory above the allocation it
+        started from, GiB."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, (torch.cuda.max_memory_allocated() - base) / 2**30
+
+    q21 = inv21 = None
+    legs = {}
+    for name in ("transform_step", "inverse_order", "decode_step"):
+        if name == "transform_step":
+            plain = lambda: sh.batched_transform_step(c21, a21, w21, st21, J21, nvox=nv21)
+            mesh_fn = lambda: sh.batched_transform_step(sc, sa, sw, st21, J21, nvox=nv21)
+        elif name == "inverse_order":
+            plain = lambda: sh.batched_inverse_order(c21, w21, nv21, J21)
+            mesh_fn = lambda: sh.batched_inverse_order(sc, sw, nv21, J21)
+        else:
+            plain = lambda: sh.batched_decode_step(c21, w21, q21, inv21, st21, J21,
+                                                   torch.float32)
+            mesh_fn = lambda: sh.batched_decode_step(sc, sw, q21, inv21, st21, J21,
+                                                     torch.float32)
+        (want, peak0), wall0, l0, (got, peak), wall, l1 = pair(
+            lambda: peak_above(plain), lambda: peak_above(mesh_fn))
+        check(torch.equal(got, want), f"J21 {name} over sp={MESH_SP} differs from unsharded")
+        check(sh.COUNTS["sp_gather_bytes"] == 0 and l1["ds_cumsum_sharded"] > 0,
+              f"J21 {name} over sp={MESH_SP}: gather {sh.COUNTS['sp_gather_bytes']}, "
+              f"launches {l1}")
+        check(peak <= SP_PEAK_RATIO * peak0,
+              f"J21 {name} over sp={MESH_SP}: peak {peak} GiB, unsharded {peak0} GiB")
+        legs[name] = {"bitwise_unsharded": True, "wall_s": wall, "unsharded_wall_s": wall0,
+                      "sp_exchange_bytes": sh.COUNTS["sp_exchange_bytes"],
+                      "peak_above_start_gib": peak, "unsharded_peak_above_start_gib": peak0,
+                      "peak_ratio": peak / peak0, "launches": l1, "unsharded_launches": l0}
+        say("mesh_sp_j21", call=name, card=json.dumps(card), **{
+            k: json.dumps(v) if isinstance(v, dict) else v for k, v in legs[name].items()})
+        if name == "transform_step":
+            q21 = want
+        elif name == "inverse_order":
+            inv21 = want
+    rec = got[0, :j21.n_voxels].double()
+    rmse = float(torch.sqrt(torch.mean((rec - j21.attributes[:j21.n_voxels].double()) ** 2)))
+    check(bool(torch.isfinite(rec).all()) and rmse <= STEP / 2, f"J21 sp decode rmse {rmse}")
+    record = {"mesh": mesh_sp.shape, "nvox": j21.n_voxels, "slots": j21.codes.shape[0],
+              "rmse": rmse, **legs}
+    del sc, sa, sw, c21, a21, w21, q21, inv21, got, want
+
+    # (h) the sharded scan entry alone, then its row on the J=21 pack over sp=4
+    gen = torch.Generator(device="cpu").manual_seed(16)
+    errs = []
+    for shape, sp in SHARDED_SCAN_CASES:
+        x = torch.rand(*shape, generator=gen) * 3.0
+        x[..., -1] = (x[..., -1] > 1.5).float()   # an integer lane
+        errs.append(check_sharded_scan(torch, ds, x.to(cuda0), sp))
+    del x
+    N, K = j21_body.shape
+    xs = [c.contiguous() for c in j21_body.split(N // MESH_SP)]
+    max_abs, rel, halo = check_sharded_scan(torch, ds, j21_body, MESH_SP)
+    ms = cuda_ms(torch, lambda: ds.ds_prefix_pack_sharded(xs), reps=50)
+    plain_ms = cuda_ms(torch, lambda: ds.ds_prefix_pack_sharded_reference(xs), reps=3, warm=1)
+    lib_ms = cuda_ms(torch, lambda: torch.cumsum(j21_body, 0, dtype=torch.float64), reps=50)
+    bytes_ms = 4.0 * (N * K + (N + MESH_SP) * 2 * K) / HBM_BYTES_PER_S * 1e3
+    ops_ms = DS_OPS_PER_ELEM * N * K / F32_OPS_PER_S * 1e3
+    row = {"name": "ds_cumsum_sharded", "route": "cuda", "source": SOURCE["ds_cumsum_sharded"],
+           "replaces": REPLACES["ds_cumsum_sharded"],
+           "launches": sum(v["launches"]["ds_cumsum_sharded"] for v in legs.values()),
+           "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "library_ms": lib_ms,
+           "call": "ds_prefix_pack_sharded", "shape": [N, K], "sp": MESH_SP, "halo_rows": halo,
+           "rel_err": rel, "cases": [{"shape": list(s), "sp": p, "max_abs_err": e[0],
+                                      "rel_err": e[1], "halo_rows": e[2]}
+                                     for (s, p), e in zip(SHARDED_SCAN_CASES, errs)],
+           **fair_library_ms(torch, j21_body, reps=20)}
+    row["device_ms"], row["device_launches_per_call"], row["device_us_by_kernel"] = \
+        device_ms(torch, lambda: ds.ds_prefix_pack_sharded(xs))
+    say("sharded_kernel", card=json.dumps(card), **{
+        k: json.dumps(v) if isinstance(v, (dict, list)) else v for k, v in row.items()})
+    return record, row
+
+
+def phase_mesh(torch, ds, keep, j21, j21_body):
     """Phase 16: the device mesh, the legs of the JAX package's multi-device
     dry run on the card, each sharded result held against the unsharded
     call. (a) phase 8's first 4 frames through ``BatchAttributeCodec`` on a
@@ -3689,15 +3846,24 @@ def phase_mesh(torch, ds, keep):
     tp=4 with ``encode_3dgs``'s per-channel steps, bitwise the unsharded
     step, and each tp slot's 15-column pack against the plain version and
     bitwise the same columns of the whole pack; (c) that pair through
-    ``batched_roundtrip_step`` on dp=2 x sp=2 x tp=2 (MSE within
-    ``MESH_MSE_RTOL``; the sp gather's bytes); (d) ``render_views_sharded``
+    ``batched_roundtrip_step`` on dp=2 x sp=2 x tp=2, the point-sharded
+    codec (MSE bitwise the unsharded one; no point shard gathered, the
+    exchange under ``SP_EXCHANGE_SHARE`` of the bytes that gathering each
+    group's point shards would move); (g) phase 15's J=21 frame (``j21``)
+    over a virtual sp=4 mesh: transform step, inverse order and decode
+    bitwise the unsharded calls, walls, exchange bytes, and each call's
+    peak memory above its starting allocation, sharded at most
+    ``SP_PEAK_RATIO`` of unsharded; (h) the scan's sharded entry alone at
+    ``SHARDED_SCAN_CASES`` (:func:`check_sharded_scan`), and its kernel row
+    timed on the J=21 pack ``j21_body`` over sp=4; (d) ``render_views_sharded``
     (phase 9's 5-view orbit, padded to 8), ``serve_views_sharded``,
     ``serve_tiled_frame(mesh=)`` full and ROI and ``serve_sequence(mesh=)``
     on phase 14's inputs (4 views of 512x512), images bitwise the unsharded
     calls', clip counts equal; (e) the pack of (a) per slot with the
-    current device set to the slot's and to the first device; (f) (a) and
-    (d) again over the real cards when there are two or more. The scan
-    launches are read around each sharded call."""
+    current device set to the slot's and to the first device; (f) (a), (c)
+    and (d) again over the real cards when there are two or more. The scan
+    launches are read around each sharded call. Returns the phase's record
+    and the sharded entry's kernel row."""
     import os
 
     import numpy as np
@@ -3720,8 +3886,9 @@ def phase_mesh(torch, ds, keep):
     card = gpu_line()
     cuda0 = torch.empty(0, device=CARD).device   # cuda:0
     out = {"card": card}
-    paths = ("mesh_dataset", "mesh_tp", "mesh_roundtrip", "mesh_render", "mesh_serve_views",
-             "mesh_serve_tiled", "mesh_serve_tiled_roi", "mesh_serve_sequence")
+    paths = ("mesh_dataset", "mesh_tp", "mesh_roundtrip", "mesh_sp_j21", "mesh_render",
+             "mesh_serve_views", "mesh_serve_tiled", "mesh_serve_tiled_roi",
+             "mesh_serve_sequence")
     launches = {p: {name: 0 for name in ds.LAUNCHES} for p in paths}
     spare = {name: 0 for name in ds.LAUNCHES}   # launches of the unsharded calls
 
@@ -3769,7 +3936,7 @@ def phase_mesh(torch, ds, keep):
         check(all(np.array_equal(a, b) for a, b in zip(grecs, wrecs)),
               f"{label}: the mesh codec's decode differs from the unsharded batch's")
         check(l1 == {"ds_cumsum": 0, "ds_cumsum_t": 0,
-                     "ds_cumsum_batched": dp * l0["ds_cumsum_batched"]}
+                     "ds_cumsum_batched": dp * l0["ds_cumsum_batched"], "ds_cumsum_sharded": 0}
               and l0["ds_cumsum_batched"] == 3,
               f"{label}: scan launches {l1} on the mesh, {l0} unsharded")
         row = {"mesh": mesh.shape, "devices": [str(d) for d in mesh.devices.flat],
@@ -3860,24 +4027,53 @@ def phase_mesh(torch, ds, keep):
     say("mesh_tp", card=json.dumps(card), **{k: json.dumps(v) if isinstance(v, (dict, list))
                                              else v for k, v in out["tp"].items()})
 
-    # (c) the roundtrip over dp=2 x sp=2 x tp=2
+    # (c) the roundtrip over dp=2 x sp=2 x tp=2: the point-sharded codec
     mesh3 = virtual(8, dp=MESH_DP_SP_TP[0], sp=MESH_DP_SP_TP[1], tp=MESH_DP_SP_TP[2])
-    want, wall0, l0, got, wall, l1 = unsharded_and_sharded(
-        "mesh_roundtrip", lambda: sh.batched_roundtrip_step(codes, attrs, weights, gsteps,
-                                                            DEPTH),
-        lambda: sh.batched_roundtrip_step(*sh.shard_batch(mesh3, codes, attrs, weights),
-                                          gsteps, DEPTH))
-    want, got = float(want), float(got)
-    rel = abs(got - want) / want
-    check(np.isfinite(got) and rel <= MESH_MSE_RTOL,
-          f"roundtrip MSE {got} on the mesh, {want} unsharded (rel {rel})")
-    out["roundtrip"] = {"mesh": mesh3.shape, "mse": got, "unsharded_mse": want, "rel": rel,
-                        "sp_gather_bytes": sh.COUNTS["sp_gather_bytes"],
-                        "wall_s": wall, "unsharded_wall_s": wall0, "launches": l1,
-                        "unsharded_launches": l0, "group_runs": sh.COUNTS["groups"]}
-    say("mesh_roundtrip", card=json.dumps(card), **{
-        k: json.dumps(v) if isinstance(v, dict) else v for k, v in out["roundtrip"].items()})
+
+    def roundtrip_leg(mesh, path, counts=None):
+        want, wall0, l0, got, wall, l1 = unsharded_and_sharded(
+            path, lambda: sh.batched_roundtrip_step(codes, attrs, weights, gsteps, DEPTH),
+            lambda: sh.batched_roundtrip_step(*sh.shard_batch(mesh, codes, attrs, weights),
+                                              gsteps, DEPTH), counts)
+        check(bool(torch.isfinite(got)) and torch.equal(got.to(cuda0), want),
+              f"roundtrip MSE {float(got)} on {mesh.shape}, {float(want)} unsharded")
+        moved = sh.COUNTS["sp_exchange_bytes"]
+        # what gathering each (dp, tp) group's point shards on one of its
+        # devices would move: (sp - 1) / sp of its codes, channels and weights
+        dp, sp, tp = (mesh.shape[a] for a in ("dp", "sp", "tp"))
+        gather = dp * tp * (sp - 1) * (codes.numel() * codes.element_size()
+                                       + attrs.numel() * attrs.element_size() // tp
+                                       + weights.numel() * weights.element_size()) // (dp * sp)
+        bound = SP_EXCHANGE_SHARE * gather if counts is None else float("inf")
+        check(sh.COUNTS["sp_gather_bytes"] == 0 and 0 < moved < bound,
+              f"roundtrip on {mesh.shape}: gather {sh.COUNTS['sp_gather_bytes']}, "
+              f"exchange {moved} bytes, a point gather {gather}")
+        check(l1["ds_cumsum_sharded"] > 0 and l1["ds_cumsum_batched"] == 0,
+              f"roundtrip on {mesh.shape}: scan launches {l1}")
+        row = {"mesh": mesh.shape, "devices": [str(d) for d in mesh.devices.flat],
+               "mse": float(got), "unsharded_mse": float(want), "bitwise_unsharded": True,
+               "sp_gather_bytes": sh.COUNTS["sp_gather_bytes"], "sp_exchange_bytes": moved,
+               "point_gather_bytes": gather, "exchange_share_of_gather": moved / gather,
+               "wall_s": wall, "unsharded_wall_s": wall0, "launches": l1,
+               "unsharded_launches": l0, "group_runs": sh.COUNTS["groups"]}
+        say(path, card=json.dumps(card), **{
+            k: json.dumps(v) if isinstance(v, (dict, list)) else v for k, v in row.items()})
+        return row
+
+    out["roundtrip"] = roundtrip_leg(mesh3, "mesh_roundtrip")
+    n_cards = torch.cuda.device_count()
+    real_sp = None
+    if n_cards > 1:
+        use = max(n for n in (1, 2, 4) if n <= n_cards)
+        real_sp = roundtrip_leg(sh.make_mesh(use, dp=1, sp=use), "mesh_real_roundtrip",
+                                {name: 0 for name in ds.LAUNCHES})
     del codes, attrs, weights
+
+    # (g) phase 15's J=21 frame over a virtual sp=4 mesh; (h) the sharded
+    # scan entry alone and its kernel row
+    out["sp_j21"], row = mesh_sp_legs(
+        torch, ds, sh, card, j21, j21_body,
+        lambda fn_plain, fn_mesh: unsharded_and_sharded("mesh_sp_j21", fn_plain, fn_mesh))
 
     # (d) views over the mesh: phase 9's orbit of the merge, phase 14's serving
     means = (V + 0.5) * vsize + vmin
@@ -3972,13 +4168,13 @@ def phase_mesh(torch, ds, keep):
     out["views"] = views_legs(mesh4, "mesh_views")
 
     # (f) the real cards
-    n_cards = torch.cuda.device_count()
     if n_cards > 1:
         use = max(n for n in (1, 2, 4) if n <= n_cards)
         real = sh.make_mesh(use)
         out["real"] = {"cards": n_cards, "mesh": real.shape,
                        "dataset": dataset_leg(real, "mesh_real_dataset",
-                                              {name: 0 for name in ds.LAUNCHES})}
+                                              {name: 0 for name in ds.LAUNCHES}),
+                       "sp_roundtrip": real_sp}
         out["real"]["views"] = views_legs(real, "mesh_real_views", counted_paths=False)
     else:
         out["real"] = {"cards": n_cards, "ran": False}
@@ -3987,7 +4183,7 @@ def phase_mesh(torch, ds, keep):
     out["launches"] = launches
     out["seconds"] = time.perf_counter() - t_phase
     say("mesh", seconds=round(out["seconds"], 1), launches=json.dumps(launches))
-    return out
+    return out, row
 
 
 def main() -> int:
@@ -4024,8 +4220,9 @@ def main() -> int:
         rate = phase_rate(torch, ds, cli, gs, data, keep)
         seq = phase_sequence(torch, ds, data, keep)
         serving = phase_serving(torch, ds, keep)
-        transforms, j21_body, j21_weights = phase_transforms(torch, ds, keep)
-        mesh = phase_mesh(torch, ds, keep)
+        transforms, j21_body, j21_weights, j21_frame = phase_transforms(torch, ds, keep)
+        mesh, sharded_row = phase_mesh(torch, ds, keep, j21_frame, j21_body)
+        del j21_frame
     finally:
         shutil.rmtree(keep, ignore_errors=True)
     add_device_ms(torch, ds, vox["pack"], vox_vals)
@@ -4047,9 +4244,11 @@ def main() -> int:
              **predict["launches"], **rate["launches"], **seq["launches"],
              **serving["launches"], **transforms["launches"], **mesh["launches"]}
     rows.append(data["row"])
+    rows.append(sharded_row)
     for row in rows:
         # `launches`: the codec's main path (phase 3) for the single entry,
-        # the batched dataset run for the batched entry
+        # the batched dataset run for the batched entry, phase 16 (g)'s J=21
+        # calls over sp=4 for the sharded entry
         if row["name"] in SINGLE:
             row["launches"] = results[DEPTH]["launches"][row["name"]]
         row["launches_by_path"] = {p: counts[row["name"]] for p, counts in paths.items()}

@@ -79,6 +79,26 @@
 // frame's blocks do exactly the single entry's adds, so frame b's output is
 // the single entry's on x[b], bit for bit. The single entry's kernels are
 // the kBatch = false instances, which compile without the offsets.
+//
+// The sharded entry (ds_shard_totals_f32, ds_shard_scan_f32) replaces the
+// same kernel under the JAX package's sp axis, where XLA shards the scan's
+// rows over devices. A matrix (or a stack, the batched entry's kBatch
+// instances) whose rows lie in shards is scanned shard by shard to the
+// single entry's bits on the whole. The whole scan's association is fixed
+// by N: tile t is rows [2048 t, 2048 (t + 1)), pass 1 writes the tile
+// totals and pass 2's block t combines the totals of tiles [0, t) in the
+// fixed block-wide reduction (or, past 2048 tiles, reads their recursive
+// scan). So a shard owns the tiles whose first row it holds, runs pass 1 on
+// them, and runs pass 2 on them with tile0 (its first tile's global index,
+// Shard::tile0) once the caller has put every shard's totals, in tile order,
+// at the front of its scratch: its blocks then combine exactly the totals
+// the whole scan's blocks combine. A shard's last owned tile may run into
+// the following shards (their first rows: the halo, under 2048 rows); that
+// tile's rows come in a buffer of its own and its pack rows go out to one,
+// from which the caller returns the halo's rows to the shards that hold
+// them. Only tile0, the external totals and the tail's two buffers are
+// new: tile body, geometry, __fadd_rn and --fmad=false are the single
+// entry's. The bound and the arguments are at the entry points below.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -102,6 +122,20 @@ enum Carry { kCarryNone = 0, kCarryTotals = 1, kCarryScanned = 2 };
 struct Frames {
   long long in, tot, out;
 };
+
+// A shard's part of a sharded scan. tile0: the global index of the grid's
+// first tile. Where tail_in is set, the grid's last tile (the shard's last
+// owned tile, whose rows run into the following shards) reads its rows from
+// tail_in and writes its pack rows to tail_out, frames tail_in_fs and
+// tail_out_fs floats apart, instead of the shard's input and pack. The
+// single and batched entries run kWhole.
+struct Shard {
+  long long tile0;
+  const float* tail_in;
+  float* tail_out;
+  long long tail_in_fs, tail_out_fs;
+};
+constexpr Shard kWhole{0, nullptr, nullptr, 0, 0};
 
 // p moved to frame blockIdx.z (a null pointer stays null).
 template <bool kBatch, class T>
@@ -421,18 +455,6 @@ __device__ __forceinline__ void carry_at(int b, int carry,
   }
 }
 
-// carry_at for the tile of blockIdx.x.
-template <int K>
-__device__ __forceinline__ void carry_in(int carry,
-                                         const float* __restrict__ carry_hi,
-                                         const float* __restrict__ carry_lo,
-                                         long long stride, int col0, int kv,
-                                         float (&run_h)[K],
-                                         float (&run_l)[K]) {
-  carry_at<K>(blockIdx.x, carry, carry_hi, carry_lo, stride, col0, kv, run_h,
-              run_l);
-}
-
 // Each thread's rows of the tile, in place: the carry, then the thread's
 // exclusive prefix (ph, pl) in the block, then its 8 rows one by one.
 template <int K>
@@ -458,19 +480,22 @@ __global__ void __launch_bounds__(kThreads)
     ds_tile_total(const float* __restrict__ in_hi,
                   const float* __restrict__ in_lo, long long n, long long cs,
                   float* __restrict__ tot_hi, float* __restrict__ tot_lo,
-                  Frames fs) {
+                  Frames fs, Shard sh) {
   extern __shared__ float s_tile[];
-  in_hi = frame_ptr<kBatch>(in_hi, fs.in);
+  const bool at_tail = sh.tail_in != nullptr && blockIdx.x == gridDim.x - 1;
+  in_hi = at_tail ? frame_ptr<kBatch>(sh.tail_in, sh.tail_in_fs)
+                  : frame_ptr<kBatch>(in_hi, fs.in);
   in_lo = frame_ptr<kBatch>(in_lo, fs.in);
   tot_hi = frame_ptr<kBatch>(tot_hi, fs.tot);
   tot_lo = frame_ptr<kBatch>(tot_lo, fs.tot);
   const bool row_major = cs == 1;
   const long long row0 = (long long)blockIdx.x * kTile;
+  const long long in_row0 = at_tail ? 0 : row0;
   const int R = (int)min((long long)kTile, n - row0);
   float xh[kItems][K], xl[kItems][K], hi[K], lo[K], ph[K], pl[K], th[K],
       tl[K];
   const auto stage = [&](const float* p) {
-    stage_in<K>(p, row_major, cs, row0, R, s_tile);
+    stage_in<K>(p, row_major, cs, in_row0, R, s_tile);
   };
   load_tile<K, kPair>(stage, in_hi, in_lo, row_major, s_tile, xh, xl, hi, lo);
   block_scan<K>(hi, lo, ph, pl, th, tl);
@@ -485,9 +510,10 @@ __global__ void __launch_bounds__(kThreads)
 
 // carry: kCarryTotals: carry_hi/lo are the (T, K) tile totals, block b
 // combines rows [0, b); kCarryScanned: their inclusive scan, block b takes
-// row b - 1; kCarryNone: a single tile. out: hi in the input's layout, lo
-// n * K floats after it; with pack (row layout), the (n + 1, 2K) prefix
-// pack [0; hi | lo].
+// row b - 1; kCarryNone: a single tile. b is the global tile, sh.tile0 +
+// blockIdx.x. out: hi in the input's layout, lo n * K floats after it; with
+// pack (row layout), the (n + 1, 2K) prefix pack [0; hi | lo], its zero row
+// written by global tile 0 (a shard's tail: pack only).
 // Two blocks per SM (<= 128 registers a thread) up to K = 4: the codec's
 // 256-tile pack is then one wave on 132 SMs.
 template <int K, bool kPair, bool kBatch>
@@ -496,26 +522,29 @@ __global__ void __launch_bounds__(kThreads, K <= 4 ? 2 : 1)
                  const float* __restrict__ in_lo, long long n, long long cs,
                  const float* __restrict__ carry_hi,
                  const float* __restrict__ carry_lo, int carry,
-                 float* __restrict__ out, bool pack, Frames fs) {
+                 float* __restrict__ out, bool pack, Frames fs, Shard sh) {
   extern __shared__ float s_tile[];
-  in_hi = frame_ptr<kBatch>(in_hi, fs.in);
+  const bool at_tail = sh.tail_in != nullptr && blockIdx.x == gridDim.x - 1;
+  in_hi = at_tail ? frame_ptr<kBatch>(sh.tail_in, sh.tail_in_fs)
+                  : frame_ptr<kBatch>(in_hi, fs.in);
   in_lo = frame_ptr<kBatch>(in_lo, fs.in);
   carry_hi = frame_ptr<kBatch>(carry_hi, fs.tot);
   carry_lo = frame_ptr<kBatch>(carry_lo, fs.tot);
   out = frame_ptr<kBatch>(out, fs.out);
   const bool row_major = cs == 1;
   const long long row0 = (long long)blockIdx.x * kTile;
+  const long long in_row0 = at_tail ? 0 : row0;
   const int R = (int)min((long long)kTile, n - row0);
-  const int b = blockIdx.x;
+  const int b = (int)(sh.tile0 + blockIdx.x);
   float xh[kItems][K], xl[kItems][K], hi[K], lo[K], ph[K], pl[K], th[K],
       tl[K];
   const auto stage = [&](const float* p) {
-    stage_in<K>(p, row_major, cs, row0, R, s_tile);
+    stage_in<K>(p, row_major, cs, in_row0, R, s_tile);
   };
   load_tile<K, kPair>(stage, in_hi, in_lo, row_major, s_tile, xh, xl, hi, lo);
   block_scan<K>(hi, lo, ph, pl, th, tl);
   float run_h[K], run_l[K];
-  carry_in<K>(carry, carry_hi, carry_lo, K, 0, K, run_h, run_l);
+  carry_at<K>(b, carry, carry_hi, carry_lo, K, 0, K, run_h, run_l);
   scan_rows<K>(run_h, run_l, ph, pl, xh, xl);
 
   // every thread read its rows before block_scan's barriers, so the staged
@@ -523,7 +552,10 @@ __global__ void __launch_bounds__(kThreads, K <= 4 ? 2 : 1)
   if (pack) {
     if (b == 0 && threadIdx.x < 2 * K) out[threadIdx.x] = 0.f;
     // [hi | lo] rows, 2K floats apart: half a tile of whole rows at a time
-    // is one contiguous run
+    // is one contiguous run; a shard's tail writes its own rows
+    float* rows = at_tail ? frame_ptr<kBatch>(sh.tail_out, sh.tail_out_fs)
+                          : out + 2 * K;
+    const long long out_row0 = at_tail ? 0 : row0;
     constexpr int kHalf = kTile / 2;
     for (int h = 0; h < 2; ++h) {
       if (threadIdx.x / (kThreads / 2) == h) {
@@ -538,7 +570,7 @@ __global__ void __launch_bounds__(kThreads, K <= 4 ? 2 : 1)
         }
       }
       __syncthreads();
-      store_run<K>(s_tile, out + (1 + row0 + h * kHalf) * 2 * K,
+      store_run<K>(s_tile, rows + (out_row0 + h * kHalf) * 2 * K,
                    max(0, min(kHalf, R - h * kHalf)) * 2 * K);
       __syncthreads();
     }
@@ -834,15 +866,24 @@ __device__ __forceinline__ WideBlock wide_block(long long n, int ncol) {
   return w;
 }
 
+// Whether the block is the tile a shard reads from its tail (Shard).
+__device__ __forceinline__ bool wide_at_tail(const Shard& sh,
+                                             const WideBlock& w, int ncol) {
+  const unsigned ncb = (ncol + kWide - 1) / kWide;
+  return sh.tail_in != nullptr && w.b == (int)(gridDim.x / ncb) - 1;
+}
+
 // Stages the block's column slice of in_hi into s (and of in_lo into s2),
-// the copies left in flight.
+// the copies left in flight; the slice's first row is row in_row0 of the
+// input.
 template <bool kPair>
 __device__ __forceinline__ void wide_issue(const float* __restrict__ in_hi,
                                            const float* __restrict__ in_lo,
                                            bool row_major, long long rs,
-                                           long long cs, const WideBlock& w,
-                                           float* s, float* s2) {
-  const long long off = w.row0 * rs + w.c0 * cs;
+                                           long long cs, long long in_row0,
+                                           const WideBlock& w, float* s,
+                                           float* s2) {
+  const long long off = in_row0 * rs + w.c0 * cs;
   wide_stage_in(in_hi + off, row_major, rs, cs, w.R, w.kv, s);
   if (kPair) wide_stage_in(in_lo + off, row_major, rs, cs, w.R, w.kv, s2);
 }
@@ -854,16 +895,19 @@ __global__ void __launch_bounds__(kThreads, kPair ? 1 : 3)
     ds_wide_total(const float* __restrict__ in_hi,
                   const float* __restrict__ in_lo, long long n, int ncol,
                   long long rs, long long cs, float* __restrict__ tot_hi,
-                  float* __restrict__ tot_lo, Frames fs) {
+                  float* __restrict__ tot_lo, Frames fs, Shard sh) {
   extern __shared__ __align__(16) float s_wide[];
-  in_hi = frame_ptr<kBatch>(in_hi, fs.in);
+  const WideBlock w = wide_block(n, ncol);
+  const bool at_tail = wide_at_tail(sh, w, ncol);
+  in_hi = at_tail ? frame_ptr<kBatch>(sh.tail_in, sh.tail_in_fs)
+                  : frame_ptr<kBatch>(in_hi, fs.in);
   in_lo = frame_ptr<kBatch>(in_lo, fs.in);
   tot_hi = frame_ptr<kBatch>(tot_hi, fs.tot);
   tot_lo = frame_ptr<kBatch>(tot_lo, fs.tot);
   float* s2 = s_wide + kWideStage;
   const bool row_major = cs == 1;
-  const WideBlock w = wide_block(n, ncol);
-  wide_issue<kPair>(in_hi, in_lo, row_major, rs, cs, w, s_wide, s2);
+  wide_issue<kPair>(in_hi, in_lo, row_major, rs, cs, at_tail ? 0 : w.row0, w,
+                    s_wide, s2);
   cp_async_wait_all();
   __syncthreads();
   float hi[kWide], lo[kWide], ph[kWide], pl[kWide], th[kWide], tl[kWide];
@@ -879,9 +923,11 @@ __global__ void __launch_bounds__(kThreads, kPair ? 1 : 3)
   }
 }
 
-// carry as in ds_tile_scan, over (T, ncol) totals. out_hi / out_lo: row 0,
-// column 0 of hi and lo, strides (ors, ocs), in the input's layout;
-// zero_row, unless null, gets the pack's zero row (its 2 * ncol floats).
+// carry as in ds_tile_scan, over (T, ncol) totals (global tile sh.tile0 +
+// w.b). out_hi / out_lo: row 0, column 0 of hi and lo, strides (ors, ocs),
+// in the input's layout; zero_row, unless null, gets the pack's zero row
+// (its 2 * ncol floats). A shard's tail (pack only) writes its rows to
+// sh.tail_out, hi and lo out_lo - out_hi floats apart as in the pack.
 // The carry reads the totals while the tile's copies are in flight.
 // Registers: two blocks an SM (128 a thread), the lo results being 64 of
 // them.
@@ -893,21 +939,31 @@ __global__ void __launch_bounds__(kThreads, kPair ? 1 : 2)
                  const float* __restrict__ carry_lo, int carry,
                  float* __restrict__ out_hi, float* __restrict__ out_lo,
                  long long ors, long long ocs, float* __restrict__ zero_row,
-                 Frames fs) {
+                 Frames fs, Shard sh) {
   extern __shared__ __align__(16) float s_wide[];
-  in_hi = frame_ptr<kBatch>(in_hi, fs.in);
+  const WideBlock w = wide_block(n, ncol);
+  const bool at_tail = wide_at_tail(sh, w, ncol);
+  const int gb = (int)(sh.tile0 + w.b);
+  in_hi = at_tail ? frame_ptr<kBatch>(sh.tail_in, sh.tail_in_fs)
+                  : frame_ptr<kBatch>(in_hi, fs.in);
   in_lo = frame_ptr<kBatch>(in_lo, fs.in);
   carry_hi = frame_ptr<kBatch>(carry_hi, fs.tot);
   carry_lo = frame_ptr<kBatch>(carry_lo, fs.tot);
-  out_hi = frame_ptr<kBatch>(out_hi, fs.out);
-  out_lo = frame_ptr<kBatch>(out_lo, fs.out);
+  if (at_tail) {
+    float* t = frame_ptr<kBatch>(sh.tail_out, sh.tail_out_fs);
+    out_lo = t + (out_lo - out_hi);
+    out_hi = t;
+  } else {
+    out_hi = frame_ptr<kBatch>(out_hi, fs.out);
+    out_lo = frame_ptr<kBatch>(out_lo, fs.out);
+  }
   zero_row = frame_ptr<kBatch>(zero_row, fs.out);
   float* s2 = s_wide + kWideStage;
   const bool row_major = cs == 1;
-  const WideBlock w = wide_block(n, ncol);
-  wide_issue<kPair>(in_hi, in_lo, row_major, rs, cs, w, s_wide, s2);
+  const long long row0 = at_tail ? 0 : w.row0;
+  wide_issue<kPair>(in_hi, in_lo, row_major, rs, cs, row0, w, s_wide, s2);
   float run_h[kWide], run_l[kWide];
-  carry_at<kWide>(w.b, carry, carry_hi, carry_lo, ncol, w.c0, w.kv, run_h,
+  carry_at<kWide>(gb, carry, carry_hi, carry_lo, ncol, w.c0, w.kv, run_h,
                   run_l);
   cp_async_wait_all();
   __syncthreads();
@@ -918,14 +974,14 @@ __global__ void __launch_bounds__(kThreads, kPair ? 1 : 2)
 #pragma unroll
     for (int k = 0; k < kWide; ++k) ds_add(run_h[k], run_l[k], ph[k], pl[k]);
   }
-  if (zero_row != nullptr && w.b == 0 && threadIdx.x < w.kv) {
+  if (zero_row != nullptr && gb == 0 && threadIdx.x < w.kv) {
     zero_row[w.c0 + threadIdx.x] = 0.f;
     zero_row[ncol + w.c0 + threadIdx.x] = 0.f;
   }
   float lo_out[kItems][kWide];
   wide_scan_rows<kPair>(s_wide, s2, row_major, run_h, run_l, lo_out);
   // hi, then lo, from the staged slots to the output
-  const long long o = w.row0 * ors + w.c0 * ocs;
+  const long long o = row0 * ors + w.c0 * ocs;
   __syncthreads();
   wide_stage_out(s_wide, row_major, out_hi + o, ors, ocs, w.R, w.kv);
   if (kPair) {
@@ -971,14 +1027,34 @@ size_t stage_bytes() {
   return bytes;
 }
 
+// Floats of scratch that pass 2 needs for a matrix of t tiles of k columns
+// (one frame): the tile totals hi, lo, and beyond kMaxCarryTiles their
+// scan and the next level's scratch.
+long long scratch_tiles(long long t, int k) {
+  if (t <= 1) return 0;
+  if (t <= kMaxCarryTiles) return 2 * t * k;
+  return 4 * t * k + scratch_tiles((t + kTile - 1) / kTile, k);
+}
+
 // Floats of scratch that scan_level needs for n rows of k columns (one
 // frame).
 long long scratch_need(long long n, int k) {
-  const long long t = (n + kTile - 1) / kTile;
-  if (t <= 1) return 0;
-  if (t <= kMaxCarryTiles) return 2 * t * k;
-  return 4 * t * k + scratch_need(t, k);
+  return scratch_tiles((n + kTile - 1) / kTile, k);
 }
+
+// The passes one scan_level call runs: the whole scan (kWholeScan), or a
+// shard's pass 1 or pass 2 (kShardTotals, kShardScan). tiles: the whole
+// matrix's tile count (-1: the grid's own). A shard's pass 1 writes the
+// totals of its grid's tiles, (t, K) hi then lo; its pass 2 finds the
+// whole matrix's (tiles, K) totals at the front of the scratch, as the
+// whole scan's pass 1 leaves them.
+enum Passes { kTotalsPass = 1, kScanPass = 2 };
+struct Part {
+  Shard sh;
+  long long tiles;
+  int passes;
+};
+constexpr Part kWholeScan{kWhole, -1, kTotalsPass | kScanPass};
 
 // cs: the input's column stride (1: row layout, rows K floats apart;
 // otherwise rows are 1 apart). Scratch layout per level: tile totals hi,
@@ -989,31 +1065,38 @@ long long scratch_need(long long n, int k) {
 template <int K, bool kPair, bool kBatch>
 void scan_level(const float* in_hi, const float* in_lo, long long n,
                 long long cs, float* out, bool pack, float* scratch,
-                cudaStream_t st, int nb, Frames fs) {
+                cudaStream_t st, int nb, Frames fs,
+                const Part& part = kWholeScan) {
   const size_t smem = stage_bytes<K, kPair, kBatch>();
   const long long t = (n + kTile - 1) / kTile;
+  const long long tiles = part.tiles < 0 ? t : part.tiles;
   const dim3 grid((unsigned)t, 1, (unsigned)nb);
-  if (t <= 1) {
+  float* tot_hi = scratch;
+  if ((part.passes & kTotalsPass) && tiles > 1)
+    ds_tile_total<K, kPair, kBatch><<<grid, kThreads, smem, st>>>(
+        in_hi, in_lo, n, cs, tot_hi, tot_hi + t * K, fs, part.sh);
+  if (!(part.passes & kScanPass)) return;
+  if (tiles <= 1) {
     ds_tile_scan<K, kPair, kBatch><<<grid, kThreads, smem, st>>>(
-        in_hi, in_lo, n, cs, nullptr, nullptr, kCarryNone, out, pack, fs);
+        in_hi, in_lo, n, cs, nullptr, nullptr, kCarryNone, out, pack, fs,
+        part.sh);
     return;
   }
-  float* tot_hi = scratch;
-  float* tot_lo = tot_hi + t * K;
-  ds_tile_total<K, kPair, kBatch><<<grid, kThreads, smem, st>>>(
-      in_hi, in_lo, n, cs, tot_hi, tot_lo, fs);
-  if (t <= kMaxCarryTiles) {
+  float* tot_lo = tot_hi + tiles * K;
+  if (tiles <= kMaxCarryTiles) {
     ds_tile_scan<K, kPair, kBatch><<<grid, kThreads, smem, st>>>(
-        in_hi, in_lo, n, cs, tot_hi, tot_lo, kCarryTotals, out, pack, fs);
+        in_hi, in_lo, n, cs, tot_hi, tot_lo, kCarryTotals, out, pack, fs,
+        part.sh);
     return;
   }
   // the totals' inclusive scan: hi, then lo, then the next level's scratch
-  float* inc = tot_lo + t * K;
-  scan_level<K, true, kBatch>(tot_hi, tot_lo, t, 1, inc, false,
-                              inc + 2 * t * K, st, nb,
+  float* inc = tot_lo + tiles * K;
+  scan_level<K, true, kBatch>(tot_hi, tot_lo, tiles, 1, inc, false,
+                              inc + 2 * tiles * K, st, nb,
                               Frames{fs.tot, fs.tot, fs.tot});
   ds_tile_scan<K, kPair, kBatch><<<grid, kThreads, smem, st>>>(
-      in_hi, in_lo, n, cs, inc, inc + t * K, kCarryScanned, out, pack, fs);
+      in_hi, in_lo, n, cs, inc, inc + tiles * K, kCarryScanned, out, pack,
+      fs, part.sh);
 }
 
 // Shared memory of a wide block: one staged column block a staged input.
@@ -1046,35 +1129,40 @@ template <bool kPair, bool kBatch>
 void wide_level(const float* in_hi, const float* in_lo, long long n, int ncol,
                 long long rs, long long cs, float* out_hi, float* out_lo,
                 long long ors, long long ocs, float* zero_row, float* scratch,
-                cudaStream_t st, int nb, Frames fs) {
+                cudaStream_t st, int nb, Frames fs,
+                const Part& part = kWholeScan) {
   const size_t smem = wide_stage_bytes<kPair, kBatch>();
   const long long t = (n + kTile - 1) / kTile;
+  const long long tiles = part.tiles < 0 ? t : part.tiles;
   const dim3 grid((unsigned)(t * ((ncol + kWide - 1) / kWide)), 1,
                   (unsigned)nb);
-  if (t <= 1) {
+  float* tot_hi = scratch;
+  if ((part.passes & kTotalsPass) && tiles > 1)
+    ds_wide_total<kPair, kBatch><<<grid, kThreads, smem, st>>>(
+        in_hi, in_lo, n, ncol, rs, cs, tot_hi, tot_hi + t * ncol, fs,
+        part.sh);
+  if (!(part.passes & kScanPass)) return;
+  if (tiles <= 1) {
     ds_wide_scan<kPair, kBatch><<<grid, kThreads, smem, st>>>(
         in_hi, in_lo, n, ncol, rs, cs, nullptr, nullptr, kCarryNone, out_hi,
-        out_lo, ors, ocs, zero_row, fs);
+        out_lo, ors, ocs, zero_row, fs, part.sh);
     return;
   }
-  float* tot_hi = scratch;
-  float* tot_lo = tot_hi + t * ncol;
-  ds_wide_total<kPair, kBatch><<<grid, kThreads, smem, st>>>(
-      in_hi, in_lo, n, ncol, rs, cs, tot_hi, tot_lo, fs);
-  if (t <= kMaxCarryTiles) {
+  float* tot_lo = tot_hi + tiles * ncol;
+  if (tiles <= kMaxCarryTiles) {
     ds_wide_scan<kPair, kBatch><<<grid, kThreads, smem, st>>>(
         in_hi, in_lo, n, ncol, rs, cs, tot_hi, tot_lo, kCarryTotals, out_hi,
-        out_lo, ors, ocs, zero_row, fs);
+        out_lo, ors, ocs, zero_row, fs, part.sh);
     return;
   }
-  float* inc = tot_lo + t * ncol;
-  wide_level<true, kBatch>(tot_hi, tot_lo, t, ncol, ncol, 1, inc,
-                           inc + t * ncol, ncol, 1, nullptr,
-                           inc + 2 * t * ncol, st, nb,
+  float* inc = tot_lo + tiles * ncol;
+  wide_level<true, kBatch>(tot_hi, tot_lo, tiles, ncol, ncol, 1, inc,
+                           inc + tiles * ncol, ncol, 1, nullptr,
+                           inc + 2 * tiles * ncol, st, nb,
                            Frames{fs.tot, fs.tot, fs.tot});
   ds_wide_scan<kPair, kBatch><<<grid, kThreads, smem, st>>>(
-      in_hi, in_lo, n, ncol, rs, cs, inc, inc + t * ncol, kCarryScanned,
-      out_hi, out_lo, ors, ocs, zero_row, fs);
+      in_hi, in_lo, n, ncol, rs, cs, inc, inc + tiles * ncol, kCarryScanned,
+      out_hi, out_lo, ors, ocs, zero_row, fs, part.sh);
 }
 
 // The launches of one scan over nb frames of n rows and k columns (element
@@ -1083,22 +1171,23 @@ void wide_level(const float* in_hi, const float* in_lo, long long n, int ncol,
 template <bool kBatch>
 int launch_scan(const float* x, long long n, int k, long long rs,
                 long long cs, bool pack, float* out, float* scratch,
-                cudaStream_t st, int nb, Frames fs) {
+                cudaStream_t st, int nb, Frames fs,
+                const Part& part = kWholeScan) {
   if (k > kWide) {
     // hi keeps x's strides; the pack's hi starts at row 1, its lo k after
     if (pack)
       wide_level<false, kBatch>(x, nullptr, n, k, rs, cs, out + 2 * k,
                                 out + 3 * k, 2 * k, 1, out, scratch, st, nb,
-                                fs);
+                                fs, part);
     else
       wide_level<false, kBatch>(x, nullptr, n, k, rs, cs, out, out + n * k,
-                                rs, cs, nullptr, scratch, st, nb, fs);
+                                rs, cs, nullptr, scratch, st, nb, fs, part);
     return static_cast<int>(cudaGetLastError());
   }
 #define DS_SCAN_CASE(K)                                                   \
   case K:                                                                 \
     scan_level<K, false, kBatch>(x, nullptr, n, cs, out, pack, scratch, st, \
-                                 nb, fs);                                 \
+                                 nb, fs, part);                           \
     break;
   switch (k) {
     DS_SCAN_CASE(1)
@@ -1166,6 +1255,73 @@ int ds_cumsum_batched_f32(const float* x, long long b, long long n, int k,
   return launch_scan<true>(x, n, k, k, 1, pack != 0, out, scratch,
                            static_cast<cudaStream_t>(stream), (int)b,
                            Frames{n * k, need, out_fs});
+}
+
+// The sharded entry: one matrix (or a stack of b frames of one shape)
+// whose rows lie in shards, scanned shard by shard to the bits of the
+// single (batched) entry on the whole. Tile t of the whole is owned by the
+// shard that holds its first row, 2048 * t. A shard runs pass 1 on the
+// tiles it owns (ds_shard_totals_f32); the caller gathers every shard's
+// totals into the whole's (T, k) totals, in tile order, at the front of each
+// shard's scratch; the shard's pass 2 (ds_shard_scan_f32) then combines for
+// its global tile tile0 + i exactly the totals that block of the whole scan
+// combines (or, past 2048 tiles, scans them by the same recursive
+// procedure first), so its rows come out bitwise. A shard's last owned tile
+// may run into the following shards: its rows (the shard's own, then the
+// halo of fewer than 2048 rows from the next shards) come in a tail buffer,
+// and its pack rows go out to a tail buffer, from which the caller returns
+// the halo's rows to the shards that hold them. Rows before a shard's first
+// owned tile, and its pack's leading row (the inclusive prefix at the row
+// before its first, zeros for the first shard), come from the shards
+// before it. Pack output only.
+//
+// Bound on the card, per shard: bytes, 4 n k read and 8 n k written for its
+// n rows, plus the halo's rows twice (in the tail, out of it) and the
+// (T, k) totals; the recursion over the totals past 2048 tiles is
+// repeated on every shard.
+//
+// x: the shard's first owned row, frames x_fs floats apart; n: the rows of
+// its owned tiles (own rows from x and the tail's rows); tail: the last
+// tile's rows, frames tail_fs apart, or null where that tile ends inside
+// the shard. tiles: the whole matrix's tile count. ds_shard_totals_f32
+// writes frame z's (t, k) totals hi, then lo, at tot + 2 * z * t * k.
+// ds_shard_scan_f32 writes frame z's pack rows from out + z * out_fs (out:
+// the shard pack's leading row, shifted by the rows before the first owned
+// tile, where the pack's zero row goes for global tile 0) and the tail's
+// rows at tail_out + z * tail_out_fs; its scratch holds scratch_fs >=
+// scratch_tiles(tiles, k) floats a frame. Both launch on `stream`, do not
+// synchronise, and return cudaGetLastError() after the launches, or without
+// launching -1 for k < 1, -3 for too little scratch, -4 for a frame count
+// outside [1, 65535].
+int ds_shard_totals_f32(const float* x, long long b, long long x_fs,
+                        long long n, int k, long long tiles,
+                        const float* tail, long long tail_fs, float* tot,
+                        void* stream) {
+  if (k < 1) return -1;
+  if (b < 1 || b > 65535) return -4;
+  const long long t = (n + kTile - 1) / kTile;
+  return launch_scan<true>(x, n, k, k, 1, true, nullptr, tot,
+                           static_cast<cudaStream_t>(stream), (int)b,
+                           Frames{x_fs, 2 * t * k, 0},
+                           Part{Shard{0, tail, nullptr, tail_fs, 0}, tiles,
+                                kTotalsPass});
+}
+
+int ds_shard_scan_f32(const float* x, long long b, long long x_fs,
+                      long long n, int k, long long tile0, long long tiles,
+                      const float* tail, long long tail_fs, float* out,
+                      long long out_fs, float* tail_out,
+                      long long tail_out_fs, float* scratch,
+                      long long scratch_fs, void* stream) {
+  if (k < 1) return -1;
+  if (b < 1 || b > 65535) return -4;
+  if (scratch_fs < scratch_tiles(tiles, k)) return -3;
+  return launch_scan<true>(x, n, k, k, 1, true, out, scratch,
+                           static_cast<cudaStream_t>(stream), (int)b,
+                           Frames{x_fs, scratch_fs, out_fs},
+                           Part{Shard{tile0, tail, tail_out, tail_fs,
+                                      tail_out_fs},
+                                tiles, kScanPass});
 }
 
 }  // extern "C"

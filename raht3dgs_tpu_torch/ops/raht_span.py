@@ -93,7 +93,8 @@ def _msb(x: torch.Tensor, bits: int) -> torch.Tensor:
     return torch.where(hi > 0, 32 + msb32(hi), msb32(lo)).to(torch.int32)
 
 
-def _nearest_ge_flat(B: torch.Tensor, n_vals: int, W: torch.Tensor = None):
+def _nearest_ge_flat(B: torch.Tensor, n_vals: int, W: torch.Tensor = None,
+                     idx0: int = 0, n_all: int = None, w_total: torch.Tensor = None):
     """prev_ge[i] (previous j with B[j] >= B[i], else -1) and next_ge[i]
     (next k with B[k] >= B[i], else N), batched over the value alphabet
     with one (V, N) cummax / reverse cummin; each element then reads its
@@ -101,14 +102,20 @@ def _nearest_ge_flat(B: torch.Tensor, n_vals: int, W: torch.Tensor = None):
 
     With ``W`` (an ``(N+1,)`` nondecreasing prefix array) also returns
     ``W[max(prev_ge, 0)]`` and ``W[next_ge]``, propagated as values through
-    the same scans (bitwise equal to the gathers, by monotonicity)."""
+    the same scans (bitwise equal to the gathers, by monotonicity).
+
+    A run of rows of a longer array (``parallel/sp_span.py``): ``B`` its
+    rows from global row ``idx0`` of ``n_all``, ``W`` its ``W[idx0 ..]``
+    rows and ``w_total`` the array's ``W[n_all]``; outputs are global, -1 /
+    ``n_all`` / 0 / ``w_total`` where the run holds no such row."""
     N = B.shape[0]
+    n_all = N if n_all is None else n_all
     dev = B.device
-    idx = torch.arange(N, dtype=torch.int32, device=dev)
+    idx = torch.arange(idx0, idx0 + N, dtype=torch.int32, device=dev)
     vals = torch.arange(n_vals, dtype=B.dtype, device=dev)
     ge = B[None, :] >= vals[:, None]                       # (V, N)
     neg1 = torch.full((), -1, dtype=torch.int32, device=dev)
-    nfill = torch.full((), N, dtype=torch.int32, device=dev)
+    nfill = torch.full((), n_all, dtype=torch.int32, device=dev)
     last = torch.cummax(torch.where(ge, idx, neg1), dim=1).values
     nxt = torch.cummin(torch.where(ge, idx, nfill).flip(1), dim=1).values.flip(1)
     # strictly-before / strictly-after: shift the inclusive scans by one
@@ -116,15 +123,13 @@ def _nearest_ge_flat(B: torch.Tensor, n_vals: int, W: torch.Tensor = None):
     rows = B.to(torch.int64)[None, :]
     last_excl = torch.cat([torch.full((n_vals, 1), -1, dtype=torch.int32, device=dev),
                            last[:, :-1]], dim=1)
-    next_excl = torch.cat([nxt[:, 1:],
-                           torch.full((n_vals, 1), N, dtype=torch.int32, device=dev)],
-                          dim=1)
+    next_excl = torch.cat([nxt[:, 1:], nfill.expand(n_vals, 1)], dim=1)
     prev_ge = torch.gather(last_excl, 0, rows)[0]
     next_ge = torch.gather(next_excl, 0, rows)[0]
     if W is None:
         return prev_ge, next_ge
     Wrow = W[:N]
-    w_total = W[N]
+    w_total = W[N] if w_total is None else w_total
     zero = torch.zeros((), dtype=W.dtype, device=dev)
     lastW = torch.cummax(torch.where(ge, Wrow[None, :], zero), dim=1).values
     nxtW = torch.cummin(torch.where(ge, Wrow[None, :], w_total).flip(1),
@@ -199,23 +204,27 @@ def _nge_tier_plan(N: int, n_vals: int):
     return plan
 
 
-def _nearest_ge_tiered(B: torch.Tensor, n_vals: int, W: torch.Tensor = None):
+def _nearest_ge_tiered(B: torch.Tensor, n_vals: int, W: torch.Tensor = None,
+                       idx0: int = 0, n_all: int = None, w_total: torch.Tensor = None):
     """:func:`_nearest_ge_flat` with its high-threshold rows scanned over
     compacted candidate subsequences (:func:`_nge_tier_plan`): bitwise the
-    same outputs, since every scan selects the same elements."""
+    same outputs, since every scan selects the same elements. ``idx0``,
+    ``n_all`` and ``w_total`` as there (the plan is the whole array's)."""
     N = B.shape[0]
-    plan = _nge_tier_plan(N, n_vals)
+    n_all = N if n_all is None else n_all
+    plan = _nge_tier_plan(n_all, n_vals)
     if plan is None:
-        return _nearest_ge_flat(B, n_vals, W)
+        return _nearest_ge_flat(B, n_vals, W, idx0, n_all, w_total)
     dev = B.device
-    idx = torch.arange(N, dtype=torch.int32, device=dev)
+    idx = torch.arange(idx0, idx0 + N, dtype=torch.int32, device=dev)
     Wrow = None if W is None else W[:N]
-    w_total = None if W is None else W[N]
+    if W is not None and w_total is None:
+        w_total = W[N]
 
     # stage 0 over the whole array writes every output; elements of a higher
     # tier are overwritten by their own tier's scatter below
     lo0, hi0, _ = plan[0]
-    out = _nge_stage(B, idx, lo0, hi0, N, Wrow, w_total)
+    out = _nge_stage(B, idx, lo0, hi0, n_all, Wrow, w_total)
     ipad = torch.cat([torch.stack(out[:2], dim=1),
                       torch.zeros((1, 2), dtype=torch.int32, device=dev)])
     wpad = None if W is None else torch.cat(
@@ -232,12 +241,13 @@ def _nearest_ge_tiered(B: torch.Tensor, n_vals: int, W: torch.Tensor = None):
             torch.arange(Mc, dtype=torch.int64, device=dev)
         sel = sel[:M]
         Bc = torch.cat([Bc, torch.full((1,), -1, dtype=Bc.dtype, device=dev)])[sel]
-        orig = torch.cat([orig, torch.full((1,), N, dtype=torch.int32, device=dev)])[sel]
+        orig = torch.cat([orig, torch.full((1,), n_all, dtype=torch.int32, device=dev)])[sel]
         if W is not None:
             Wc = torch.cat([Wc, torch.zeros((1,), dtype=Wc.dtype, device=dev)])[sel]
         Mc = M
-        out = _nge_stage(Bc, orig, lo, hi, N, Wc, w_total)
-        tgt = torch.where((Bc >= lo) & (Bc < hi), orig, torch.full_like(orig, N)).long()
+        out = _nge_stage(Bc, orig, lo, hi, n_all, Wc, w_total)
+        tgt = torch.where((Bc >= lo) & (Bc < hi), orig - idx0,
+                          torch.full_like(orig, N)).long()
         ipad[tgt] = torch.stack(out[:2], dim=1)
         if W is not None:
             wpad[tgt] = torch.stack(out[2:], dim=1)
@@ -526,14 +536,9 @@ def _raht_inverse_span_fill(coeffs: torch.Tensor, codes: torch.Tensor,
     acc_dt = torch.float64 if fdtype == torch.float64 else torch.float32
     T = coeffs.to(acc_dt)
 
-    def inv_root(w):
-        pos = w > 0
-        return torch.where(pos, 1.0 / ieee_sqrt(torch.where(pos, w, torch.ones_like(w))),
-                           torch.zeros_like(w)).to(acc_dt)
-
     not0 = (torch.arange(N, device=dev) != 0).to(acc_dt)[:, None]
-    u = ((-b).to(acc_dt) * inv_root(w0))[:, None] * T * not0
-    v = (a.to(acc_dt) * inv_root(w1))[:, None] * T * not0
+    u = ((-b).to(acc_dt) * _inv_root(w0, acc_dt))[:, None] * T * not0
+    v = (a.to(acc_dt) * _inv_root(w1, acc_dt))[:, None] * T * not0
 
     n_vals = levels + 2
     idx = torch.arange(N, dtype=torch.int32, device=dev)
@@ -547,13 +552,8 @@ def _raht_inverse_span_fill(coeffs: torch.Tensor, codes: torch.Tensor,
     hit_v = (last >= 0) & (B[at_v] == vals[:, None])
     hit_u = (nxt < N) & (B[at_u] == vals[:, None])
 
-    max_elems = 1 << 27
-    dc = max(1, min(D, max_elems // max(1, n_vals * N)))
-    zero = torch.zeros((), dtype=acc_dt, device=dev)
-    v_sum = torch.cat([torch.where(hit_v[..., None], v[:, c0:c0 + dc][at_v], zero).sum(0)
-                       for c0 in range(0, D, dc)], dim=1)
-    u_incl = torch.cat([torch.where(hit_u[..., None], u[:, c0:c0 + dc][at_u], zero).sum(0)
-                        for c0 in range(0, D, dc)], dim=1)
+    v_sum = _level_sums(v, at_v, hit_v)
+    u_incl = _level_sums(u, at_u, hit_u)
     # u intervals [p_i, i) leave out i itself: the backward fill at k+1
     u_sum = torch.cat([u_incl[1:], torch.zeros((1, D), dtype=acc_dt, device=dev)])
 
@@ -561,6 +561,25 @@ def _raht_inverse_span_fill(coeffs: torch.Tensor, codes: torch.Tensor,
     dc_term = T[0] / w_root.to(acc_dt)
     out = (v_sum + u_sum + dc_term[None, :]) * ieee_sqrt(weights.to(acc_dt))[:, None]
     return out.to(fdtype)
+
+
+def _inv_root(w, acc_dt):
+    """1 / sqrt(w) where w > 0, else 0."""
+    pos = w > 0
+    return torch.where(pos, 1.0 / ieee_sqrt(torch.where(pos, w, torch.ones_like(w))),
+                       torch.zeros_like(w)).to(acc_dt)
+
+
+def _level_sums(terms, at, hit):
+    """``sum_v where(hit[v, k], terms[at[v, k]], 0)`` for (N', D) terms and
+    (V, N) rows: the fill inverse's per-level terms of each leaf, the
+    channels in chunks that bound the (V, N, D) operand."""
+    n_vals, N = at.shape
+    D = terms.shape[1]
+    dc = max(1, min(D, (1 << 27) // max(1, n_vals * N)))
+    zero = torch.zeros((), dtype=terms.dtype, device=terms.device)
+    return torch.cat([torch.where(hit[..., None], terms[:, c0:c0 + dc][at], zero).sum(0)
+                      for c0 in range(0, D, dc)], dim=1)
 
 
 def raht_inverse_span(coeffs: torch.Tensor, codes: torch.Tensor,
@@ -588,30 +607,31 @@ def _rows_batched(P: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return P.reshape(B * M, C)[(idx.long() + off).reshape(-1)].reshape(B, -1, C)
 
 
-def _nearest_ge_batched(B: torch.Tensor, n_vals: int, W: torch.Tensor = None):
+def _nearest_ge_batched(B: torch.Tensor, n_vals: int, W: torch.Tensor = None,
+                        idx0: int = 0, n_all: int = None, w_total: torch.Tensor = None):
     """:func:`_nearest_ge_flat` of every row of ``B (F, N)``, one (F, V, N)
-    cummax / reverse cummin; ``W`` (F, N+1) as there."""
+    cummax / reverse cummin; ``W`` (F, N+1), and ``idx0`` / ``n_all`` /
+    ``w_total (F,)`` for a run of rows, as there."""
     F, N = B.shape
+    n_all = N if n_all is None else n_all
     dev = B.device
-    idx = torch.arange(N, dtype=torch.int32, device=dev)
+    idx = torch.arange(idx0, idx0 + N, dtype=torch.int32, device=dev)
     vals = torch.arange(n_vals, dtype=B.dtype, device=dev)
     ge = B[:, None, :] >= vals[None, :, None]              # (F, V, N)
     neg1 = torch.full((), -1, dtype=torch.int32, device=dev)
-    nfill = torch.full((), N, dtype=torch.int32, device=dev)
+    nfill = torch.full((), n_all, dtype=torch.int32, device=dev)
     last = torch.cummax(torch.where(ge, idx, neg1), dim=2).values
     nxt = torch.cummin(torch.where(ge, idx, nfill).flip(2), dim=2).values.flip(2)
     rows = B.to(torch.int64)[:, None, :]
     last_excl = torch.cat([torch.full((F, n_vals, 1), -1, dtype=torch.int32, device=dev),
                            last[:, :, :-1]], dim=2)
-    next_excl = torch.cat([nxt[:, :, 1:],
-                           torch.full((F, n_vals, 1), N, dtype=torch.int32, device=dev)],
-                          dim=2)
+    next_excl = torch.cat([nxt[:, :, 1:], nfill.expand(F, n_vals, 1)], dim=2)
     prev_ge = torch.gather(last_excl, 1, rows)[:, 0]
     next_ge = torch.gather(next_excl, 1, rows)[:, 0]
     if W is None:
         return prev_ge, next_ge
     Wrow = W[:, None, :N]
-    w_total = W[:, N, None, None]
+    w_total = (W[:, N] if w_total is None else w_total)[:, None, None]
     zero = torch.zeros((), dtype=W.dtype, device=dev)
     lastW = torch.cummax(torch.where(ge, Wrow, zero), dim=2).values
     nxtW = torch.cummin(torch.where(ge, Wrow, w_total).flip(2), dim=2).values.flip(2)
@@ -667,6 +687,14 @@ def _prefix_pack_batched(body: torch.Tensor, use_ds: bool) -> torch.Tensor:
     return torch.cat([P.new_zeros((P.shape[0], 1, P.shape[2])), P], dim=1)
 
 
+def _pair_weights_from_pack(here, g_next, g_prev):
+    """(w0, w1) of every row from the weight column's ds pack: its own row
+    and its rows at next_ge and max(prev_ge, 0)."""
+    w1 = _prefix_diff(g_next[..., :1], g_next[..., 1:], here[..., :1], here[..., 1:])[..., 0]
+    w0 = _prefix_diff(here[..., :1], here[..., 1:], g_prev[..., :1], g_prev[..., 1:])[..., 0]
+    return w0, w1
+
+
 def _pair_weights_batched(codes: torch.Tensor, weights: torch.Tensor, depth: int,
                           fdtype):
     """:func:`_pair_weights` of every frame of a (F, N) stack."""
@@ -674,11 +702,8 @@ def _pair_weights_batched(codes: torch.Tensor, weights: torch.Tensor, depth: int
     if _use_ds(fdtype):
         drop, prev_ge, next_ge, levels, B = _span_topology_batched(codes, depth)
         P = _prefix_pack_batched(weights.to(torch.float32)[..., None], True)
-        here = P[:, :N]
-        g_next = _rows_batched(P, next_ge)
-        g_prev = _rows_batched(P, torch.clamp(prev_ge, min=0))
-        w1 = _prefix_diff(g_next[..., :1], g_next[..., 1:], here[..., :1], here[..., 1:])[..., 0]
-        w0 = _prefix_diff(here[..., :1], here[..., 1:], g_prev[..., :1], g_prev[..., 1:])[..., 0]
+        w0, w1 = _pair_weights_from_pack(P[:, :N], _rows_batched(P, next_ge),
+                                         _rows_batched(P, torch.clamp(prev_ge, min=0)))
         w_total = P[:, N, 0] + P[:, N, 1]
         return drop, prev_ge, next_ge, levels, B, w0, w1, w_total
     W, w_total = _weight_prefix_batched(weights, fdtype)
@@ -694,8 +719,18 @@ def raht_structure_span_batched(codes: torch.Tensor, weights: torch.Tensor,
     fdtype = weights.dtype
     drop, _, _, _, _, w0, w1, w_total = _pair_weights_batched(codes, weights, depth, fdtype)
     is0 = torch.arange(N, device=codes.device) == 0
-    node_w = torch.where(is0, w_total[:, None], w0 + w1).to(fdtype)
-    subtree = torch.where(is0, w_total[:, None], w1).to(fdtype)
+    return _structure_rows(drop, w0, w1, w_total, is0, fdtype)
+
+
+def _structure_rows(drop, w0, w1, w_total, root, fdtype) -> RahtStructure:
+    """The structure of (F, N) rows from their pair weights; ``root`` marks
+    row 0 (the DC row, which takes the (F,) total ``w_total``), or None for
+    rows without it."""
+    if root is None:
+        return RahtStructure(drop_level=drop, subtree_w=w1.to(fdtype),
+                             node_weights=(w0 + w1).to(fdtype))
+    node_w = torch.where(root, w_total[:, None], w0 + w1).to(fdtype)
+    subtree = torch.where(root, w_total[:, None], w1).to(fdtype)
     return RahtStructure(drop_level=drop, subtree_w=subtree, node_weights=node_w)
 
 
@@ -715,44 +750,44 @@ def raht_forward_span_batched(codes: torch.Tensor, attributes: torch.Tensor,
     w_acc = weights.to(acc_dt)
     sw = ieee_sqrt(w_acc)[..., None]
     body = torch.cat([sw * attributes.to(acc_dt), w_acc[..., None]], dim=2)
-    K = D + 1
     SW = _prefix_pack_batched(body, use_ds)
 
-    SW_here = SW[:, :N]
-    g_next = _rows_batched(SW, next_ge)
-    g_prev = _rows_batched(SW, torch.clamp(prev_ge, min=0))
+    T, structure = _forward_rows(SW[:, :N], _rows_batched(SW, next_ge),
+                                 _rows_batched(SW, torch.clamp(prev_ge, min=0)),
+                                 SW[:, N], idx == 0, drop, D, use_ds, fdtype)
+    return RahtForwardResult(coeffs=T, weights=structure.node_weights, structure=structure)
+
+
+def _forward_rows(SW_here, g_next, g_prev, total, root, drop, D: int, use_ds: bool,
+                  fdtype):
+    """The forward's arithmetic on (F, N) rows, from the fused pack's row of
+    each, its rows at next_ge and max(prev_ge, 0), and the pack's last row
+    ``total (F, C)``: (coefficients (F, N, D), structure). ``root`` marks
+    row 0 (the DC), or is None for rows without it (``total`` unused)."""
+    K = D + 1
     if use_ds:
         sub = _prefix_diff(g_next[..., :K], g_next[..., K:], SW_here[..., :K], SW_here[..., K:])
         sub1, w1 = sub[..., :D], sub[..., D]
         sub = _prefix_diff(SW_here[..., :K], SW_here[..., K:], g_prev[..., :K], g_prev[..., K:])
         sub0, w0 = sub[..., :D], sub[..., D]
-        totals = SW[:, N, :K] + SW[:, N, K:]
-        w_total = totals[:, D]
-        total_S = totals[:, :D]
     else:
         sub1 = g_next[..., :D] - SW_here[..., :D]
         sub0 = SW_here[..., :D] - g_prev[..., :D]
         w1 = g_next[..., D] - SW_here[..., D]
         w0 = SW_here[..., D] - g_prev[..., D]
-        w_total = SW[:, N, D]
-        total_S = SW[:, N, :D]
     x1 = _guarded_scale(sub1, w1)
     x0 = _guarded_scale(sub0, w0)
     a, b = _butterfly_ab(w0, w1)
     detail = ((-b[..., None]) * x0 + a[..., None] * x1).to(fdtype)
-
+    if root is None:
+        return detail, _structure_rows(drop, w0, w1, None, None, fdtype)
+    totals = total[:, :K] + total[:, K:] if use_ds else total
+    w_total = totals[:, D]
+    total_S = totals[:, :D]
     w_root = ieee_sqrt(torch.where(w_total > 0, w_total, torch.ones_like(w_total)))
     dc = (total_S / w_root[:, None]).to(fdtype)
-    T = torch.where((idx == 0)[None, :, None], dc[:, None, :], detail)
-
-    node_w = torch.where(idx == 0, w_total[:, None], w0 + w1).to(fdtype)
-    subtree = torch.where(idx == 0, w_total[:, None], w1).to(fdtype)
-    return RahtForwardResult(
-        coeffs=T,
-        weights=node_w,
-        structure=RahtStructure(drop_level=drop, subtree_w=subtree,
-                                node_weights=node_w),
-    )
+    T = torch.where(root[..., None], dc[:, None, :], detail)
+    return T, _structure_rows(drop, w0, w1, w_total, root, fdtype)
 
 
 def raht_inverse_span_batched(coeffs: torch.Tensor, codes: torch.Tensor,
@@ -786,44 +821,71 @@ def raht_inverse_span_batched(coeffs: torch.Tensor, codes: torch.Tensor,
             f"(got {N}): pointer lanes ride as exact float values; use "
             "float64 I/O"
         )
-    nf = next_ge.to(T64.dtype)
-    Z = torch.cat([a[..., None].to(T64.dtype), b[..., None].to(T64.dtype), T64,
-                   nf[..., None]], dim=2)
-    Zp = _rows_batched(Z, p_c)
-    Zq = _rows_batched(Z, q_c)
+    Z = _chain_lanes(a, b, T64, next_ge)
+    is0 = idx == 0
+    par, g, d = _chain_links(_rows_batched(Z, p_c), _rows_batched(Z, q_c), p, q, p_c, q_c,
+                             T64[:, :1, :], is0)
+    for _ in range(_chain_rounds(levels)):
+        g, d, par = _chain_round(g, d, par, torch.gather(g, 1, par), _rows_batched(d, par),
+                                 torch.gather(par, 1, par))
+    Y = d
+
+    x0, x1 = _chain_halves(a, b, Y, T64)
+    nxt_is_child = torch.cat([prev_ge[:, 1:] == idx[:-1].to(prev_ge.dtype),
+                              torch.zeros((F, 1), dtype=torch.bool, device=dev)], dim=1)
+    x0_next = torch.cat([x0[:, 1:], x0[:, -1:]], dim=1)
+    return _chain_leaves(x0_next, x1, Y, nxt_is_child, is0).to(fdtype)
+
+
+def _chain_lanes(a, b, T64, next_ge):
+    """The (F, N, D + 3) rows a chain link reads at p and q: a, b, the
+    coefficients and next_ge as an exact float lane."""
+    return torch.cat([a[..., None].to(T64.dtype), b[..., None].to(T64.dtype), T64,
+                      next_ge.to(T64.dtype)[..., None]], dim=2)
+
+
+def _chain_links(Zp, Zq, p, q, p_c, q_c, dc, root):
+    """Each row's link Y[i] = g[i] * Y[par[i]] + d[i] from its lanes at
+    max(p, 0) and min(q, N - 1); ``dc (F, 1, D)`` the frame's DC row,
+    ``root`` the rows that are row 0 (or all False)."""
+    D = dc.shape[2]
     a_p, b_p, T_p = Zp[..., 0], Zp[..., 1], Zp[..., 2:2 + D]
     a_q, b_q, T_q = Zq[..., 0], Zq[..., 1], Zq[..., 2:2 + D]
-    last_merge = Zp[..., 2 + D] == q.to(T64.dtype)
-
+    # i is its left partner's final merge iff the merged span [p, q) is
+    # exactly p's own subtree span [p, next_ge[p])
+    last_merge = Zp[..., 2 + D] == q.to(Zp.dtype)
     par = torch.where(last_merge, p_c, q_c)
     g = torch.where(last_merge, b_p, a_q)
     d = torch.where(last_merge[..., None], a_p[..., None] * T_p, (-b_q)[..., None] * T_q)
     root_child = last_merge & (p == 0)
-    zero = torch.zeros((), dtype=g.dtype, device=dev)
-    dc = T64[:, :1, :]
+    zero = torch.zeros((), dtype=g.dtype, device=g.device)
     g = torch.where(root_child, zero, g)
     d = torch.where(root_child[..., None], dc, d)
-    is0 = idx == 0
-    g = torch.where(is0, zero, g)
-    d = torch.where(is0[None, :, None], dc, d)
-    par = torch.where(is0, torch.zeros_like(par), par)
+    g = torch.where(root, zero, g)
+    d = torch.where(root[..., None], dc, d)
+    par = torch.where(root, torch.zeros_like(par), par)
+    return par, g, d
 
-    steps = max(1, math.ceil(math.log2(levels + 1)))
-    for _ in range(steps):
-        gp = torch.gather(g, 1, par)
-        dp = _rows_batched(d, par)
-        d = d + g[..., None] * dp
-        g = g * gp
-        par = torch.gather(par, 1, par)
-    Y = d
 
-    x0 = a[..., None] * Y - b[..., None] * T64
-    x1 = b[..., None] * Y + a[..., None] * T64
+def _chain_rounds(levels: int) -> int:
+    """Doubling rounds: every chain ascends >= 1 level a hop and ends at
+    node 0 (g == 0)."""
+    return max(1, math.ceil(math.log2(levels + 1)))
 
-    nxt_is_child = torch.cat([prev_ge[:, 1:] == idx[:-1].to(prev_ge.dtype),
-                              torch.zeros((F, 1), dtype=torch.bool, device=dev)], dim=1)
-    x0_next = torch.cat([x0[:, 1:], x0[:, -1:]], dim=1)
+
+def _chain_round(g, d, par, gp, dp, pp):
+    """One doubling round from each row's parent's g, d and par."""
+    return g * gp, d + g[..., None] * dp, pp
+
+
+def _chain_halves(a, b, Y, T64):
+    """(x0, x1): the left and right child values of every pair."""
+    return a[..., None] * Y - b[..., None] * T64, b[..., None] * Y + a[..., None] * T64
+
+
+def _chain_leaves(x0_next, x1, Y, nxt_is_child, root):
+    """Leaf k: x0[k+1] when k+1 is k's right child, else x1[k]; a lone root
+    (N == 1) is the DC itself."""
     out = torch.where(nxt_is_child[..., None], x0_next, x1)
-    lone = is0 & ~nxt_is_child
-    out = torch.where(lone[..., None], Y, out)
-    return out.to(fdtype)
+    lone = root & ~nxt_is_child
+    return torch.where(lone[..., None], Y, out)

@@ -15,20 +15,31 @@ The mesh is single-controller, as the JAX package's is: one process holds
 a (dp, sp, tp) array of devices (:class:`Mesh`, :func:`make_mesh`) and
 :func:`shard_batch` places a stack on it, frames over dp, points over sp,
 channels over tp (:class:`Sharded`). Given sharded values, every batched
-function runs the single-device code above on each (dp, tp) group's frames
-and channels, with the group's device current, and gathers the result onto
-the mesh's first device in the unsharded layout (the input and output
-reshards the JAX docstring allows). CUDA launches are asynchronous, so the
-one host thread keeps several cards busy. dp and tp move nothing else: a
-tp group transforms its channel slice with its own weight column and
-structure pass, and the scan's columns are independent, so each column is
-bitwise the unsharded program's (the JAX package's ``shard_map`` stance).
-sp has its collective written out: each group first gathers its frames'
-point shards onto its sp-first device (``COUNTS["sp_gather_bytes"]``). That
-gives the results of XLA's sharded scans, not a distributed scan (ROADMAP
-queue A, item 18b). :func:`batched_roundtrip_step` sums each group's squared
-errors per frame and channel and adds them up on the first device (the
-psum).
+function runs on each (dp, tp) group's frames and channels, with the
+group's devices current, and assembles the result on the mesh's first
+device in the unsharded layout (the output reshards the JAX docstring
+allows). CUDA launches are asynchronous, so the one host thread keeps
+several cards busy. dp and tp move nothing else: a tp group transforms its
+channel slice with its own weight column and structure pass, and the
+scan's columns are independent, so each column is bitwise the unsharded
+program's (the JAX package's ``shard_map`` stance).
+
+sp shards the points themselves, for frames too large for one device:
+with sp > 1 no function brings a group's point shards together. The
+transform, the stream order and the inverse run shard by shard through the
+point-sharded span codec (``parallel/sp_span.py``, over the scan kernel's
+sharded entry), and between its phases only halos, tile totals, carries,
+boundary tables, key histograms and the chain's crossing nodes cross
+between the shards (``COUNTS["sp_exchange_bytes"]``; ``sp_span`` says what
+and how many bytes). Each shard's coefficients and symbols go straight to
+their stream positions in the output. A replicated argument (a plain
+tensor) is on every device by definition; an argument indexed by stream
+position and split over sp (an order, the symbols) is read by position
+across the shards, counted. Every output is bitwise the unsharded call's,
+float64 prefix sums on the card excepted (``sp_span``).
+:func:`batched_roundtrip_step` sums each group's squared errors per frame
+and channel in fixed blocks and adds them up on the first device (the
+psum), in one association with and without a mesh.
 
 A mesh may name one device many times: ``devices=[torch.device("cpu")] *
 8`` is the tests' virtual mesh, ``[torch.device("cuda", 0)] * n`` a
@@ -52,14 +63,16 @@ from raht3dgs_tpu_torch.ops.raht_span import (
     raht_structure_span_batched,
 )
 from raht3dgs_tpu_torch.ops.reorder import coefficient_order_batched
+from raht3dgs_tpu_torch.parallel import sp_span
 from raht3dgs_tpu_torch.utils.device import DeviceLike, resolve_device
 
 AXES = ("dp", "sp", "tp")
 
-# Group runs of the batched functions on a mesh, and the bytes of point
-# shards the sp gathers brought to their groups' devices (on a virtual
-# mesh, copies on one device). Callers reset and read them.
-COUNTS = {"groups": 0, "sp_gather_bytes": 0}
+# Group runs of the batched functions on a mesh; the bytes that cross
+# between sp shards (counted logically: on a virtual mesh too); and the
+# bytes of point shards gathered onto one device, which no function does
+# (it stays 0). Callers reset and read them.
+COUNTS = {"groups": 0, "sp_exchange_bytes": 0, "sp_gather_bytes": 0}
 
 
 def reset_counts() -> None:
@@ -223,23 +236,19 @@ def _channel_spec(v, D: int) -> tuple:
     return ()
 
 
-def _local(x, spec, g: _Group):
-    """Argument ``x`` as group ``g`` sees it on its device: a sharded value's
-    blocks of the group, its point shards concatenated (the sp gather); a
-    tensor sliced to the group's frames (``"dp"`` in ``spec``) and channels
-    (``"tp"``). Other values pass as they are."""
+def _local(x, spec, g: _Group, j: int = 0):
+    """Argument ``x`` as group ``g``'s sp shard ``j`` sees it on its device:
+    a sharded value's block there; a tensor sliced to the group's frames
+    (``"dp"`` in ``spec``) and channels (``"tp"``). Other values pass as
+    they are."""
     if spec is None or not isinstance(x, (Sharded, torch.Tensor, np.ndarray, list, tuple)):
         return x
     if isinstance(x, Sharded):
-        mesh = x.mesh
-        parts = [x.blocks[(g.i, j, g.k)] for j in range(mesh.shape["sp"])]
-        if len(parts) > 1 and "sp" in x.spec:
-            COUNTS["sp_gather_bytes"] += sum(p.numel() * p.element_size() for p in parts[1:])
-            t = torch.cat([p.to(g.dev) for p in parts], dim=x.spec.index("sp"))
-        else:
-            t = parts[0]
+        dev = x.mesh.devices[g.i, j, g.k]
+        t = x.blocks[(g.i, j, g.k)]
         have = x.spec
     else:
+        dev = g.dev
         t = torch.as_tensor(x)
         have = (None,) * t.dim()
     sl = []
@@ -250,7 +259,31 @@ def _local(x, spec, g: _Group):
                              f"the function takes it {want or 'whole'}")
         sl.append({"dp": g.frames, "tp": g.chans}[want]
                   if want in ("dp", "tp") and have[d] != want else slice(None))
-    return t[tuple(sl)].to(g.dev).contiguous()
+    return t[tuple(sl)].to(dev).contiguous()
+
+
+def _sp_split(x, dim: int) -> bool:
+    return isinstance(x, Sharded) and len(x.spec) > dim and x.spec[dim] == "sp"
+
+
+def _point_shards(mesh: Mesh, x, spec, g: _Group) -> list:
+    """A (B, N, ...) argument as group ``g``'s sp shards, each its (F,
+    N / sp, ...) rows on its device: a value sharded over sp by points is
+    its blocks, anything else is split there."""
+    sp = mesh.shape["sp"]
+    if isinstance(x, Sharded) and "sp" in x.spec and x.spec.index("sp") != 1:
+        raise ValueError(f"an argument split over 'sp' in dimension {x.spec.index('sp')} "
+                         "where the function takes points in dimension 1")
+    out = []
+    for j in range(sp):
+        t = _local(x, spec, g, j)
+        if not _sp_split(x, 1):
+            if t.shape[1] % sp:
+                raise ValueError(f"{t.shape[1]} points do not divide over sp={sp}")
+            w = t.shape[1] // sp
+            t = t[:, j * w:(j + 1) * w].to(mesh.devices[g.i, j, g.k]).contiguous()
+        out.append(t)
+    return out
 
 
 def _assemble(mesh: Mesh, outs: dict, spec: tuple) -> torch.Tensor:
@@ -267,30 +300,116 @@ def _assemble(mesh: Mesh, outs: dict, spec: tuple) -> torch.Tensor:
     return rows[0] if len(rows) == 1 else torch.cat(rows, dim=spec.index("dp"))
 
 
+def _groups(mesh: Mesh, B: int, D: int, per_channel: bool):
+    """The (dp, tp) groups of a call over ``B`` frames of ``D`` channels
+    (only tp group 0 without a channel axis in the outputs)."""
+    dp, tp = mesh.shape["dp"], mesh.shape["tp"]
+    if B % dp:
+        raise ValueError(f"a batch of {B} frames does not divide over dp={dp}")
+    if per_channel and D % tp:
+        raise ValueError(f"{D} channels do not divide over tp={tp}")
+    for i in range(dp):
+        for k in range(tp if per_channel else 1):
+            yield _Group(i, k, mesh.devices[i, 0, k], _split(mesh, B, "dp", i),
+                         _split(mesh, D, "tp", k) if per_channel else slice(None))
+
+
 def _map(mesh: Mesh, fn, args: tuple, specs: tuple, out_specs: tuple, B: int, D: int):
     """``fn`` on every (dp, tp) group's share of ``args`` (``specs`` their
     layouts, None for values that pass as they are), with the group's device
     current; the outputs (``out_specs`` their layouts) gathered onto the
     first device. Without a channel axis in the outputs only tp group 0
-    runs."""
-    dp, tp = mesh.shape["dp"], mesh.shape["tp"]
-    if B % dp:
-        raise ValueError(f"a batch of {B} frames does not divide over dp={dp}")
+    runs. Functions of points take their sp route (:func:`_map_sp`) on a
+    mesh with sp > 1."""
     per_channel = any("tp" in s for s in out_specs)
-    if per_channel and D % tp:
-        raise ValueError(f"{D} channels do not divide over tp={tp}")
     outs = [{} for _ in out_specs]
-    for i in range(dp):
-        for k in range(tp if per_channel else 1):
-            g = _Group(i, k, mesh.devices[i, 0, k], _split(mesh, B, "dp", i),
-                       _split(mesh, D, "tp", k) if per_channel else slice(None))
-            with _on(g.dev):
-                res = fn(*[_local(a, s, g) for a, s in zip(args, specs)])
-            COUNTS["groups"] += 1
-            for o, r in zip(outs, res if isinstance(res, tuple) else (res,)):
-                o[(i, k)] = r
+    for g in _groups(mesh, B, D, per_channel):
+        with _on(g.dev):
+            res = fn(*[_local(a, s, g) for a, s in zip(args, specs)])
+        COUNTS["groups"] += 1
+        for o, r in zip(outs, res if isinstance(res, tuple) else (res,)):
+            o[(g.i, g.k)] = r
     got = tuple(_assemble(mesh, o, s) for o, s in zip(outs, out_specs))
     return got if len(got) > 1 else got[0]
+
+
+def _map_sp(mesh: Mesh, fn, B: int, D: int, out_specs: tuple):
+    """``fn(g, devices)`` on every (dp, tp) group, ``devices`` its sp
+    shards' in point order; each output (``out_specs`` their layouts, the
+    groups' outputs already on the first device) assembled there."""
+    per_channel = any("tp" in s for s in out_specs)
+    outs = [{} for _ in out_specs]
+    for g in _groups(mesh, B, D, per_channel):
+        devs = [mesh.devices[g.i, j, g.k] for j in range(mesh.shape["sp"])]
+        with _on(g.dev):
+            res = fn(g, devs)
+        COUNTS["groups"] += 1
+        for o, r in zip(outs, res if isinstance(res, tuple) else (res,)):
+            o[(g.i, g.k)] = r
+    got = tuple(_assemble(mesh, o, s) for o, s in zip(outs, out_specs))
+    return got if len(got) > 1 else got[0]
+
+
+def _sp_mesh(mesh: Optional[Mesh]) -> bool:
+    return mesh is not None and mesh.shape["sp"] > 1
+
+
+def _on_shards(mesh: Mesh, x, spec, g: _Group) -> list:
+    """A frame- or channel-level argument (nvox, steps, qf) on each of
+    group ``g``'s sp shards (anything but a tensor as it is)."""
+    sp = mesh.shape["sp"]
+    if isinstance(x, Sharded):
+        return [_local(x, spec, g, j) for j in range(sp)]
+    if not isinstance(x, (torch.Tensor, np.ndarray)):
+        return [x] * sp
+    t = _local(x, spec, g)
+    return [t.to(mesh.devices[g.i, j, g.k]) for j in range(sp)]
+
+
+def _sp_group(devs, shards: list) -> sp_span.SpGroup:
+    return sp_span.SpGroup(devs, [x.shape[1] for x in shards], COUNTS)
+
+
+def _positions(grp: sp_span.SpGroup, mesh: Mesh, order, g: _Group, first) -> torch.Tensor:
+    """The (F, N) rows -> stream positions inverse of an ``order`` argument
+    (stream position -> row), on ``first``: a value split over sp by
+    position sends its blocks there (counted)."""
+    if _sp_split(order, 1):
+        blocks = [_local(order, _F, g, j) for j in range(mesh.shape["sp"])]
+        order = torch.cat([b.to(first) if j == 0 else grp.send(b, first)
+                           for j, b in enumerate(blocks)], dim=1)
+    else:
+        order = _local(order, _F, g).to(first)
+    order = order.long()
+    inv = torch.empty_like(order)
+    return inv.scatter_(1, order, torch.arange(order.shape[1], device=first).expand_as(order))
+
+
+def _scatter_columns(grp: sp_span.SpGroup, cols: list, pos: list, first) -> torch.Tensor:
+    """Each shard's (F, C, n_j) columns placed at their (F, n_j) stream
+    positions of the (F, C, N) output on ``first``."""
+    F, C, _ = cols[0].shape
+    out = cols[0].new_empty((F, C, grp.n), device=first)
+    for c, p in zip(cols, pos):
+        p = p.to(first).long()
+        out.scatter_(2, p[:, None, :].expand(F, C, p.shape[1]), c.to(first))
+    return out
+
+
+def _order_from_positions(grp: sp_span.SpGroup, pos: list, first) -> torch.Tensor:
+    """The (F, N) int32 stream order (position -> row) from the shards'
+    positions, on ``first``."""
+    F = pos[0].shape[0]
+    out = torch.empty((F, grp.n), dtype=torch.int32, device=first)
+    for j, p in enumerate(pos):
+        rows = grp.rows(j, first).to(torch.int32).expand(F, -1)
+        out.scatter_(1, p.to(first).long(), rows)
+    return out
+
+
+def _quant_rows(coeffs, steps, quant_mode, qf):
+    """:func:`batched_quant_T` of (F, n, D) rows, (F, D, n) int32."""
+    return _quant_T_device(coeffs.transpose(1, 2), steps, quant_mode, qf)
 
 
 # -- the batched functions -------------------------------------------------------
@@ -320,6 +439,14 @@ def batched_forward(codes, attrs, weights, depth, order_mode="ragft", nvox=None)
     from the structure pass the decoder runs, as the single-frame codec
     does."""
     mesh = _mesh_of(codes, attrs, weights)
+    if _sp_mesh(mesh):
+        def group(g, devs):
+            grp, T, pos = _sp_forward(mesh, g, devs, codes, attrs, weights, depth, order_mode,
+                                      nvox)
+            first = mesh.first
+            return (torch.cat([t.to(first) for t in T], dim=1),
+                    _order_from_positions(grp, pos, first))
+        return _map_sp(mesh, group, attrs.shape[0], attrs.shape[2], (_FC, _F))
     if mesh is not None:
         return _map(mesh, batched_forward, (codes, attrs, weights, depth, order_mode, nvox),
                     (_F, _FC, _F, None, None, _F), (_FC, _F), attrs.shape[0], attrs.shape[2])
@@ -331,21 +458,74 @@ def batched_forward(codes, attrs, weights, depth, order_mode="ragft", nvox=None)
     return res.coeffs, _pads_last_batched(order, _nvox(nvox, codes)).to(torch.int32)
 
 
+def _sp_nvox(mesh, nvox, shards, g):
+    """Each shard's (F,) real voxel counts (the frame's N where not given)."""
+    if nvox is None:
+        n = sum(x.shape[1] for x in shards)
+        return [torch.full((c.shape[0],), n, dtype=torch.int32, device=c.device)
+                for c in shards]
+    return _on_shards(mesh, torch.as_tensor(nvox), _F, g)
+
+
+def _sp_forward(mesh, g, devs, codes, attrs, weights, depth, order_mode, nvox):
+    """One group's sharded forward: (its SpGroup, each shard's
+    coefficients, each shard's stream positions)."""
+    cs = _point_shards(mesh, codes, _F, g)
+    as_ = _point_shards(mesh, attrs, _FC, g)
+    ws = _point_shards(mesh, weights, _F, g)
+    grp = _sp_group(devs, cs)
+    res = sp_span.forward(grp, cs, as_, ws, depth)
+    structs = [r[1] for r in res]
+    if order_mode == "weight_desc":
+        structs = sp_span.structure(grp, cs, ws, depth)
+    pos = sp_span.stream_positions(grp, structs, _sp_nvox(mesh, nvox, cs, g), order_mode,
+                                   depth)
+    return grp, [r[0] for r in res], pos
+
+
 def batched_reorder_T(coeffs, orderp):
     """The per-frame reorder gather + channel-major transpose:
     (B, N, D) -> (B, D, N). Quantization is elementwise and commutes with
     the permutation bitwise, so a sweep reorders once for all its steps."""
     mesh = _mesh_of(coeffs, orderp)
+    if _sp_mesh(mesh):
+        return _reorder_sp(mesh, coeffs, orderp, lambda g, j, rows: rows.transpose(1, 2))
     if mesh is not None:
         return _map(mesh, batched_reorder_T, (coeffs, orderp), (_FC, _F), (_FCT,),
                     coeffs.shape[0], coeffs.shape[2])
     return _rows_batched(coeffs, orderp).transpose(1, 2).contiguous()
 
 
+def _reorder_sp(mesh, coeffs, orderp, columns):
+    """Each sp shard's coefficient rows, made (F, C, n) columns on the
+    shard by ``columns(g, j, rows)``, placed at their stream positions in
+    the (B, C, N) output: the positions come from ``orderp`` on the first
+    device."""
+    def group(g, devs):
+        rows = _point_shards(mesh, coeffs, _FC, g)
+        grp = _sp_group(devs, rows)
+        first = mesh.first
+        inv = _positions(grp, mesh, orderp, g, first)
+        pos = [inv[:, a:a + n] for a, n in zip(grp.starts, grp.sizes)]
+        return _scatter_columns(grp, grp.each(lambda j, r: columns(g, j, r), rows), pos, first)
+    return _map_sp(mesh, group, coeffs.shape[0], coeffs.shape[2], (_FCT,))
+
+
 def batched_quant_T(coeffs_T, steps, quant_mode="mid", qf=0.0):
     """Quantize reordered (B, D, N) coefficients to int32 symbols; ``steps``
     a (1,) or per-channel (D,) tensor on the coefficients' device."""
     mesh = _mesh_of(coeffs_T)
+    if mesh is not None and _sp_split(coeffs_T, 2) and mesh.shape["sp"] > 1:
+        # elementwise: each sp block of positions on its own shard
+        D = coeffs_T.shape[1]
+
+        def group(g, devs):
+            st = _on_shards(mesh, steps, _channel_spec(steps, D), g)
+            qfs = _on_shards(mesh, qf, (), g)
+            parts = [_quant_T_device(_local(coeffs_T, _FCT, g, j), st[j], quant_mode, qfs[j])
+                     for j in range(len(devs))]
+            return torch.cat([q.to(mesh.first) for q in parts], dim=2)
+        return _map_sp(mesh, group, coeffs_T.shape[0], D, (_FCT,))
     if mesh is not None:
         D = coeffs_T.shape[1]
         return _map(mesh, batched_quant_T, (coeffs_T, steps, quant_mode, qf),
@@ -357,6 +537,13 @@ def batched_quant_reorder(coeffs, steps, orderp, quant_mode="mid", qf=0.0):
     """Quantize + apply the per-frame pads-last order; (B, D, N) int32,
     each frame's channel a row whose ``[:nvox]`` prefix is its payload."""
     mesh = _mesh_of(coeffs, orderp)
+    if _sp_mesh(mesh):
+        D = coeffs.shape[2]
+        # quantization commutes with the permutation: each shard quantizes
+        # its rows, the symbols go to their positions
+        return _reorder_sp(mesh, coeffs, orderp, lambda g, j, rows: _quant_rows(
+            rows, _on_shards(mesh, steps, _channel_spec(steps, D), g)[j], quant_mode,
+            _on_shards(mesh, qf, (), g)[j]))
     if mesh is not None:
         D = coeffs.shape[2]
         return _map(mesh, batched_quant_reorder, (coeffs, steps, orderp, quant_mode, qf),
@@ -369,6 +556,16 @@ def batched_transform_step(codes, attrs, weights, steps, depth, order_mode="ragf
     """:func:`batched_forward` + :func:`batched_quant_reorder` in one call
     (sweeps should use the split pair to reuse the transform)."""
     mesh = _mesh_of(codes, attrs, weights)
+    if _sp_mesh(mesh):
+        D = attrs.shape[2]
+
+        def group(g, devs):
+            grp, T, pos = _sp_forward(mesh, g, devs, codes, attrs, weights, depth, order_mode,
+                                      nvox)
+            st = _on_shards(mesh, steps, _channel_spec(steps, D), g)
+            q = grp.each(lambda j, t: _quant_rows(t, st[j], "mid", 0.0), T)
+            return _scatter_columns(grp, q, pos, mesh.first)
+        return _map_sp(mesh, group, attrs.shape[0], D, (_FCT,))
     if mesh is not None:
         D = attrs.shape[2]
         return _map(mesh, batched_transform_step,
@@ -414,6 +611,15 @@ def batched_inverse_order(codes, weights, nvox, depth, order_mode="ragft"):
     """Per-frame inverse of the pads-last stream permutation (decoder side),
     int32 (B, N)."""
     mesh = _mesh_of(codes, weights)
+    if _sp_mesh(mesh):
+        def group(g, devs):
+            cs = _point_shards(mesh, codes, _F, g)
+            ws = _point_shards(mesh, weights, _F, g)
+            grp = _sp_group(devs, cs)
+            pos = sp_span.stream_positions(grp, sp_span.structure(grp, cs, ws, depth),
+                                           _sp_nvox(mesh, nvox, cs, g), order_mode, depth)
+            return torch.cat([p.to(mesh.first) for p in pos], dim=1).to(torch.int32)
+        return _map_sp(mesh, group, codes.shape[0], 1, (_F,))
     if mesh is not None:
         return _map(mesh, batched_inverse_order, (codes, weights, nvox, depth, order_mode),
                     (_F, _F, _F, None, None), (_F,), codes.shape[0], 1)
@@ -429,6 +635,23 @@ def batched_decode_step(codes, weights, qfull, inv, steps, depth,
     stream-order symbols (pads last), ``inv`` (B, N) from
     :func:`batched_inverse_order`. Returns (B, N, D)."""
     mesh = _mesh_of(codes, weights, qfull, inv)
+    if _sp_mesh(mesh):
+        D = qfull.shape[1]
+
+        def group(g, devs):
+            cs = _point_shards(mesh, codes, _F, g)
+            ws = _point_shards(mesh, weights, _F, g)
+            grp = _sp_group(devs, cs)
+            pos = _point_shards(mesh, inv, _F, g)
+            q = _symbols_at(mesh, grp, qfull, pos, g)
+            st = _on_shards(mesh, steps, _channel_spec(steps, D), g)
+            dl = _on_shards(mesh, delta, (), g)
+            coeffs = grp.each(lambda j, r: (dequantize_biased(r, st[j], dl[j], dtype=dtype)
+                                            if quant_mode == "deadzone"
+                                            else dequantize(r, st[j], dtype=dtype)), q)
+            rec = sp_span.inverse(grp, coeffs, cs, ws, depth)
+            return torch.cat([r.to(mesh.first) for r in rec], dim=1)
+        return _map_sp(mesh, group, codes.shape[0], D, (_FC,))
     if mesh is not None:
         D = qfull.shape[1]
         return _map(mesh, batched_decode_step,
@@ -443,19 +666,52 @@ def batched_decode_step(codes, weights, qfull, inv, steps, depth,
     return raht_inverse_span_batched(coeffs, codes, weights, depth)
 
 
+def _symbols_at(mesh, grp: sp_span.SpGroup, qfull, pos: list, g: _Group) -> list:
+    """Each shard's (F, n_j, D) symbols at its rows' stream positions
+    ``pos``: read on the shard from a replicated ``qfull``; from one split
+    over sp by position, each shard's positions go to every other shard and
+    the symbols found there come back (counted)."""
+    if not _sp_split(qfull, 2):
+        Q = _on_shards(mesh, qfull, _FCT, g)
+        return grp.each(lambda j, p: _rows_batched(Q[j].transpose(1, 2), p), pos)
+    blocks = [_local(qfull, _FCT, g, j).transpose(1, 2) for j in range(grp.S)]
+    width = blocks[0].shape[1]
+
+    def fetch(j, p):
+        dev = p.device
+        got = None
+        for k, blk in enumerate(blocks):
+            lo = k * width
+            asked = p if k == j else grp.send(p, blk.device)
+            rows = _rows_batched(blk, (asked - lo).clamp(0, width - 1))
+            rows = rows if k == j else grp.send(rows, dev)
+            inside = ((p >= lo) & (p < lo + width))[..., None]
+            got = rows if got is None else torch.where(inside, rows, got)
+        return got
+
+    return grp.each(fetch, pos)
+
+
+def _squared_errors(attrs, weights, rec):
+    """(F, n, D) squared reconstruction errors of the real voxels, and the
+    real voxels' channel count per frame, (F, 1)."""
+    valid = (weights > 0)[..., None]
+    err = torch.where(valid, rec - attrs, torch.zeros((), dtype=attrs.dtype,
+                                                      device=attrs.device))
+    return err * err, valid.sum(dim=(1, 2))[:, None] * attrs.shape[2]
+
+
 def _roundtrip_sums(codes, attrs, weights, steps, depth):
-    """Squared reconstruction error per frame and channel, (B, D) (each
-    channel's row summed alone, so a channel slice sums as the whole does),
-    and the real voxels' channel count per frame, (B, 1)."""
+    """Squared reconstruction error per frame and channel, (B, D), and the
+    real voxels' channel count per frame, (B, 1). Each channel sums alone
+    in ``sp_span.block_sums`` / ``tree_sum``'s fixed association, so a
+    channel slice, and the shards of the points, sum as the whole does."""
     res = raht_forward_span_batched(codes, attrs, weights, depth)
     rec = raht_inverse_span_batched(
         dequantize(quantize(res.coeffs, steps), steps, dtype=attrs.dtype),
         codes, weights, depth)
-    valid = (weights > 0)[..., None]
-    err = torch.where(valid, rec - attrs, torch.zeros((), dtype=attrs.dtype,
-                                                      device=attrs.device))
-    sq = (err * err).transpose(1, 2).contiguous().sum(dim=2)
-    return sq, valid.sum(dim=(1, 2))[:, None] * attrs.shape[2]
+    sq, count = _squared_errors(attrs, weights, rec)
+    return sp_span.tree_sum(sp_span.block_sums(sq)), count
 
 
 def batched_roundtrip_step(codes, attrs, weights, steps, depth):
@@ -464,7 +720,25 @@ def batched_roundtrip_step(codes, attrs, weights, steps, depth):
     mesh each group sums its own frames and channels, and the sums meet on
     the first device (the psum)."""
     mesh = _mesh_of(codes, attrs, weights)
-    if mesh is not None:
+    if _sp_mesh(mesh):
+        D = attrs.shape[2]
+
+        def group(g, devs):
+            cs = _point_shards(mesh, codes, _F, g)
+            as_ = _point_shards(mesh, attrs, _FC, g)
+            ws = _point_shards(mesh, weights, _F, g)
+            grp = _sp_group(devs, cs)
+            st = _on_shards(mesh, steps, _channel_spec(steps, D), g)
+            T = [r[0] for r in sp_span.forward(grp, cs, as_, ws, depth)]
+            deq = grp.each(lambda j, t, a: dequantize(quantize(t, st[j]), st[j], dtype=a.dtype),
+                           T, as_)
+            rec = sp_span.inverse(grp, deq, cs, ws, depth)
+            parts = grp.each(lambda j, a, w, r: _squared_errors(a, w, r), as_, ws, rec)
+            sq = sp_span.squared_error_sums(grp, [p[0] for p in parts])
+            count = sum(p[1].to(mesh.first) for p in parts)
+            return sq.to(mesh.first), count
+        sq, count = _map_sp(mesh, group, attrs.shape[0], D, (("dp", "tp"), ("dp", "tp")))
+    elif mesh is not None:
         D = attrs.shape[2]
         sq, count = _map(mesh, _roundtrip_sums, (codes, attrs, weights, steps, depth),
                          (_F, _FC, _F, _channel_spec(steps, D), None),

@@ -42,6 +42,7 @@ def test_every_module_imports_without_jax():
         assert f"raht3dgs_tpu_torch.ops.{m}" in mods
     assert "raht3dgs_tpu_torch.crosscheck" in mods
     assert "raht3dgs_tpu_torch.parallel.render" in mods
+    assert "raht3dgs_tpu_torch.parallel.sp_span" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -109,7 +109,8 @@ def test_shard_batch_placement_and_refusals():
 @pytest.mark.parametrize("mesh_kw", list(MESHES.values()), ids=list(MESHES))
 def test_sharded_equals_unsharded(mesh_kw, dtype):
     """Every batched function on sharded values gives the unsharded output
-    bit for bit, gathered on the first device; sp gathers point shards."""
+    bit for bit, assembled on the first device; no point shard is gathered,
+    and bytes cross between sp shards exactly when sp > 1."""
     codes, attrs, weights = _torch(*_batch(dtype))
     tdt = _TORCH[dtype]
     nvox = torch.tensor([N - 40 * (b % 3) for b in range(BATCH)], dtype=torch.int32)
@@ -138,7 +139,8 @@ def test_sharded_equals_unsharded(mesh_kw, dtype):
     step = torch.tensor(2.0, dtype=tdt)
     mse = tsh.batched_roundtrip_step(codes, attrs, weights, step, DEPTH)
     assert torch.equal(tsh.batched_roundtrip_step(cs, as_, ws, step, DEPTH), mse)
-    assert (tsh.COUNTS["sp_gather_bytes"] > 0) == (mesh.shape["sp"] > 1)
+    assert tsh.COUNTS["sp_gather_bytes"] == 0
+    assert (tsh.COUNTS["sp_exchange_bytes"] > 0) == (mesh.shape["sp"] > 1)
     assert tsh.COUNTS["groups"] > 0
 
 
