@@ -78,12 +78,19 @@ Phases, each printed on its own line, any failure exits nonzero:
    two CSVs' rates equal row by row, PSNR finite and ordered by step; in
    process, one batch's ``encode_sweep`` bytes against per-frame
    ``encode`` at every step and its batched decode against per-frame
-   ``decode``, in float64 and float32; the kernel's batched entry at the path's (4, 2^20, 4) pack,
-   on the wide path at (2, 2^19, 9) and (3, 2^19, 57), and past the
-   one-block carry at (2, 2^22 + 5, 4) and
+   ``decode``, in float64 and float32; the kernel's batched entry at the
+   path's (4, 2^20, 4) pack (its one pass, then 50 repeats each bitwise
+   the first) and (4, 2^20, 1) weights (two passes), at (3, 600 001, 3),
+   (5, 2048 * 2048, 4), (64, 4096, 8), (1, 2^19, 4), (1, 2^21, 4), small
+   stacks of 2, 5, 6 and 7 columns and (3, 600 001, 1), on the wide path
+   at (2, 2^19, 9) and
+   (3, 2^19, 57), and past the one-block carry at (2, 2^22 + 5, 4) and
    (2, 2^22 + 5, 12), bitwise against the single entry frame by frame and
    against its plain version (integer lanes bitwise, float lanes 1e-12),
-   then timed beside B single-entry calls;
+   then timed beside B single-entry calls (the device time by kernel
+   held to the one-pass kernel and its memset), and the path's weight
+   scans and one-frame stacks beside the single entry; the phase's seconds
+   and its kernel checks' seconds;
 9. the render comparison: the tiled rasterizer against the dense one on
    the card (2 000 Gaussians at 64x64, SH degree 0 and 3), against the
    port's CPU run of the same call (20 000 Gaussians of ``gaussian_scene``
@@ -271,6 +278,7 @@ NVOX_RANGE = (400_000, 520_000)
 N_VOX = 500_000
 N_FRAMES = 8               # phase 8: dataset frames (8iVFBv2 loot 1000..1007)
 BATCH = 4                  # phase 8: frames per batched call
+BATCHED_REPEATS = 50       # phase 8: repeats of the path's batched pack, each bitwise the first
 NVOX_FRAME_RANGE = (750_000, 850_000)
 N_RENDER_DENSE = 2_000     # phase 9: tiled against dense on the card, 64x64
 N_RENDER_CPU = 20_000      # phase 9: the card against the CPU, 128x128, 2 views
@@ -323,9 +331,10 @@ def cuda_ms(torch, fn, reps: int = 20, warm: int = 3) -> float:
 
 def device_ms(torch, fn, reps: int = 50, warm: int = 3):
     """The device's own time for one call of ``fn`` and the kernels it runs:
-    torch.profiler's CUDA time of every kernel in ``reps`` back-to-back
-    calls, divided by ``reps`` (host work of the wrapper excluded). Returns
-    ms per call, kernel launches per call and us per call by kernel name.
+    torch.profiler's CUDA time of every kernel and memset (copies left out)
+    in ``reps`` back-to-back calls, divided by ``reps`` (host work of the
+    wrapper excluded). Returns ms per call, kernel and memset launches per
+    call and us per call by kernel name (memsets as ``Memset``).
     A session in which the profiler recorded no device activity at all is
     taken again, up to three times."""
     from torch.profiler import ProfilerActivity, profile
@@ -340,7 +349,7 @@ def device_ms(torch, fn, reps: int = 50, warm: int = 3):
             torch.cuda.synchronize()
         kernels = [e for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA
-                   and not e.name.startswith("Mem")]
+                   and not e.name.startswith("Memcpy")]
         if kernels:
             break
         print(f"device_ms: profiler session {attempt + 1} recorded no kernel",
@@ -349,7 +358,7 @@ def device_ms(torch, fn, reps: int = 50, warm: int = 3):
     split = {}
     for e in kernels:
         short = e.name.replace("(anonymous namespace)::", "")
-        short = short.removeprefix("void ").split("(")[0]
+        short = short.removeprefix("void ").split("(")[0].strip()
         split[short] = split.get(short, 0.0) + e.time_range.elapsed_us() / reps
     ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / reps
     return ms, len(kernels) / reps, split
@@ -392,14 +401,14 @@ def fair_library_ms(torch, xr, reps: int = 20) -> dict:
 
 def ptxas_summary(log: str) -> dict:
     """{kernel<K,pair,batch>: [registers, spill bytes]} from nvcc -Xptxas=-v
-    (the wide path's kernels as kernel<pair,batch>)."""
+    (the wide path's kernels as kernel<pair,batch>, the batched entry's one
+    pass as ds_tile_onepass<K>)."""
     out, name = {}, None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '\S*?(ds_(?:tile|wide)_[a-z]+)I(?:Li(\d+)E)?"
-                      r"Lb([01])ELb([01])E", ln)
+                      r"(?:Lb([01])ELb([01])E)?", ln)
         if m:
-            k = f"{m.group(2)}," if m.group(2) else ""
-            name = f"{m.group(1)}<{k}{m.group(3)},{m.group(4)}>"
+            name = f"{m.group(1)}<{','.join(g for g in m.groups()[1:] if g is not None)}>"
             out[name] = [None, 0]
             continue
         m = re.search(r"(\d+) bytes spill stores", ln)
@@ -1300,6 +1309,45 @@ def check_batched_scan(torch, ds, x):
     return rel, max_abs
 
 
+def batched_side_rows(torch, ds, wk):
+    """Times beside the batched row, each against the single entry on the
+    same input in this run: the dataset path's weight scans
+    (``ds_cumsum_batched`` of its (4, 2^20, 1) weights ``wk``, 12 of a
+    batch's 13 launches, on the two passes) against 4 ``ds_cumsum`` calls,
+    and the batched entry on one frame (``ds_prefix_pack_batched(x[None])``)
+    at (2^19, 4) and (2^21, 4) against ``ds_prefix_pack(x)``. Wrapper ms (CUDA events, median of 100)
+    first, the plain version's and ``torch.cumsum``'s (float64), then
+    device ms (profiler) and the bound."""
+    gen = torch.Generator(device="cpu").manual_seed(4)
+    ones = {n: (torch.rand(n, 4, generator=gen) * 3.0).cuda() for n in (1 << 19, 1 << 21)}
+    cases = {"weights": (lambda: ds.ds_cumsum_batched(wk),
+                         lambda: [ds.ds_cumsum(wk[b]) for b in range(wk.shape[0])],
+                         lambda: ds.ds_cumsum_batched_reference(wk),
+                         lambda: torch.cumsum(wk, 1, dtype=torch.float64),
+                         list(wk.shape), 3 * wk.numel())}
+    for n, x in ones.items():
+        cases[f"b1_{n}"] = (lambda x=x: ds.ds_prefix_pack_batched(x[None]),
+                            lambda x=x: ds.ds_prefix_pack(x),
+                            lambda x=x: ds.ds_prefix_pack_batched_reference(x[None]),
+                            lambda x=x: torch.cumsum(x, 0, dtype=torch.float64), [1, n, 4],
+                            x.numel() + 2 * (n + 1) * 4)
+    out = {}
+    for name, (fn, single, plain, lib, shape, floats) in cases.items():
+        out[name] = {"shape": shape, "ms": cuda_ms(torch, fn, reps=100),
+                     "single_entry_ms": cuda_ms(torch, single, reps=100),
+                     "plain_ms": cuda_ms(torch, plain, reps=3, warm=1),
+                     "library_ms": cuda_ms(torch, lib, reps=20),
+                     "bound_ms": 4.0 * floats / HBM_BYTES_PER_S * 1e3}
+    for name, (fn, single, _, _, _, _) in cases.items():
+        r = out[name]
+        r["device_ms"], r["device_launches_per_call"], r["device_us_by_kernel"] = \
+            device_ms(torch, fn)
+        r["single_entry_device_ms"], _, r["single_entry_device_us_by_kernel"] = \
+            device_ms(torch, single)
+        say("dataset_kernel_side", case=name, **{k: json.dumps(v) for k, v in r.items()})
+    return out
+
+
 def phase_dataset(torch, ds, keep):
     """Phase 8: the dataset path. Eight seeded 8iVFBv2 frames (about 0.8 M
     voxels each at J=10) as binary PLYs in a tree under ``keep`` (phase 12
@@ -1310,7 +1358,8 @@ def phase_dataset(torch, ds, keep):
     other; in process, one batch's ``encode_sweep`` against per-frame
     ``encode`` and its batched decode against per-frame decode, in float64
     and float32; the scan
-    kernel's batched entry at the path's (4, 2^20, 4) pack, on the wide
+    kernel's batched entry at the path's (4, 2^20, 4) pack (50 repeats)
+    and (4, 2^20, 1) weights, at the one pass's edge shapes, on the wide
     path at (2, 2^19, 9) and (3, 2^19, 57), and past the one-block carry,
     then timed."""
     import contextlib
@@ -1329,6 +1378,7 @@ def phase_dataset(torch, ds, keep):
     from raht3dgs_tpu_torch.ops.raht import ieee_sqrt
     from raht3dgs_tpu_torch.utils import synth
 
+    t_phase = time.perf_counter()
     steps = list(ColorCodecConfig.steps)
     n_batches = -(-N_FRAMES // BATCH)
     out = {}
@@ -1436,10 +1486,26 @@ def phase_dataset(torch, ds, keep):
     B, N, K = body.shape
     padded = -(-max(nvox[:BATCH]) // BUCKET) * BUCKET   # 2^20 at 0.8 M voxels
     check((B, N, K) == (BATCH, padded, D_ATTR + 1), f"the path's pack is {(B, N, K)}")
+    t_kernel = time.perf_counter()
     rel, max_abs = check_batched_scan(torch, ds, body)
-    # the wide path, and both paths past the one-block carry (2048 tiles)
+    # the path's weight scans (ds_cumsum_batched, 12 of a batch's 13 launches)
+    wk = w.to(torch.float32)[..., None].contiguous()
+    check_batched_scan(torch, ds, wk)
+    # the one pass waits on other blocks: a race would show as a run that
+    # differs from the first
+    first = ds.ds_prefix_pack_batched(body)
+    for i in range(BATCHED_REPEATS):
+        check(torch.equal(ds.ds_prefix_pack_batched(body), first),
+              f"{(B, N, K)}: repeated batched call {i + 1} differs from the first")
+    del first
+    # the one pass at a partial last tile with frames off 16-byte alignment,
+    # at exactly 2048 tiles, on many small frames, on one frame and at every
+    # other column count; one column (two passes) at a partial last tile;
+    # the wide path; and both paths past the one-block carry (2048 tiles)
     gen = torch.Generator(device="cpu").manual_seed(3)
-    for shape in ((2, 1 << 19, 9), (3, 1 << 19, 57), (2, (1 << 22) + 5, 4),
+    for shape in ((3, 600_001, 3), (5, 2048 * 2048, 4), (64, 4096, 8), (1, 1 << 19, 4),
+                  (1, 1 << 21, 4), (3, 5001, 2), (2, 6145, 5), (3, 4097, 6), (2, 2049, 7),
+                  (3, 600_001, 1), (2, 1 << 19, 9), (3, 1 << 19, 57), (2, (1 << 22) + 5, 4),
                   (2, (1 << 22) + 5, 12)):
         x = torch.rand(*shape, generator=gen) * 3.0
         x[..., -1] = (x[..., -1] > 1.5).float()   # an integer lane
@@ -1463,16 +1529,25 @@ def phase_dataset(torch, ds, keep):
     }
     row["device_ms"], row["device_launches_per_call"], row["device_us_by_kernel"] = \
         device_ms(torch, lambda: ds.ds_prefix_pack_batched(body))
+    names = set(row["device_us_by_kernel"])
+    check(names - {"Memset"} == {f"ds_tile_onepass<{K}>"},
+          f"the batched pack ran {sorted(names)}, not the one-pass kernel and its memset")
     row["single_entry_device_ms"], _, _ = device_ms(
         torch, lambda: [ds.ds_prefix_pack(body[b]) for b in range(B)])
+    row.update(batched_side_rows(torch, ds, wk))
     say("dataset_kernel", **{k: json.dumps(v) if isinstance(v, (dict, list)) else v
                              for k, v in row.items()})
+    del w, wk, body
     out["row"] = row
     out["nvox"] = nvox
     # the frame loop's rate at each step, by frame (phase 12's targets)
     out["loop_bpp"] = {fr: [float(runs["loop"][(fr, s)]["Rate_bpp"]) for s in steps]
                        for fr in range(1, N_FRAMES + 1)}
     out["root"] = tmp
+    out["kernel_seconds"] = time.perf_counter() - t_kernel
+    out["seconds"] = time.perf_counter() - t_phase
+    say("dataset", seconds=round(out["seconds"], 1),
+        kernel_checks_seconds=round(out["kernel_seconds"], 1))
     return out
 
 
@@ -4202,7 +4277,11 @@ def main() -> int:
     libs = build_all()
     say("build", **{k.replace(" ", "_"): round(v.build_seconds, 2)
                     for k, v in libs.items()})
-    say("build", ptxas=json.dumps(ptxas_summary(libs["nvcc ds_scan.cu"].build_log)))
+    ptxas = ptxas_summary(libs["nvcc ds_scan.cu"].build_log)
+    say("build", ptxas=json.dumps(ptxas))
+    one_pass = {k: v for k, v in ptxas.items() if k.startswith("ds_tile_onepass")}
+    check(len(one_pass) == 7 and not any(spill for _, spill in one_pass.values()),
+          f"the one-pass kernels' registers and spills: {one_pass}")
 
     keep = tempfile.mkdtemp(prefix="chip_smoke_")  # phase 6-8 files read by phases 10-12
     try:
@@ -4261,6 +4340,7 @@ def main() -> int:
         if row["name"] == "ds_cumsum_t":
             row["j21_strided"] = transforms["strided"]
     say("done", seconds=round(time.perf_counter() - t_start, 1),
+        dataset_phase_seconds=round(data["seconds"], 1),
         predict_phase_seconds=round(predict["seconds"], 1),
         rate_phase_seconds=round(rate["seconds"], 1),
         sequence_phase_seconds=round(seq["seconds"], 1),

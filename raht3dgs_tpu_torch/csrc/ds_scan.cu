@@ -15,10 +15,13 @@
 // contract nor reorder them; the library is built without fast math. The
 // association depends on the row count alone (never on K, the layout or
 // the strides): the tile size, the rows per thread and the order in which
-// tile totals combine are constants, nothing is atomic and no block waits
-// on a timing-dependent set of predecessors. So one column scanned alone or
-// inside a wider pack gives the same bits, every run gives the same bits,
-// and integer-valued lanes whose partial sums stay below 2^24 are exact.
+// tile totals combine are constants, and no value is combined atomically.
+// The one atomic, the batched entry's ticket counter, orders only when
+// blocks run: which block scans which tile, and when it may read the
+// totals of the tiles before it; the totals it then combines, and their
+// order, are fixed. So one column scanned alone or inside a wider pack
+// gives the same bits, every run gives the same bits, and integer-valued
+// lanes whose partial sums stay below 2^24 are exact.
 //
 // Bound on the card: bytes. The function reads 4NK bytes and writes 8NK;
 // at the codec's fused pack (2^19, 4) that is 24 MiB, ~7.5 us at 3.35 TB/s.
@@ -42,10 +45,11 @@
 // blocks per SM, so the scan pass's compensated adds (9 float adds each)
 // and its stores run one after the other rather than overlapped; the input
 // is read twice (once from device memory, once from L2); the pass boundary
-// costs a launch (a single pass would need a look-back whose
-// timing-dependent order this association rules out, or a cooperative
-// grid barrier). The pack's [hi | lo] rows are staged whole, half a tile
-// at a time, and stored as one contiguous run.
+// costs a launch. A single pass cannot use a look-back (a block adding
+// whichever predecessors' partial sums have arrived associates by timing);
+// the batched entry's one pass below instead waits for every total the
+// fixed reduction takes. The pack's [hi | lo] rows are staged whole, half a
+// tile at a time, and stored as one contiguous run.
 //
 // Wider rows (the 3DGS transform's (N, 57) pack, the Gaussian merge's
 // (N, 60) segment sums) take the wide path: the same two passes on a grid
@@ -70,16 +74,39 @@
 // three block scans a tile and the second read of the input (a single
 // pass).
 //
-// The batched entry (kBatch) replaces _scan_kernel under jax.vmap, as the
-// JAX package's batched codec (parallel/sharding.py) runs it: a pallas_call
-// under vmap gains a leading grid axis over the frames. It runs B frames of
-// one shape in one launch per pass: the frame is blockIdx.z, and each block first moves its pointers to
-// its frame (input n * K floats apart, output one pack or one hi/lo pair
-// apart, scratch one scratch_need apart). Nothing crosses a frame, and a
-// frame's blocks do exactly the single entry's adds, so frame b's output is
-// the single entry's on x[b], bit for bit. The single entry's kernels are
-// the kBatch = false instances, which compile without the offsets.
-//
+// The batched entry replaces _scan_kernel under jax.vmap, as the JAX
+// package's batched codec (parallel/sharding.py) runs it: a pallas_call
+// under vmap gains a leading grid axis over the frames. It scans B frames
+// of one shape; nothing crosses a frame, and a frame's blocks do exactly
+// the single entry's adds, so frame b's output is the single entry's on
+// x[b], bit for bit. With 2 to 8 columns and 2 to 2048 tiles a frame (the
+// dataset path's (4, 2^20, 4) pack) it is one pass, ds_tile_onepass: a
+// stack larger than L2 (64 MiB at that pack) would otherwise be read twice
+// from device memory, 268 MB of traffic against the function's 201 MB. Each block takes a ticket from a counter
+// (frame-major), never its blockIdx: the hardware does not start blocks in
+// blockIdx order, and a block waiting on a tile whose block had not
+// started could hold the SM that block needs; with tickets a block waits
+// only on tiles whose blocks are running and publish without waiting. It
+// stages its tile with 16-byte cp.async, takes the tile's total and
+// publishes it as a record [hi | lo] of 2K floats, then st.release of the
+// tile's flag. Warp 0 then polls the flags of the tiles before it (relaxed
+// loads, 8 in flight a lane), one fence.acq_rel follows, and the barrier
+// passes the acquire on to the block, whose threads read the records at
+// L2 (ld.global.cg, 16 bytes a load: read one value a load, or through the
+// read-only path, the carry took 10 us a tile) and combine them in
+// carry_at's order. Rows are scanned from the staged tile, hi in place, lo
+// in a second buffer (pack) or registers. Three blocks an SM at K = 4. The
+// flags and the counter are zeroed on the stream before each launch. What
+// it leaves: each tile's chain (ticket, load, total, publish, poll, fence,
+// records, scan, store) is a series of dependent round trips that lengthen
+// under load (~20 us a tile at the (4, 2^20, 4) pack), and shared memory
+// holds only three tiles an SM while they wait, so the pack runs at about
+// half its bound. Other shapes, one column among them (the (4, 2^20, 1)
+// weight scans, whose 16 MiB stack the second pass reads from L2), run the
+// single entry's passes with the frame on blockIdx.z (the kBatch = true
+// instances; the single entry's are kBatch = false, compiled without the
+// frame offsets).
+
 // The sharded entry (ds_shard_totals_f32, ds_shard_scan_f32) replaces the
 // same kernel under the JAX package's sp axis, where XLA shards the scan's
 // rows over devices. A matrix (or a stack, the batched entry's kBatch
@@ -996,6 +1023,355 @@ __global__ void __launch_bounds__(kThreads, kPair ? 1 : 2)
   wide_stage_out(s_wide, row_major, out_lo + o, ors, ocs, w.R, w.kv);
 }
 
+// -- The batched entry's one pass: 2 to 8 columns, 2 to 2048 tiles a frame ---
+//
+// Block d of a launch takes ticket d from a counter: frame d / T, tile
+// d % T. It stages its tile in shared memory once, takes the tile's
+// per-column (hi, lo) total (load_tile's adds and block_scan), publishes
+// it (the tile's record, then st.release of its flag), waits until the
+// tiles before it in its frame have published theirs (warp 0 polls their
+// flags, then an acquire fence and a barrier), combines their totals with
+// carry_at's kCarryTotals reduction and scans its rows from the staged
+// tile with scan_rows' adds. Hi goes back into the staged slots and lo
+// into a second buffer (pack) or registers, and both leave in coalesced
+// stores.
+
+// Shared word of float g of a staged run of rows of K floats: 4 pad words
+// after every 8 rows, so thread t's rows 8t..8t+7 are the 8K floats at
+// (8K + 4) t, 16-byte aligned, and the 16-byte words that 8 neighbouring
+// threads read at the same offset fall on distinct banks ((2K + 1) t mod 8
+// is a permutation).
+template <int K>
+__device__ __forceinline__ int one_word(int g) {
+  return g + 4 * (g / (8 * K));
+}
+
+// Floats of one staged run of kTile rows. The pack's lo buffer follows 16
+// words later, so that a pack row's hi and lo words sit on other banks.
+template <int K>
+__host__ __device__ constexpr int one_stage() {
+  return kThreads * (8 * K + 4);
+}
+template <int K>
+__host__ __device__ constexpr int one_lo_offset() {
+  return one_stage<K>() + 16;
+}
+
+// A relaxed load at GPU scope (coherent at L2), for a flag other blocks
+// set during the launch.
+__device__ __forceinline__ unsigned ld_relaxed(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+// p as the compiler must take it from here on: loads through the result
+// cannot move above this point (placed after a barrier).
+__device__ __forceinline__ const float* after_barrier(const float* p) {
+  asm volatile("" : "+l"(p)::"memory");
+  return p;
+}
+
+__device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
+  asm volatile("st.release.gpu.global.u32 [%0], %1;\n" ::"l"(p), "r"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ void fence_acq_rel() {
+  asm volatile("fence.acq_rel.gpu;\n" ::: "memory");
+}
+
+// Issues the copies of the run x[0, len) (len <= K * kTile) into the staged
+// s, V floats a copy; floats past len stage as 0.
+template <int K, int V>
+__device__ __forceinline__ void one_copy_in(const float* __restrict__ x,
+                                            int len, float* s) {
+  constexpr int kUnits = K * kTile / V / kThreads;
+#pragma unroll
+  for (int j = 0; j < kUnits; ++j) {
+    const int g = V * (threadIdx.x + j * kThreads);
+    const int valid = max(0, min(V, len - g));
+    cp_async<V>(s + one_word<K>(g), valid > 0 ? x + g : x, valid);
+  }
+}
+
+// The thread's per-column sums (hi, lo)[0, K) of its 8 staged rows:
+// load_tile's adds, in row order per column, 16 bytes of the rows at a
+// time.
+template <int K>
+__device__ __forceinline__ void one_sums(const float* s, float* hi,
+                                         float* lo) {
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    hi[k] = 0.f;
+    lo[k] = 0.f;
+  }
+  const float* p = s + (8 * K + 4) * threadIdx.x;
+#pragma unroll
+  for (int i = 0; i < 2 * K; ++i) {
+    const float4 v = *reinterpret_cast<const float4*>(p + 4 * i);
+    const float e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+      ds_add(hi[(4 * i + m) % K], lo[(4 * i + m) % K], e[m], 0.f);
+  }
+}
+
+// scan_rows on the staged rows from the running (rh, rl)[0, K): each
+// result's hi goes back into the element's slot of s, its lo into that of
+// s2 (kLoShared) or into lo[4i + m] for the thread's float 4i + m.
+template <int K, bool kLoShared>
+__device__ __forceinline__ void one_scan(float* s, float* s2, float* rh,
+                                         float* rl, float* lo) {
+  float* p = s + (8 * K + 4) * threadIdx.x;
+#pragma unroll
+  for (int i = 0; i < 2 * K; ++i) {
+    const float4 v = *reinterpret_cast<const float4*>(p + 4 * i);
+    float e[4] = {v.x, v.y, v.z, v.w}, l[4];
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const int k = (4 * i + m) % K;
+      ds_add(rh[k], rl[k], e[m], 0.f);
+      e[m] = rh[k];
+      l[m] = rl[k];
+    }
+    *reinterpret_cast<float4*>(p + 4 * i) = make_float4(e[0], e[1], e[2], e[3]);
+    if constexpr (kLoShared) {
+      float* q = s2 + (8 * K + 4) * threadIdx.x;
+      *reinterpret_cast<float4*>(q + 4 * i) = make_float4(l[0], l[1], l[2], l[3]);
+    } else {
+#pragma unroll
+      for (int m = 0; m < 4; ++m) lo[4 * i + m] = l[m];
+    }
+  }
+}
+
+// Writes the thread's floats lo[0, 8K) back into its slots of s.
+template <int K>
+__device__ __forceinline__ void one_put_rows(float* s, const float* lo) {
+  float* p = s + (8 * K + 4) * threadIdx.x;
+#pragma unroll
+  for (int i = 0; i < 2 * K; ++i)
+    *reinterpret_cast<float4*>(p + 4 * i) =
+        make_float4(lo[4 * i], lo[4 * i + 1], lo[4 * i + 2], lo[4 * i + 3]);
+}
+
+// Float p of an output run: of the staged run s (kPack false), or of the
+// pack's [hi | lo] rows, hi from s and lo from s2.
+template <int K, bool kPack>
+__device__ __forceinline__ float one_at(const float* s, const float* s2,
+                                        int p) {
+  if constexpr (kPack) {
+    const int r = p / (2 * K), c = p % (2 * K);
+    return c < K ? s[one_word<K>(r * K + c)] : s2[one_word<K>(r * K + c - K)];
+  } else {
+    return s[one_word<K>(p)];
+  }
+}
+
+// Floats p..p+3 of the output run (p a multiple of 4): one 16-byte read
+// where they are four neighbours in one staged buffer.
+template <int K, bool kPack>
+__device__ __forceinline__ float4 one_at4(const float* s, const float* s2,
+                                          int p) {
+  if constexpr (!kPack) {
+    return *reinterpret_cast<const float4*>(s + one_word<K>(p));
+  } else if constexpr (K % 4 == 0) {
+    const int r = p / (2 * K), c = p % (2 * K);
+    return *reinterpret_cast<const float4*>(
+        c < K ? s + one_word<K>(r * K + c) : s2 + one_word<K>(r * K + c - K));
+  } else {
+    return make_float4(one_at<K, kPack>(s, s2, p),
+                       one_at<K, kPack>(s, s2, p + 1),
+                       one_at<K, kPack>(s, s2, p + 2),
+                       one_at<K, kPack>(s, s2, p + 3));
+  }
+}
+
+// Writes the output run o[0, len) from the staged buffers, consecutive
+// threads on consecutive addresses: 16-byte stores where o is aligned,
+// element stores otherwise.
+template <int K, bool kPack>
+__device__ __forceinline__ void one_store(const float* s, const float* s2,
+                                          float* __restrict__ o, int len) {
+  constexpr int kFloats = (kPack ? 2 : 1) * K * kTile;
+  if (aligned16(o)) {
+#pragma unroll
+    for (int j = 0; j < kFloats / 4 / kThreads; ++j) {
+      const int p = 4 * (threadIdx.x + j * kThreads);
+      if (p >= len) continue;
+      const float4 v = one_at4<K, kPack>(s, s2, p);
+      if (len - p >= 4) {
+        *reinterpret_cast<float4*>(o + p) = v;
+      } else {
+        o[p] = v.x;
+        if (len - p > 1) o[p + 1] = v.y;
+        if (len - p > 2) o[p + 2] = v.z;
+      }
+    }
+  } else {
+#pragma unroll 8
+    for (int j = 0; j < kFloats / kThreads; ++j) {
+      const int p = threadIdx.x + j * kThreads;
+      if (p < len) o[p] = one_at<K, kPack>(s, s2, p);
+    }
+  }
+}
+
+// carry_at's kCarryTotals reduction for the one pass: for tile b, the same
+// adds in the same order (thread t adds the totals of tiles t*8..t*8+7
+// below b, then a block scan of the thread sums). The totals come from the
+// tiles' records rec (2K floats a tile, [hi | lo]), written in this launch
+// by other blocks: at L2 (ld.global.cg, never the read-only or L1 path). A
+// thread's 8 records are 16K contiguous floats, read 16 bytes a load, a
+// few tiles' in flight at once; nothing is read for tiles at or past b (a
+// 16-byte load may run into the next record, which nothing adds). rec must
+// be 16-byte aligned and come through after_barrier, past the caller's
+// acquire and barrier.
+template <int K>
+__device__ __forceinline__ void carry_published(int b, const float* rec,
+                                                float (&run_h)[K],
+                                                float (&run_l)[K]) {
+  constexpr int kLoad = K <= 2 ? kItems : (K <= 4 ? kItems / 2 : 2);
+  constexpr int kWords = kLoad * 2 * K / 4;  // 16-byte loads a batch
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    run_h[k] = 0.f;
+    run_l[k] = 0.f;
+  }
+  if (b == 0) return;
+  float ch[K], cl[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    ch[k] = 0.f;
+    cl[k] = 0.f;
+  }
+  const int u0 = threadIdx.x * kItems;
+  const float4* src = reinterpret_cast<const float4*>(rec + u0 * 2 * K);
+#pragma unroll
+  for (int j0 = 0; j0 < kItems; j0 += kLoad) {
+    float r[kLoad * 2 * K];
+#pragma unroll
+    for (int q = 0; q < kWords; ++q) {
+      const float4 v = u0 + j0 + (4 * q) / (2 * K) < b
+                           ? __ldcg(src + j0 * 2 * K / 4 + q)
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+      r[4 * q] = v.x;
+      r[4 * q + 1] = v.y;
+      r[4 * q + 2] = v.z;
+      r[4 * q + 3] = v.w;
+    }
+#pragma unroll
+    for (int j = 0; j < kLoad; ++j)
+      if (u0 + j0 + j < b)
+#pragma unroll
+        for (int k = 0; k < K; ++k)
+          ds_add(ch[k], cl[k], r[j * 2 * K + k], r[j * 2 * K + K + k]);
+  }
+  float eh[K], el[K];
+  block_scan<K>(ch, cl, eh, el, run_h, run_l);
+}
+
+// One launch for nb frames of n rows (2 to kMaxCarryTiles tiles each, K
+// columns, row layout), grid nb * tiles. rec: the tiles' records, 16-byte
+// aligned, frame z's T records at rec + z * fs.tot; flags: nb * tiles
+// zeros (frame z's at z * tiles), then the ticket counter, also 0. out: as
+// ds_tile_scan's, frames fs.out apart. Shared memory: the staged tile, and
+// with pack its lo buffer. Blocks an SM: as many as that and the registers
+// allow (three at K = 4).
+template <int K>
+__global__ void __launch_bounds__(kThreads, K == 2   ? 5
+                                            : K <= 4 ? 3
+                                            : K <= 6 ? 2
+                                                     : 1)
+    ds_tile_onepass(const float* __restrict__ x, long long n, int tiles,
+                    float* __restrict__ out, bool pack, float* rec,
+                    unsigned* flags, unsigned* next, Frames fs) {
+  extern __shared__ __align__(16) float s_one[];
+  __shared__ unsigned s_ticket;
+  if (threadIdx.x == 0) s_ticket = atomicAdd(next, 1u);
+  __syncthreads();
+  const int z = (int)(s_ticket / (unsigned)tiles);
+  const int b = (int)(s_ticket % (unsigned)tiles);
+  x += z * fs.in;
+  out += z * fs.out;
+  rec += z * fs.tot;
+  flags += (long long)z * tiles;
+  const long long row0 = (long long)b * kTile;
+  float* s2 = s_one + one_lo_offset<K>();
+
+  // the tile, read once (rows past the frame stage as 0)
+  const int rows = (int)min((long long)kTile, n - row0);
+  const float* src = x + row0 * K;
+  if (aligned16(src))
+    one_copy_in<K, 4>(src, rows * K, s_one);
+  else
+    one_copy_in<K, 1>(src, rows * K, s_one);
+  cp_async_wait_all();
+  __syncthreads();
+  float hi[K], lo[K], ph[K], pl[K], th[K], tl[K];
+  one_sums<K>(s_one, hi, lo);
+  block_scan<K>(hi, lo, ph, pl, th, tl);
+
+  // publish the tile's total: its record, then its flag with release
+  // semantics (st.release.gpu orders the record before it)
+  if (threadIdx.x == 0) {
+    float* r = rec + (long long)b * 2 * K;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      r[k] = th[k];
+      r[K + k] = tl[k];
+    }
+    st_release(flags + b, 1u);
+  }
+
+  // warp 0 polls the flags of every tile before b, 8 coalesced loads in
+  // flight a lane, backing off between polls; then one acquire fence, and
+  // the barrier passes it on to the block
+  if (threadIdx.x < 32) {
+    for (;;) {
+      bool ready = true;
+      for (int u0 = threadIdx.x; u0 < b; u0 += 8 * 32) {
+        unsigned f[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          f[j] = u0 + 32 * j < b ? ld_relaxed(flags + u0 + 32 * j) : 1u;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) ready = ready && f[j] != 0;
+      }
+      if (__all_sync(kFull, ready)) break;
+      __nanosleep(100);
+    }
+    fence_acq_rel();
+  }
+  __syncthreads();
+  float run_h[K], run_l[K];
+  carry_published<K>(b, after_barrier(rec), run_h, run_l);
+#pragma unroll
+  for (int k = 0; k < K; ++k) ds_add(run_h[k], run_l[k], ph[k], pl[k]);
+
+  if (pack) {
+    one_scan<K, true>(s_one, s2, run_h, run_l, nullptr);
+    __syncthreads();
+    if (b == 0 && threadIdx.x < 2 * K) out[threadIdx.x] = 0.f;
+    one_store<K, true>(s_one, s2, out + 2 * K + row0 * 2 * K, rows * 2 * K);
+    return;
+  }
+  // hi runs from the staged tile, then lo (held in registers meanwhile)
+  // through the same slots
+  float lk[8 * K];
+  one_scan<K, false>(s_one, nullptr, run_h, run_l, lk);
+  __syncthreads();
+  one_store<K, false>(s_one, nullptr, out + row0 * K, rows * K);
+  __syncthreads();
+  one_put_rows<K>(s_one, lk);
+  __syncthreads();
+  one_store<K, false>(s_one, nullptr, out + n * K + row0 * K, rows * K);
+}
+
 // Whether the current device still lacks the opt-in that `done` records,
 // one bit a device: cudaFuncSetAttribute binds a kernel's attributes on the
 // current device only, so each device opts in on its first launch there.
@@ -1040,6 +1416,66 @@ long long scratch_tiles(long long t, int k) {
 // frame).
 long long scratch_need(long long n, int k) {
   return scratch_tiles((n + kTile - 1) / kTile, k);
+}
+
+// Whether the batched entry scans frames of t tiles of k columns in one
+// pass (ds_tile_onepass); otherwise scan_level's or wide_level's passes.
+// One column stays on the two passes: its stack (16 MiB at the dataset
+// path's (4, 2^20, 1) weight scans) is read again from L2, and a tile of
+// one column carries too few bytes to hide the one pass's chain of round
+// trips.
+bool one_pass(long long t, int k) {
+  return k >= 2 && k <= kWide && t >= 2 && t <= kMaxCarryTiles;
+}
+
+// Floats of one frame's one-pass records: 2k a tile, rounded up to a
+// multiple of 4 so that every frame's records stay 16-byte aligned.
+long long one_frame_floats(long long t, int k) { return (t * 2 * k + 3) / 4 * 4; }
+
+// Floats of scratch the batched entry needs for b frames: for one pass, a
+// frame's records (after up to 3 floats that align them to 16 bytes), then
+// a flag a tile and the ticket counter (32-bit words); otherwise
+// scratch_need a frame.
+long long batched_scratch_need(long long b, long long n, int k) {
+  const long long t = (n + kTile - 1) / kTile;
+  if (one_pass(t, k)) return b * one_frame_floats(t, k) + 3 + b * t + 1;
+  return b * scratch_need(n, k);
+}
+
+// Shared memory of a one-pass block: its staged tile, and with pack its lo
+// buffer. The carveout asks for the SM's whole 228 KB as shared
+// memory. The opt-in is made for the larger size.
+template <int K>
+size_t one_stage_bytes(bool pack) {
+  const size_t whole =
+      sizeof(float) * (one_lo_offset<K>() + one_stage<K>());
+  static std::atomic<uint64_t> raised{0};
+  int dev = -1;
+  if (needs_raise(raised, &dev)) {
+    cudaFuncSetAttribute(ds_tile_onepass<K>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)whole);
+    cudaFuncSetAttribute(ds_tile_onepass<K>,
+                         cudaFuncAttributePreferredSharedMemoryCarveout,
+                         cudaSharedmemCarveoutMaxShared);
+    mark_raised(raised, dev);
+  }
+  return pack ? whole : sizeof(float) * one_stage<K>();
+}
+
+// The one-pass scan of nb frames of n rows (t tiles each): the flags and
+// the counter zeroed on the stream, then one launch, a block a tile.
+template <int K>
+void one_pass_scan(const float* x, long long n, long long t, bool pack,
+                   float* out, float* rec, unsigned* flags, cudaStream_t st,
+                   int nb, Frames fs) {
+  const size_t smem = one_stage_bytes<K>(pack);
+  const long long blocks = nb * t;
+  if (cudaMemsetAsync(flags, 0, sizeof(unsigned) * (nb * t + 1), st) !=
+      cudaSuccess)
+    return;
+  ds_tile_onepass<K><<<(unsigned)blocks, kThreads, smem, st>>>(
+      x, n, (int)t, out, pack, rec, flags, flags + nb * t, fs);
 }
 
 // The passes one scan_level call runs: the whole scan (kWholeScan), or a
@@ -1232,29 +1668,56 @@ int ds_cumsum_f32(const float* x, long long n, int k, long long rs,
 
 // The batched entry's bound on the card: bytes, as for one frame, times B.
 // At the dataset path's (4, 2^20, 4) pack the stack reads 67.1 MB and
-// writes 134.2 MB, ~0.060 ms at 3.35 TB/s. The grid holds B times the
-// single entry's blocks, so a batch of frames fills the card in more waves
-// of the same blocks.
+// writes 134.2 MB, ~0.060 ms at 3.35 TB/s. With 2 to 8 columns and 2 to
+// 2048 tiles a frame, one launch (ds_tile_onepass, after a memset of its
+// flags) reads each tile once from device memory and writes it once: 201
+// MB at that pack, against the two passes' 268 MB. Other shapes take the
+// single entry's passes with the frame on blockIdx.z, B times its blocks.
 //
 // x: b contiguous (n, k) row-layout frames. Without pack, out gets frame
 // z's hi at out + 2 * z * n * k and its lo n * k floats after it (a
 // (b, 2, n, k) block); with pack, the (b, n + 1, 2k) stack of packs, each
 // a zero row, then rows [hi | lo]. scratch holds scratch_floats floats, of
-// which each frame takes scratch_need(n, k). Launches on `stream`, does not
+// which each frame takes scratch_need(n, k) and one pass's flags and
+// counter the rest (batched_scratch_need). Launches on `stream`, does not
 // synchronise, and returns cudaGetLastError() after the launches, or
 // without launching -1 for k < 1, -3 for too little scratch, -4 for a
-// frame count outside [1, 65535] (the grid's z extent).
+// frame count outside [1, 65535].
 int ds_cumsum_batched_f32(const float* x, long long b, long long n, int k,
                           int pack, float* out, float* scratch,
                           long long scratch_floats, void* stream) {
   if (k < 1) return -1;
   if (b < 1 || b > 65535) return -4;
+  if (scratch_floats < batched_scratch_need(b, n, k)) return -3;
   const long long need = scratch_need(n, k);
-  if (scratch_floats < b * need) return -3;
+  const long long t = (n + kTile - 1) / kTile;
   const long long out_fs = pack ? (n + 1) * 2 * k : 2 * n * k;
-  return launch_scan<true>(x, n, k, k, 1, pack != 0, out, scratch,
-                           static_cast<cudaStream_t>(stream), (int)b,
-                           Frames{n * k, need, out_fs});
+  const Frames fs{n * k, need, out_fs};
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (!one_pass(t, k))
+    return launch_scan<true>(x, n, k, k, 1, pack != 0, out, scratch, st,
+                             (int)b, fs);
+  float* rec = reinterpret_cast<float*>(
+      (reinterpret_cast<uintptr_t>(scratch) + 15) & ~uintptr_t{15});
+  unsigned* flags =
+      reinterpret_cast<unsigned*>(rec + b * one_frame_floats(t, k));
+  const Frames ofs{n * k, one_frame_floats(t, k), out_fs};
+#define DS_ONE_PASS_CASE(K)                                              \
+  case K:                                                                \
+    one_pass_scan<K>(x, n, t, pack != 0, out, rec, flags, st, (int)b, \
+                     ofs);                                               \
+    break;
+  switch (k) {
+    DS_ONE_PASS_CASE(2)
+    DS_ONE_PASS_CASE(3)
+    DS_ONE_PASS_CASE(4)
+    DS_ONE_PASS_CASE(5)
+    DS_ONE_PASS_CASE(6)
+    DS_ONE_PASS_CASE(7)
+    DS_ONE_PASS_CASE(8)
+  }
+#undef DS_ONE_PASS_CASE
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The sharded entry: one matrix (or a stack of b frames of one shape)

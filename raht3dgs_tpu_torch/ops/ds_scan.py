@@ -19,8 +19,11 @@ run side by side, each staging its slice with ``cp.async`` and scanning
 it from shared memory at two blocks an SM, with the same adds per column.
 ``scripts/scan_phase_probe.py`` splits the wide path's time on the card.
 :func:`ds_cumsum_batched` and :func:`ds_prefix_pack_batched` scan every
-frame of a stack in the launches one frame takes; frame b's result is the
-single entry's on ``x[b]``, bit for bit. :func:`ds_prefix_pack_sharded`
+frame of a stack; frame b's result is the single entry's on ``x[b]``, bit
+for bit. Up to 8 columns and 2 to 2048 tiles a frame, that is one pass
+over the stack: each block takes its tile from a ticket counter, reads it
+once, publishes its total and combines the totals of the tiles before it
+in the single entry's fixed order. :func:`ds_prefix_pack_sharded`
 scans a matrix or a stack whose rows lie in shards on several devices
 (``parallel/sp_span.py``'s sp axis), each shard its own tiles, with only
 halos, tile totals and leading rows crossing; every shard's pack is its
@@ -80,6 +83,21 @@ def scratch_floats(n: int, k: int) -> int:
     if t <= MAX_CARRY_TILES:
         return 2 * t * k
     return 4 * t * k + scratch_floats(t, k)
+
+
+def batched_scratch_floats(b: int, n: int, k: int) -> int:
+    """Floats of scratch the batched entry needs for ``b`` frames of ``n``
+    rows of ``k`` columns. Where one launch scans the stack (2 <= ``k`` <=
+    8, 2 to ``MAX_CARRY_TILES`` tiles a frame): a record a tile of its (hi,
+    lo) totals, 2k floats, each frame's rounded up to a multiple of 4
+    floats, after up to 3 floats that align the records to 16 bytes; then a
+    flag a tile and one ticket counter. Otherwise :func:`scratch_floats` a
+    frame. The kernel counts the same (``batched_scratch_need``) and
+    refuses to launch with less."""
+    t = -(-n // TILE)
+    if 2 <= k <= 8 and 2 <= t <= MAX_CARRY_TILES:
+        return b * (-(-2 * t * k // 4) * 4) + 3 + b * t + 1
+    return b * scratch_floats(n, k)
 
 
 # Kernel launches per entry point. Each wrapper adds one where it launches
@@ -308,7 +326,7 @@ def _launch_batched(x: torch.Tensor, pack: bool):
             return x.new_zeros((B, N + 1, 2 * K))
         return x.new_empty(x.shape), x.new_empty(x.shape)
     per = (N + 1) * 2 * K if pack else 2 * N * K
-    scratch = B * scratch_floats(N, K)
+    scratch = batched_scratch_floats(B, N, K)
     buf = x.new_empty(B * per + scratch)
     out = buf.data_ptr()
     stream = torch._C._cuda_getCurrentRawStream(x.get_device())
@@ -325,7 +343,9 @@ def _launch_batched(x: torch.Tensor, pack: bool):
 
 def ds_cumsum_batched(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`ds_cumsum` of every frame of ``x (B, N, K)`` f32, in one
-    launch per pass of the kernel. Returns ``(hi, lo)``, each (B, N, K)."""
+    launch for the whole stack where 2 <= K <= 8 and a frame holds 2 to
+    ``MAX_CARRY_TILES`` tiles (otherwise one launch per pass of the
+    kernel). Returns ``(hi, lo)``, each (B, N, K)."""
     _check_batched(x)
     if x.device.type == "cpu":
         return ds_cumsum_batched_reference(x)

@@ -17,7 +17,9 @@ path's shapes: ``ds_prefix_pack`` (the forward's pack) and ``ds_cumsum``
 at (2^19, 4), ``ds_cumsum_t`` at (1, 2^19); and the wide path's (K > 8):
 ``ds_prefix_pack`` at (2^19, 57) (the 3DGS transform's pack, the integer
 weight lane last) and (2e6, 60) (the Gaussian merge's prefix segment
-sums), ``ds_cumsum_t`` at (57, 2^19). For each: the wrapper's time (CUDA
+sums), ``ds_cumsum_t`` at (57, 2^19); and the batched entry at the
+dataset path's shapes: ``ds_prefix_pack_batched`` at (4, 2^20, 4) and
+``ds_cumsum_batched`` at (4, 2^20, 1). For each: the wrapper's time (CUDA
 events around one call; 10 x ``--reps`` rounds of 20 calls, each round's
 median and their median, taken before any profiler session) and the
 device's own time and kernel launches per call (profiler, 50 back-to-back
@@ -116,7 +118,11 @@ def scan_inputs(torch) -> list:
              ("ds_cumsum_t", torch.rand(1, n, generator=g)),
              ("ds_prefix_pack", x57),
              ("ds_prefix_pack", torch.rand(2_000_000, 60, generator=g)),
-             ("ds_cumsum_t", torch.rand(57, n, generator=g))]
+             ("ds_cumsum_t", torch.rand(57, n, generator=g)),
+             # the dataset path's batched pack and weight scans (4 frames
+             # padded to 2^20 rows)
+             ("ds_prefix_pack_batched", torch.rand(4, 2 * n, 4, generator=g)),
+             ("ds_cumsum_batched", torch.rand(4, 2 * n, 1, generator=g))]
     return [(name, x.cuda()) for name, x in cases]
 
 

@@ -151,6 +151,28 @@ def test_scratch_floats_matches_recount(n, k):
     assert scratch_floats(n, k) == _recount_scratch(n, k)
 
 
+def _recount_batched_scratch(b, n, k):
+    # the batched entry's scratch as its pointers span it: one pass (2 to
+    # 8 columns, 2..MAX_CARRY_TILES tiles a frame) takes up to 3 floats of
+    # alignment, then each frame's (hi, lo) records (2k floats a tile) at a
+    # 16-byte aligned stride, then a flag a tile and the ticket counter;
+    # otherwise each frame takes the single entry's scratch
+    tiles = -(-n // TILE)
+    if not (2 <= k <= 8 and 2 <= tiles <= MAX_CARRY_TILES):
+        return b * _recount_scratch(n, k)
+    stride = 2 * tiles * k
+    while stride % 4:
+        stride += 1
+    return 3 + b * stride + b * tiles + 1
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 8, 9, 57])
+@pytest.mark.parametrize("n", [2048, 2049, 1 << 20, 2048 * 2048, 2048 * 2048 + 1])
+@pytest.mark.parametrize("b", [1, 4, 65535])
+def test_batched_scratch_floats_matches_recount(b, n, k):
+    assert ds_scan.batched_scratch_floats(b, n, k) == _recount_batched_scratch(b, n, k)
+
+
 def test_scratch_floats_known_sizes():
     assert scratch_floats(1 << 19, 4) == 2 * 256 * 4     # the forward's pack
     assert scratch_floats(2048, 1) == 0                  # one tile, one launch
@@ -158,6 +180,17 @@ def test_scratch_floats_known_sizes():
     # the wide path counts a totals row of all K columns
     assert scratch_floats(487_180, 57) == 2 * 238 * 57   # the 3DGS transform's pack
     assert scratch_floats(2_000_000, 60) == 2 * 977 * 60  # the Gaussian merge's prefix
+    # the batched entry: the dataset path's pack in one pass (records,
+    # flags, counter); its one-column weight scans, one tile per frame and
+    # past the one-block carry as the single entry's scratch a frame
+    batched = ds_scan.batched_scratch_floats
+    assert batched(4, 1 << 20, 4) == 3 + 4 * 512 * 8 + 4 * 512 + 1
+    assert batched(4, 1 << 20, 1) == 4 * scratch_floats(1 << 20, 1)
+    assert batched(3, 4097, 2) == 3 + 3 * 12 + 3 * 3 + 1
+    assert batched(3, 600_001, 3) == 3 + 3 * 1760 + 3 * 293 + 1   # 293 * 6 = 1758 -> 1760
+    assert batched(1, 2048, 1) == 0
+    assert batched(2, (1 << 22) + 5, 4) == 2 * scratch_floats((1 << 22) + 5, 4)
+    assert batched(2, 1 << 19, 57) == 2 * scratch_floats(1 << 19, 57)
 
 
 @pytest.mark.parametrize("n,k", [(1, 1), (7, 1), (300, 4), (2049, 3), (5000, 4)])
@@ -274,3 +307,36 @@ def test_cuda_wide_pack_invariants(rng):
         ref = torch.cumsum(x.double(), 0)
         got = hi.double() + lo.double()
         assert float((got - ref).abs().max()) / float(ref.abs().max()) < 1e-12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 2048, 1), (3, 600_001, 3), (5, 2048 * 2048, 4),
+                                   (2, (1 << 22) + 5, 4), (64, 4096, 8), (1, 1 << 21, 4),
+                                   (4, 1 << 20, 1), (3, 600_001, 1), (3, 5001, 2),
+                                   (2, 6145, 5), (3, 4097, 6), (2, 2049, 7)])
+def test_cuda_batched_one_pass_bitwise_single_entry(rng, shape):
+    # the batched entry (one pass at 2 to 8 columns and 2 to 2048 tiles a
+    # frame, blocks waiting on each other's published totals; one column on
+    # the two passes): frame by frame the
+    # single entry's bits, and equal over repeated calls (a race would show
+    # as a call that differs)
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    B, N, K = shape
+    x = rng.uniform(0, 3, size=shape).astype(np.float32)
+    x[..., -1] = x[..., -1] > 1.5
+    x = torch.from_numpy(x).cuda()
+    P = ds_scan.ds_prefix_pack_batched(x)
+    hi, lo = ds_scan.ds_cumsum_batched(x)
+    for b in range(B):
+        assert torch.equal(P[b], ds_prefix_pack(x[b]))
+        h1, l1 = ds_cumsum(x[b])
+        assert torch.equal(hi[b], h1) and torch.equal(lo[b], l1)
+    for _ in range(20):
+        assert torch.equal(ds_scan.ds_prefix_pack_batched(x), P)
+        h2, l2 = ds_scan.ds_cumsum_batched(x)
+        assert torch.equal(h2, hi) and torch.equal(l2, lo)
+    # the kernel refuses, without launching, scratch one float short
+    need = ds_scan.batched_scratch_floats(B, N, K)
+    assert ds_scan.KERNEL.load().ds_cumsum_batched_f32(None, B, N, K, 1, None, None,
+                                                       need - 1, None) == -3
