@@ -329,12 +329,13 @@ def cuda_ms(torch, fn, reps: int = 20, warm: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(torch, fn, reps: int = 50, warm: int = 3):
+def device_ms(torch, fn, reps: int = 50, warm: int = 3, copies: bool = False):
     """The device's own time for one call of ``fn`` and the kernels it runs:
-    torch.profiler's CUDA time of every kernel and memset (copies left out)
-    in ``reps`` back-to-back calls, divided by ``reps`` (host work of the
-    wrapper excluded). Returns ms per call, kernel and memset launches per
-    call and us per call by kernel name (memsets as ``Memset``).
+    torch.profiler's CUDA time of every kernel and memset (with ``copies``
+    also every copy, ``Memcpy ...``) in ``reps`` back-to-back calls, divided
+    by ``reps`` (host work of the wrapper excluded). Returns ms per call,
+    kernel and memset launches per call (copies not counted) and us per
+    call by kernel name (memsets as ``Memset``).
     A session in which the profiler recorded no device activity at all is
     taken again, up to three times."""
     from torch.profiler import ProfilerActivity, profile
@@ -347,20 +348,21 @@ def device_ms(torch, fn, reps: int = 50, warm: int = 3):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        kernels = [e for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and not e.name.startswith("Memcpy")]
+        timed = [e for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and (copies or not e.name.startswith("Memcpy"))]
+        kernels = [e for e in timed if not e.name.startswith("Memcpy")]
         if kernels:
             break
         print(f"device_ms: profiler session {attempt + 1} recorded no kernel",
               file=sys.stderr, flush=True)
     check(len(kernels) > 0, "the profiler saw no kernel on the card")
     split = {}
-    for e in kernels:
+    for e in timed:
         short = e.name.replace("(anonymous namespace)::", "")
         short = short.removeprefix("void ").split("(")[0].strip()
         split[short] = split.get(short, 0.0) + e.time_range.elapsed_us() / reps
-    ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / reps
+    ms = sum(e.time_range.elapsed_us() for e in timed) / 1e3 / reps
     return ms, len(kernels) / reps, split
 
 
@@ -402,11 +404,12 @@ def fair_library_ms(torch, xr, reps: int = 20) -> dict:
 def ptxas_summary(log: str) -> dict:
     """{kernel<K,pair,batch>: [registers, spill bytes]} from nvcc -Xptxas=-v
     (the wide path's kernels as kernel<pair,batch>, the batched entry's one
-    pass as ds_tile_onepass<K>)."""
+    pass as ds_tile_onepass<K>, the sharded entry's as ds_shard_total<K>,
+    ds_shard_scan<K>, ds_shard_wide_total<>, ds_shard_wide_scan<>)."""
     out, name = {}, None
     for ln in log.splitlines():
-        m = re.search(r"Compiling entry function '\S*?(ds_(?:tile|wide)_[a-z]+)I(?:Li(\d+)E)?"
-                      r"(?:Lb([01])ELb([01])E)?", ln)
+        m = re.search(r"Compiling entry function '\S*?(ds_(?:tile|wide|shard)_[a-z_]*[a-z])"
+                      r"(?:I(?:Li(\d+)E)?(?:Lb([01])ELb([01])E)?)?", ln)
         if m:
             name = f"{m.group(1)}<{','.join(g for g in m.groups()[1:] if g is not None)}>"
             out[name] = [None, 0]
@@ -1316,29 +1319,31 @@ def batched_side_rows(torch, ds, wk):
     batch's 13 launches, on the two passes) against 4 ``ds_cumsum`` calls,
     and the batched entry on one frame (``ds_prefix_pack_batched(x[None])``)
     at (2^19, 4) and (2^21, 4) against ``ds_prefix_pack(x)``. Wrapper ms (CUDA events, median of 100)
-    first, the plain version's and ``torch.cumsum``'s (float64), then
-    device ms (profiler) and the bound."""
+    first, the plain version's, ``torch.cumsum``'s (float64) and the fair
+    library call's (:func:`fair_library_ms`), then device ms (profiler) and
+    the bound."""
     gen = torch.Generator(device="cpu").manual_seed(4)
     ones = {n: (torch.rand(n, 4, generator=gen) * 3.0).cuda() for n in (1 << 19, 1 << 21)}
     cases = {"weights": (lambda: ds.ds_cumsum_batched(wk),
                          lambda: [ds.ds_cumsum(wk[b]) for b in range(wk.shape[0])],
                          lambda: ds.ds_cumsum_batched_reference(wk),
                          lambda: torch.cumsum(wk, 1, dtype=torch.float64),
-                         list(wk.shape), 3 * wk.numel())}
+                         list(wk.shape), 3 * wk.numel(), wk)}
     for n, x in ones.items():
         cases[f"b1_{n}"] = (lambda x=x: ds.ds_prefix_pack_batched(x[None]),
                             lambda x=x: ds.ds_prefix_pack(x),
                             lambda x=x: ds.ds_prefix_pack_batched_reference(x[None]),
                             lambda x=x: torch.cumsum(x, 0, dtype=torch.float64), [1, n, 4],
-                            x.numel() + 2 * (n + 1) * 4)
+                            x.numel() + 2 * (n + 1) * 4, x)
     out = {}
-    for name, (fn, single, plain, lib, shape, floats) in cases.items():
+    for name, (fn, single, plain, lib, shape, floats, xr) in cases.items():
         out[name] = {"shape": shape, "ms": cuda_ms(torch, fn, reps=100),
                      "single_entry_ms": cuda_ms(torch, single, reps=100),
                      "plain_ms": cuda_ms(torch, plain, reps=3, warm=1),
                      "library_ms": cuda_ms(torch, lib, reps=20),
+                     **fair_library_ms(torch, xr, reps=20),
                      "bound_ms": 4.0 * floats / HBM_BYTES_PER_S * 1e3}
-    for name, (fn, single, _, _, _, _) in cases.items():
+    for name, (fn, single, *_) in cases.items():
         r = out[name]
         r["device_ms"], r["device_launches_per_call"], r["device_us_by_kernel"] = \
             device_ms(torch, fn)
@@ -3767,17 +3772,20 @@ MESH_SP = 4                # phase 16 (g), (h): the J=21 frame over a virtual sp
 SP_EXCHANGE_SHARE = 0.01   # phase 16 (c): exchange over the bytes a point gather would move
 SP_PEAK_RATIO = 0.5        # phase 16 (g): sharded peak over unsharded peak, at most
 # phase 16 (h): (shape, sp) of the sharded entry alone: the path's widths,
-# shard edges inside tiles (600 000 rows), a stack, shards shorter than a tile
+# shard edges inside tiles (600 000 rows), a stack, shards shorter than a
+# tile, more than 2048 tiles (the totals' scan on the device), one column
+# with shards whose first owned rows lie off 16 bytes
 SHARDED_SCAN_CASES = (
     ((1 << 19, 4), 4), ((1 << 19, 57), 4), ((600_000, 4), 4), ((4, 1 << 20, 4), 2),
-    ((5000, 12), 4), ((3, 70_001, 9), 4))
+    ((5000, 12), 4), ((3, 70_001, 9), 4), (((1 << 22) + 5000, 2), 3), ((600_001, 1), 4))
 
 
 def check_sharded_scan(torch, ds, x, sp):
     """The sharded entry on ``x`` ((N, K) or (B, N, K)) split into ``sp``
-    row shards: each shard's pack bitwise its rows of the unsharded kernel's
-    pack (a second run too), integer lanes bitwise the plain version, the
-    sharded plain version bitwise the plain version. Returns (max abs error
+    row shards on its card: one pass-2 launch, each shard's pack bitwise its
+    rows of the unsharded kernel's pack (a second run too), integer lanes
+    bitwise the plain version, the sharded plain version bitwise the plain
+    version. Returns (max abs error
     against the plain version, rel. error against f64, halo rows)."""
     batched = x.dim() == 3
     dim = 1 if batched else 0
@@ -3787,7 +3795,10 @@ def check_sharded_scan(torch, ds, x, sp):
     P = ds.ds_prefix_pack_batched(x) if batched else ds.ds_prefix_pack(x)
     R = (ds.ds_prefix_pack_batched_reference(x) if batched
          else ds.ds_prefix_pack_reference(x))
+    ds.reset_launches()
     got = ds.ds_prefix_pack_sharded(xs)
+    check(ds.LAUNCHES["ds_cumsum_sharded"] == 1,
+          f"{tuple(x.shape)} over sp={sp} on one card: {ds.LAUNCHES} pass-2 launches")
     again = ds.ds_prefix_pack_sharded(xs)
     plain = ds.ds_prefix_pack_sharded_reference(xs)
     torch.cuda.synchronize()
@@ -3854,7 +3865,8 @@ def mesh_sp_legs(torch, ds, sh, card, j21, j21_body, pair):
         (want, peak0), wall0, l0, (got, peak), wall, l1 = pair(
             lambda: peak_above(plain), lambda: peak_above(mesh_fn))
         check(torch.equal(got, want), f"J21 {name} over sp={MESH_SP} differs from unsharded")
-        check(sh.COUNTS["sp_gather_bytes"] == 0 and l1["ds_cumsum_sharded"] > 0,
+        check(sh.COUNTS["sp_gather_bytes"] == 0
+              and l1["ds_cumsum_sharded"] == l0["ds_cumsum_batched"] > 0,
               f"J21 {name} over sp={MESH_SP}: gather {sh.COUNTS['sp_gather_bytes']}, "
               f"launches {l1}")
         check(peak <= SP_PEAK_RATIO * peak0,
@@ -3903,8 +3915,10 @@ def mesh_sp_legs(torch, ds, sh, card, j21, j21_body, pair):
                                       "rel_err": e[1], "halo_rows": e[2]}
                                      for (s, p), e in zip(SHARDED_SCAN_CASES, errs)],
            **fair_library_ms(torch, j21_body, reps=20)}
+    # device time with the copies counted (a layout that moves rows between
+    # shards copies them)
     row["device_ms"], row["device_launches_per_call"], row["device_us_by_kernel"] = \
-        device_ms(torch, lambda: ds.ds_prefix_pack_sharded(xs))
+        device_ms(torch, lambda: ds.ds_prefix_pack_sharded(xs), copies=True)
     say("sharded_kernel", card=json.dumps(card), **{
         k: json.dumps(v) if isinstance(v, (dict, list)) else v for k, v in row.items()})
     return record, row
@@ -4123,8 +4137,13 @@ def phase_mesh(torch, ds, keep, j21, j21_body):
         check(sh.COUNTS["sp_gather_bytes"] == 0 and 0 < moved < bound,
               f"roundtrip on {mesh.shape}: gather {sh.COUNTS['sp_gather_bytes']}, "
               f"exchange {moved} bytes, a point gather {gather}")
-        check(l1["ds_cumsum_sharded"] > 0 and l1["ds_cumsum_batched"] == 0,
-              f"roundtrip on {mesh.shape}: scan launches {l1}")
+        # one pass-2 launch a device of each (dp, tp) group for each
+        # unsharded batched launch
+        cards = sum(len({str(d) for d in mesh.devices[a, :, c]})
+                    for a in range(dp) for c in range(tp))
+        check(l1["ds_cumsum_sharded"] == cards * l0["ds_cumsum_batched"] > 0
+              and l1["ds_cumsum_batched"] == 0,
+              f"roundtrip on {mesh.shape}: scan launches {l1}, unsharded {l0}")
         row = {"mesh": mesh.shape, "devices": [str(d) for d in mesh.devices.flat],
                "mse": float(got), "unsharded_mse": float(want), "bitwise_unsharded": True,
                "sp_gather_bytes": sh.COUNTS["sp_gather_bytes"], "sp_exchange_bytes": moved,
@@ -4282,6 +4301,9 @@ def main() -> int:
     one_pass = {k: v for k, v in ptxas.items() if k.startswith("ds_tile_onepass")}
     check(len(one_pass) == 7 and not any(spill for _, spill in one_pass.values()),
           f"the one-pass kernels' registers and spills: {one_pass}")
+    shard_ptxas = {k: v for k, v in ptxas.items() if k.startswith("ds_shard")}
+    check(len(shard_ptxas) == 18 and not any(spill for _, spill in shard_ptxas.values()),
+          f"the sharded entry's kernels' registers and spills: {shard_ptxas}")
 
     keep = tempfile.mkdtemp(prefix="chip_smoke_")  # phase 6-8 files read by phases 10-12
     try:
@@ -4323,6 +4345,7 @@ def main() -> int:
              **predict["launches"], **rate["launches"], **seq["launches"],
              **serving["launches"], **transforms["launches"], **mesh["launches"]}
     rows.append(data["row"])
+    sharded_row["ptxas"] = shard_ptxas
     rows.append(sharded_row)
     for row in rows:
         # `launches`: the codec's main path (phase 3) for the single entry,

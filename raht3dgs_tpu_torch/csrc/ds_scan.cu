@@ -107,25 +107,14 @@
 // instances; the single entry's are kBatch = false, compiled without the
 // frame offsets).
 
-// The sharded entry (ds_shard_totals_f32, ds_shard_scan_f32) replaces the
-// same kernel under the JAX package's sp axis, where XLA shards the scan's
-// rows over devices. A matrix (or a stack, the batched entry's kBatch
-// instances) whose rows lie in shards is scanned shard by shard to the
-// single entry's bits on the whole. The whole scan's association is fixed
-// by N: tile t is rows [2048 t, 2048 (t + 1)), pass 1 writes the tile
-// totals and pass 2's block t combines the totals of tiles [0, t) in the
-// fixed block-wide reduction (or, past 2048 tiles, reads their recursive
-// scan). So a shard owns the tiles whose first row it holds, runs pass 1 on
-// them, and runs pass 2 on them with tile0 (its first tile's global index,
-// Shard::tile0) once the caller has put every shard's totals, in tile order,
-// at the front of its scratch: its blocks then combine exactly the totals
-// the whole scan's blocks combine. A shard's last owned tile may run into
-// the following shards (their first rows: the halo, under 2048 rows); that
-// tile's rows come in a buffer of its own and its pack rows go out to one,
-// from which the caller returns the halo's rows to the shards that hold
-// them. Only tile0, the external totals and the tail's two buffers are
-// new: tile body, geometry, __fadd_rn and --fmad=false are the single
-// entry's. The bound and the arguments are at the entry points below.
+// The sharded entry (ds_shard_pass_f32) replaces the same kernel under the
+// JAX package's sp axis, where XLA shards the scan's rows over devices. A
+// matrix (or a stack) whose rows lie in shards, several of them possibly on
+// one device, is scanned to the single entry's bits on the whole: one launch
+// a pass a device over all its shards' tiles, the tile totals written in
+// place at their global index, and a persistent scan pass whose
+// asynchronous copies bring one tile while another is scanned and stored
+// ("The sharded entry" below).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -149,20 +138,6 @@ enum Carry { kCarryNone = 0, kCarryTotals = 1, kCarryScanned = 2 };
 struct Frames {
   long long in, tot, out;
 };
-
-// A shard's part of a sharded scan. tile0: the global index of the grid's
-// first tile. Where tail_in is set, the grid's last tile (the shard's last
-// owned tile, whose rows run into the following shards) reads its rows from
-// tail_in and writes its pack rows to tail_out, frames tail_in_fs and
-// tail_out_fs floats apart, instead of the shard's input and pack. The
-// single and batched entries run kWhole.
-struct Shard {
-  long long tile0;
-  const float* tail_in;
-  float* tail_out;
-  long long tail_in_fs, tail_out_fs;
-};
-constexpr Shard kWhole{0, nullptr, nullptr, 0, 0};
 
 // p moved to frame blockIdx.z (a null pointer stays null).
 template <bool kBatch, class T>
@@ -507,22 +482,19 @@ __global__ void __launch_bounds__(kThreads)
     ds_tile_total(const float* __restrict__ in_hi,
                   const float* __restrict__ in_lo, long long n, long long cs,
                   float* __restrict__ tot_hi, float* __restrict__ tot_lo,
-                  Frames fs, Shard sh) {
+                  Frames fs) {
   extern __shared__ float s_tile[];
-  const bool at_tail = sh.tail_in != nullptr && blockIdx.x == gridDim.x - 1;
-  in_hi = at_tail ? frame_ptr<kBatch>(sh.tail_in, sh.tail_in_fs)
-                  : frame_ptr<kBatch>(in_hi, fs.in);
+  in_hi = frame_ptr<kBatch>(in_hi, fs.in);
   in_lo = frame_ptr<kBatch>(in_lo, fs.in);
   tot_hi = frame_ptr<kBatch>(tot_hi, fs.tot);
   tot_lo = frame_ptr<kBatch>(tot_lo, fs.tot);
   const bool row_major = cs == 1;
   const long long row0 = (long long)blockIdx.x * kTile;
-  const long long in_row0 = at_tail ? 0 : row0;
   const int R = (int)min((long long)kTile, n - row0);
   float xh[kItems][K], xl[kItems][K], hi[K], lo[K], ph[K], pl[K], th[K],
       tl[K];
   const auto stage = [&](const float* p) {
-    stage_in<K>(p, row_major, cs, in_row0, R, s_tile);
+    stage_in<K>(p, row_major, cs, row0, R, s_tile);
   };
   load_tile<K, kPair>(stage, in_hi, in_lo, row_major, s_tile, xh, xl, hi, lo);
   block_scan<K>(hi, lo, ph, pl, th, tl);
@@ -537,10 +509,9 @@ __global__ void __launch_bounds__(kThreads)
 
 // carry: kCarryTotals: carry_hi/lo are the (T, K) tile totals, block b
 // combines rows [0, b); kCarryScanned: their inclusive scan, block b takes
-// row b - 1; kCarryNone: a single tile. b is the global tile, sh.tile0 +
-// blockIdx.x. out: hi in the input's layout, lo n * K floats after it; with
-// pack (row layout), the (n + 1, 2K) prefix pack [0; hi | lo], its zero row
-// written by global tile 0 (a shard's tail: pack only).
+// row b - 1; kCarryNone: a single tile. out: hi in the input's layout, lo
+// n * K floats after it; with pack (row layout), the (n + 1, 2K) prefix
+// pack [0; hi | lo].
 // Two blocks per SM (<= 128 registers a thread) up to K = 4: the codec's
 // 256-tile pack is then one wave on 132 SMs.
 template <int K, bool kPair, bool kBatch>
@@ -549,24 +520,21 @@ __global__ void __launch_bounds__(kThreads, K <= 4 ? 2 : 1)
                  const float* __restrict__ in_lo, long long n, long long cs,
                  const float* __restrict__ carry_hi,
                  const float* __restrict__ carry_lo, int carry,
-                 float* __restrict__ out, bool pack, Frames fs, Shard sh) {
+                 float* __restrict__ out, bool pack, Frames fs) {
   extern __shared__ float s_tile[];
-  const bool at_tail = sh.tail_in != nullptr && blockIdx.x == gridDim.x - 1;
-  in_hi = at_tail ? frame_ptr<kBatch>(sh.tail_in, sh.tail_in_fs)
-                  : frame_ptr<kBatch>(in_hi, fs.in);
+  in_hi = frame_ptr<kBatch>(in_hi, fs.in);
   in_lo = frame_ptr<kBatch>(in_lo, fs.in);
   carry_hi = frame_ptr<kBatch>(carry_hi, fs.tot);
   carry_lo = frame_ptr<kBatch>(carry_lo, fs.tot);
   out = frame_ptr<kBatch>(out, fs.out);
   const bool row_major = cs == 1;
   const long long row0 = (long long)blockIdx.x * kTile;
-  const long long in_row0 = at_tail ? 0 : row0;
   const int R = (int)min((long long)kTile, n - row0);
-  const int b = (int)(sh.tile0 + blockIdx.x);
+  const int b = blockIdx.x;
   float xh[kItems][K], xl[kItems][K], hi[K], lo[K], ph[K], pl[K], th[K],
       tl[K];
   const auto stage = [&](const float* p) {
-    stage_in<K>(p, row_major, cs, in_row0, R, s_tile);
+    stage_in<K>(p, row_major, cs, row0, R, s_tile);
   };
   load_tile<K, kPair>(stage, in_hi, in_lo, row_major, s_tile, xh, xl, hi, lo);
   block_scan<K>(hi, lo, ph, pl, th, tl);
@@ -579,10 +547,7 @@ __global__ void __launch_bounds__(kThreads, K <= 4 ? 2 : 1)
   if (pack) {
     if (b == 0 && threadIdx.x < 2 * K) out[threadIdx.x] = 0.f;
     // [hi | lo] rows, 2K floats apart: half a tile of whole rows at a time
-    // is one contiguous run; a shard's tail writes its own rows
-    float* rows = at_tail ? frame_ptr<kBatch>(sh.tail_out, sh.tail_out_fs)
-                          : out + 2 * K;
-    const long long out_row0 = at_tail ? 0 : row0;
+    // is one contiguous run
     constexpr int kHalf = kTile / 2;
     for (int h = 0; h < 2; ++h) {
       if (threadIdx.x / (kThreads / 2) == h) {
@@ -597,7 +562,7 @@ __global__ void __launch_bounds__(kThreads, K <= 4 ? 2 : 1)
         }
       }
       __syncthreads();
-      store_run<K>(s_tile, rows + (out_row0 + h * kHalf) * 2 * K,
+      store_run<K>(s_tile, out + (1 + row0 + h * kHalf) * 2 * K,
                    max(0, min(kHalf, R - h * kHalf)) * 2 * K);
       __syncthreads();
     }
@@ -893,24 +858,15 @@ __device__ __forceinline__ WideBlock wide_block(long long n, int ncol) {
   return w;
 }
 
-// Whether the block is the tile a shard reads from its tail (Shard).
-__device__ __forceinline__ bool wide_at_tail(const Shard& sh,
-                                             const WideBlock& w, int ncol) {
-  const unsigned ncb = (ncol + kWide - 1) / kWide;
-  return sh.tail_in != nullptr && w.b == (int)(gridDim.x / ncb) - 1;
-}
-
 // Stages the block's column slice of in_hi into s (and of in_lo into s2),
-// the copies left in flight; the slice's first row is row in_row0 of the
-// input.
+// the copies left in flight.
 template <bool kPair>
 __device__ __forceinline__ void wide_issue(const float* __restrict__ in_hi,
                                            const float* __restrict__ in_lo,
                                            bool row_major, long long rs,
-                                           long long cs, long long in_row0,
-                                           const WideBlock& w, float* s,
-                                           float* s2) {
-  const long long off = in_row0 * rs + w.c0 * cs;
+                                           long long cs, const WideBlock& w,
+                                           float* s, float* s2) {
+  const long long off = w.row0 * rs + w.c0 * cs;
   wide_stage_in(in_hi + off, row_major, rs, cs, w.R, w.kv, s);
   if (kPair) wide_stage_in(in_lo + off, row_major, rs, cs, w.R, w.kv, s2);
 }
@@ -922,19 +878,16 @@ __global__ void __launch_bounds__(kThreads, kPair ? 1 : 3)
     ds_wide_total(const float* __restrict__ in_hi,
                   const float* __restrict__ in_lo, long long n, int ncol,
                   long long rs, long long cs, float* __restrict__ tot_hi,
-                  float* __restrict__ tot_lo, Frames fs, Shard sh) {
+                  float* __restrict__ tot_lo, Frames fs) {
   extern __shared__ __align__(16) float s_wide[];
-  const WideBlock w = wide_block(n, ncol);
-  const bool at_tail = wide_at_tail(sh, w, ncol);
-  in_hi = at_tail ? frame_ptr<kBatch>(sh.tail_in, sh.tail_in_fs)
-                  : frame_ptr<kBatch>(in_hi, fs.in);
+  in_hi = frame_ptr<kBatch>(in_hi, fs.in);
   in_lo = frame_ptr<kBatch>(in_lo, fs.in);
   tot_hi = frame_ptr<kBatch>(tot_hi, fs.tot);
   tot_lo = frame_ptr<kBatch>(tot_lo, fs.tot);
   float* s2 = s_wide + kWideStage;
   const bool row_major = cs == 1;
-  wide_issue<kPair>(in_hi, in_lo, row_major, rs, cs, at_tail ? 0 : w.row0, w,
-                    s_wide, s2);
+  const WideBlock w = wide_block(n, ncol);
+  wide_issue<kPair>(in_hi, in_lo, row_major, rs, cs, w, s_wide, s2);
   cp_async_wait_all();
   __syncthreads();
   float hi[kWide], lo[kWide], ph[kWide], pl[kWide], th[kWide], tl[kWide];
@@ -950,11 +903,9 @@ __global__ void __launch_bounds__(kThreads, kPair ? 1 : 3)
   }
 }
 
-// carry as in ds_tile_scan, over (T, ncol) totals (global tile sh.tile0 +
-// w.b). out_hi / out_lo: row 0, column 0 of hi and lo, strides (ors, ocs),
-// in the input's layout; zero_row, unless null, gets the pack's zero row
-// (its 2 * ncol floats). A shard's tail (pack only) writes its rows to
-// sh.tail_out, hi and lo out_lo - out_hi floats apart as in the pack.
+// carry as in ds_tile_scan, over (T, ncol) totals. out_hi / out_lo: row 0,
+// column 0 of hi and lo, strides (ors, ocs), in the input's layout;
+// zero_row, unless null, gets the pack's zero row (its 2 * ncol floats).
 // The carry reads the totals while the tile's copies are in flight.
 // Registers: two blocks an SM (128 a thread), the lo results being 64 of
 // them.
@@ -966,31 +917,21 @@ __global__ void __launch_bounds__(kThreads, kPair ? 1 : 2)
                  const float* __restrict__ carry_lo, int carry,
                  float* __restrict__ out_hi, float* __restrict__ out_lo,
                  long long ors, long long ocs, float* __restrict__ zero_row,
-                 Frames fs, Shard sh) {
+                 Frames fs) {
   extern __shared__ __align__(16) float s_wide[];
-  const WideBlock w = wide_block(n, ncol);
-  const bool at_tail = wide_at_tail(sh, w, ncol);
-  const int gb = (int)(sh.tile0 + w.b);
-  in_hi = at_tail ? frame_ptr<kBatch>(sh.tail_in, sh.tail_in_fs)
-                  : frame_ptr<kBatch>(in_hi, fs.in);
+  in_hi = frame_ptr<kBatch>(in_hi, fs.in);
   in_lo = frame_ptr<kBatch>(in_lo, fs.in);
   carry_hi = frame_ptr<kBatch>(carry_hi, fs.tot);
   carry_lo = frame_ptr<kBatch>(carry_lo, fs.tot);
-  if (at_tail) {
-    float* t = frame_ptr<kBatch>(sh.tail_out, sh.tail_out_fs);
-    out_lo = t + (out_lo - out_hi);
-    out_hi = t;
-  } else {
-    out_hi = frame_ptr<kBatch>(out_hi, fs.out);
-    out_lo = frame_ptr<kBatch>(out_lo, fs.out);
-  }
+  out_hi = frame_ptr<kBatch>(out_hi, fs.out);
+  out_lo = frame_ptr<kBatch>(out_lo, fs.out);
   zero_row = frame_ptr<kBatch>(zero_row, fs.out);
   float* s2 = s_wide + kWideStage;
   const bool row_major = cs == 1;
-  const long long row0 = at_tail ? 0 : w.row0;
-  wide_issue<kPair>(in_hi, in_lo, row_major, rs, cs, row0, w, s_wide, s2);
+  const WideBlock w = wide_block(n, ncol);
+  wide_issue<kPair>(in_hi, in_lo, row_major, rs, cs, w, s_wide, s2);
   float run_h[kWide], run_l[kWide];
-  carry_at<kWide>(gb, carry, carry_hi, carry_lo, ncol, w.c0, w.kv, run_h,
+  carry_at<kWide>(w.b, carry, carry_hi, carry_lo, ncol, w.c0, w.kv, run_h,
                   run_l);
   cp_async_wait_all();
   __syncthreads();
@@ -1001,14 +942,14 @@ __global__ void __launch_bounds__(kThreads, kPair ? 1 : 2)
 #pragma unroll
     for (int k = 0; k < kWide; ++k) ds_add(run_h[k], run_l[k], ph[k], pl[k]);
   }
-  if (zero_row != nullptr && gb == 0 && threadIdx.x < w.kv) {
+  if (zero_row != nullptr && w.b == 0 && threadIdx.x < w.kv) {
     zero_row[w.c0 + threadIdx.x] = 0.f;
     zero_row[ncol + w.c0 + threadIdx.x] = 0.f;
   }
   float lo_out[kItems][kWide];
   wide_scan_rows<kPair>(s_wide, s2, row_major, run_h, run_l, lo_out);
   // hi, then lo, from the staged slots to the output
-  const long long o = row0 * ors + w.c0 * ocs;
+  const long long o = w.row0 * ors + w.c0 * ocs;
   __syncthreads();
   wide_stage_out(s_wide, row_major, out_hi + o, ors, ocs, w.R, w.kv);
   if (kPair) {
@@ -1372,6 +1313,537 @@ __global__ void __launch_bounds__(kThreads, K == 2   ? 5
   one_store<K, false>(s_one, nullptr, out + n * K + row0 * K, rows * K);
 }
 
+// -- The sharded entry: a device's shards, one launch a pass ------------------
+//
+// A device's part of a sharded scan is a table of segments (Seg): its own
+// shards' rows, and the first rows of another device's shards that its tiles
+// run into (received into buffers, their pack rows written to buffers that
+// the caller returns). Tile t of the whole is scanned on the device of the
+// shard holding its first row; the table lists the device's owned tiles in
+// global order (local index i, Seg::local0), each segment its own run.
+//
+// Pass 1 (ds_shard_total, ds_shard_wide_total): a block a tile, the single
+// entry's totals pass (stage_in, the thread's 8 rows, block_scan), writing
+// the tile's total at its global index t into the device's totals buffer
+// (the whole scan's scratch layout: hi (T, K), then lo). The caller copies
+// the other devices' totals in; past kMaxCarryTiles tiles their scan runs
+// once on the device (scan_level / wide_level on the totals, as the whole
+// scan's).
+//
+// Pass 2 for K <= 8 (ds_shard_scan): persistent blocks, as many as the SMs
+// hold (two an SM up to K = 4), each taking a fixed run of consecutive work
+// items (frame-major, then the device's tiles in global order). Every
+// tile's carry is known at launch (the totals are all there), so nothing
+// waits on another block. A block stages the next tile with cp.async (16
+// bytes a copy where the rows lie at an aligned address, 4 otherwise;
+// one_copy_in, coalesced, into one_word's padded layout) while it scans
+// the current one, then writes the tile's pack rows from shared memory in
+// coalesced 16-byte streaming stores (after 2 element stores where the run
+// is 8 bytes off 16: odd K), which the memory system drains while the next
+// tile is scanned. The carry is carry_at's: thread t adds the totals of tiles
+// 8t .. 8t + 7 below the tile in order, then a block scan of the thread
+// sums; a block keeps its threads' sums from one tile to the next and adds
+// only the totals it has not added yet, in the same order, so only the
+// block scan is redone a tile and the totals are read about once a block.
+// The leading row of a co-resident shard is written by the block holding
+// the row before it; tile 0 writes the zero rows. A boundary tile whose
+// rows lie in several segments is staged and written element by element.
+// Numerics: the single entry's adds in the single entry's order
+// (load_tile's sums, block_scan, carry_at, scan_rows) with __fadd_rn,
+// --fmad=false and no atomic, so every shard's pack is bitwise its rows of
+// the single (batched) entry's pack on the whole. Why not bulk copies: a
+// whole tile's cp.async.bulk cannot leave the pad words that keep the
+// threads' 16-byte reads off each other's banks, and a version that moved
+// each thread's 8 rows in and its 8 pack rows out by bulk copies of their
+// own (512 of 128-256 bytes a tile, an mbarrier a stage) took 0.087 ms for
+// this pass at (2^21, 4), no faster than the single entry's (PERF.md §6).
+//
+// K > 8 keeps the wide path's column-block bodies (ds_wide_total /
+// ds_wide_scan) on the device's table: a block a (tile, column block), a
+// boundary tile staged and written element by element.
+//
+// Bound on the card, per device: bytes, 4nK read and 8nK written for its n
+// rows (plus the received halo rows twice and the (T, K) totals). At (2^21,
+// 4) over sp=4 on one card: 33.6 MB read, 67.1 MB written, 0.0300 ms at
+// an H100's 3.35 TB/s. What it leaves (H100 80GB HBM3, 700 W; PERF.md §6):
+// the two passes take about 0.019 + 0.052 ms there, 2.4x the bound; pass 1
+// reads the input a second time (0.011 ms for a plain read of those
+// bytes), and pass 2 runs at about two thirds of the card's rate for a
+// read and write of its 100.7 MB.
+
+constexpr int kMaxSegs = 32;  // segments a device's table holds
+
+// Rows [start, start + rows) of the whole on one device: in its input
+// (frames in_fs floats apart, row start first), out its pack rows (row
+// start's [hi | lo] first, frames out_fs apart), lead the leading pack row
+// that this device writes (the row before start), or null. Owned tiles
+// [tile0, tile0 + tiles), local indices from local0.
+struct Seg {
+  long long start, rows, in_fs, out_fs, tile0, tiles, local0;
+  const float* in;
+  float* out;
+  float* lead;
+};
+
+// A device's table: n rows and `tiles` tiles of the whole, `local` of them
+// owned here.
+struct Table {
+  long long n, tiles, local;
+  int nseg;
+  Seg seg[kMaxSegs];
+};
+
+// The segment owning the device's local tile i.
+__device__ __forceinline__ int owner_seg(const Table& tab, long long i) {
+  int s = 0;
+  while (s < tab.nseg - 1 &&
+         (tab.seg[s].tiles == 0 || i >= tab.seg[s].local0 + tab.seg[s].tiles))
+    ++s;
+  return s;
+}
+
+// The segment holding global row r, searched from segment s on (segments
+// in row order; every row of an owned tile lies in one).
+__device__ __forceinline__ int seg_of(const Table& tab, long long r, int s) {
+  while (s < tab.nseg - 1 &&
+         (tab.seg[s].rows == 0 || r >= tab.seg[s].start + tab.seg[s].rows))
+    ++s;
+  return s;
+}
+
+// stage_in for a tile whose rows [r0, r0 + R) of frame z lie in more than
+// one segment (from segment s on): element loads, positions past R hold 0.
+template <int K>
+__device__ void stage_rows(const Table& tab, int s, long long z, long long r0,
+                           int R, float* st) {
+  for (int q = threadIdx.x; q < K * kTile; q += kThreads) {
+    const int r = q / K;
+    float v = 0.f;
+    if (r < R) {
+      const Seg& g = tab.seg[seg_of(tab, r0 + r, s)];
+      v = g.in[z * g.in_fs + (r0 + r - g.start) * K + q % K];
+    }
+    st[pad(q)] = v;
+  }
+}
+
+// Pass 1, K <= 8: block (i, z) takes the device's local tile i of frame z
+// and writes its total at its global index b: tot + z * tot_fs + b * K (hi),
+// T * K floats later (lo). The adds are ds_tile_total's.
+template <int K>
+__global__ void __launch_bounds__(kThreads)
+    ds_shard_total(const __grid_constant__ Table tab, float* __restrict__ tot,
+                   long long tot_fs) {
+  extern __shared__ float s_tile[];
+  const long long z = blockIdx.z;
+  const int s = owner_seg(tab, blockIdx.x);
+  const Seg& g = tab.seg[s];
+  const long long b = g.tile0 + (blockIdx.x - g.local0);
+  const long long r0 = b * kTile;
+  const int R = (int)min((long long)kTile, tab.n - r0);
+  if (r0 + R <= g.start + g.rows)
+    stage_in<K>(g.in + z * g.in_fs, true, 1, r0 - g.start, R, s_tile);
+  else
+    stage_rows<K>(tab, s, z, r0, R, s_tile);
+  __syncthreads();
+  float xh[kItems][K], hi[K], lo[K], ph[K], pl[K], th[K], tl[K];
+  read_rows<K>(s_tile, true, xh);
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    hi[k] = 0.f;
+    lo[k] = 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < kItems; ++j)
+#pragma unroll
+    for (int k = 0; k < K; ++k) ds_add(hi[k], lo[k], xh[j][k], 0.f);
+  block_scan<K>(hi, lo, ph, pl, th, tl);
+  if (threadIdx.x == 0) {
+    float* t = tot + z * tot_fs;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      t[b * K + k] = th[k];
+      t[tab.tiles * K + b * K + k] = tl[k];
+    }
+  }
+}
+
+// cp.async's groups: the thread's copies issued so far as one group; wait
+// until all but the newest n groups have landed.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Shared memory of a pass-2 block: two staged tiles in one_word's layout
+// (a thread's 8 rows, then 4 pad words), the next tile's copies landing in
+// one while the other is scanned, then the pack's lo buffer, 16 floats
+// apart (one_lo_offset's bank shift). 110.7 KB at K = 4: two blocks an SM.
+template <int K>
+__host__ __device__ constexpr int shard_stage() {
+  return one_stage<K>() + 16;
+}
+template <int K>
+__host__ __device__ constexpr int shard_scan_floats() {
+  return 3 * shard_stage<K>();
+}
+
+// Issues (every thread) the copies of work item w's tile (frame w / local,
+// local tile w % local) into the staged s: cp.async of 16 bytes where its
+// rows lie in one segment at an aligned address, of 4 bytes where they lie
+// off 16 bytes (rows past the matrix stage as 0); a boundary tile whose
+// rows lie in several segments is loaded element by element.
+template <int K>
+__device__ __forceinline__ void shard_issue(const Table& tab, long long w,
+                                            float* s) {
+  const long long z = w / tab.local, i = w % tab.local;
+  const int so = owner_seg(tab, i);
+  const Seg& g = tab.seg[so];
+  const long long r0 = (g.tile0 + (i - g.local0)) * kTile;
+  const int R = (int)min((long long)kTile, tab.n - r0);
+  if (r0 + R <= g.start + g.rows) {
+    const float* src = g.in + z * g.in_fs + (r0 - g.start) * K;
+    if (aligned16(src))
+      one_copy_in<K, 4>(src, R * K, s);
+    else
+      one_copy_in<K, 1>(src, R * K, s);
+    return;
+  }
+  for (int q = threadIdx.x; q < K * kTile; q += kThreads) {
+    const int r = q / K;
+    float v = 0.f;
+    if (r < R) {
+      const Seg& h = tab.seg[seg_of(tab, r0 + r, so)];
+      v = h.in[z * h.in_fs + (r0 + r - h.start) * K + q % K];
+    }
+    s[one_word<K>(q)] = v;
+  }
+}
+
+// Writes the tile's pack floats [0, len) (hi from s, lo from s2, as
+// one_at) to o[0, len), consecutive threads on consecutive addresses:
+// 16-byte streaming stores (st.global.cs: the pack is not read again here,
+// and leaving L2 to the input keeps more of it there for the next call's
+// pass 1) where o is aligned, after 2 element stores where it is 8 bytes
+// off (odd K: a pack row is 2K floats after the leading row), element
+// stores otherwise.
+template <int K>
+__device__ __forceinline__ void shard_store(const float* s, const float* s2,
+                                            float* __restrict__ o, int len) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(o);
+  if ((a & 7) != 0) {
+    for (int p = threadIdx.x; p < len; p += kThreads)
+      o[p] = one_at<K, true>(s, s2, p);
+    return;
+  }
+  const int head = (a & 15) ? 2 : 0;
+  if ((int)threadIdx.x < min(head, len))
+    o[threadIdx.x] = one_at<K, true>(s, s2, threadIdx.x);
+  constexpr int kFloats = 2 * K * kTile;
+#pragma unroll
+  for (int j = 0; j < kFloats / 4 / kThreads; ++j) {
+    const int p = head + 4 * (threadIdx.x + j * kThreads);
+    if (p >= len) continue;
+    const float4 v =
+        head == 0 ? one_at4<K, true>(s, s2, p)
+                  : make_float4(one_at<K, true>(s, s2, p),
+                                one_at<K, true>(s, s2, p + 1),
+                                one_at<K, true>(s, s2, p + 2),
+                                one_at<K, true>(s, s2, p + 3));
+    if (len - p >= 4) {
+      __stcs(reinterpret_cast<float4*>(o + p), v);
+    } else {
+      o[p] = v.x;
+      if (len - p > 1) o[p + 1] = v.y;
+      if (len - p > 2) o[p + 2] = v.z;
+    }
+  }
+}
+
+// Pass 2, K <= 8: nb frames of the device's tiles, persistent blocks (see
+// above). carry: kCarryTotals: carry_hi / carry_lo the (T, K) totals,
+// frames tot_fs apart; kCarryScanned: their inclusive scan; kCarryNone: a
+// single tile. Two blocks an SM up to K = 4 (<= 128 registers).
+template <int K>
+__global__ void __launch_bounds__(kThreads, K <= 4 ? 2 : 1)
+    ds_shard_scan(const __grid_constant__ Table tab,
+                  const float* __restrict__ carry_hi,
+                  const float* __restrict__ carry_lo, int carry,
+                  long long tot_fs, long long nb) {
+  extern __shared__ __align__(16) float s_sh[];
+  const long long work = nb * tab.local;
+  const long long w0 = work * blockIdx.x / gridDim.x;
+  const long long w1 = work * (blockIdx.x + 1) / gridDim.x;
+  if (w0 >= w1) return;
+  float* const s2 = s_sh + 2 * shard_stage<K>();
+  shard_issue<K>(tab, w0, s_sh);
+  cp_async_commit();
+  // the thread's running sum of the totals of tiles [8t, 8t + 8) below
+  // `done` in frame cz (carry_at's adds, kept from tile to tile)
+  float ch[K], cl[K];
+  long long cz = -1, done = 0;
+  for (long long w = w0; w < w1; ++w) {
+    const int it = (int)(w - w0);
+    float* const s = s_sh + (it & 1) * shard_stage<K>();
+    if (w + 1 < w1) {
+      shard_issue<K>(tab, w + 1, s_sh + ((it + 1) & 1) * shard_stage<K>());
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const long long z = w / tab.local, i = w % tab.local;
+    const int so = owner_seg(tab, i);
+    const Seg& g = tab.seg[so];
+    const long long b = g.tile0 + (i - g.local0);
+    const long long r0 = b * kTile;
+    const int R = (int)min((long long)kTile, tab.n - r0);
+
+    // the thread's sums and its exclusive prefix in the tile
+    float hi[K], lo[K], ph[K], pl[K], th[K], tl[K];
+    one_sums<K>(s, hi, lo);
+    block_scan<K>(hi, lo, ph, pl, th, tl);
+
+    // the carry in front of tile b
+    float rh[K], rl[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      rh[k] = 0.f;
+      rl[k] = 0.f;
+    }
+    if (carry == kCarryTotals) {
+      if (z != cz) {
+        cz = z;
+        done = 0;
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          ch[k] = 0.f;
+          cl[k] = 0.f;
+        }
+      }
+      const float* th_ = carry_hi + z * tot_fs;
+      const float* tl_ = carry_lo + z * tot_fs;
+      const long long u1 = min((long long)kItems * threadIdx.x + kItems, b);
+      const long long u0 = max((long long)kItems * threadIdx.x, done);
+      for (long long u = u0; u < u1; ++u)
+#pragma unroll
+        for (int k = 0; k < K; ++k)
+          ds_add(ch[k], cl[k], th_[u * K + k], tl_[u * K + k]);
+      done = b;
+      if (b > 0) {
+        float sh[K], sl[K], eh[K], el[K];
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          sh[k] = ch[k];
+          sl[k] = cl[k];
+        }
+        block_scan<K>(sh, sl, eh, el, rh, rl);
+      }
+    } else if (carry == kCarryScanned && b > 0) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        rh[k] = carry_hi[z * tot_fs + (b - 1) * K + k];
+        rl[k] = carry_lo[z * tot_fs + (b - 1) * K + k];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) ds_add(rh[k], rl[k], ph[k], pl[k]);
+
+    // the rows: hi back into the staged tile, lo into s2
+    one_scan<K, true>(s, s2, rh, rl, nullptr);
+    __syncthreads();
+    if (r0 + R <= g.start + g.rows) {
+      shard_store<K>(s, s2, g.out + z * g.out_fs + (r0 - g.start) * 2 * K,
+                     R * 2 * K);
+    } else {
+      for (int p = threadIdx.x; p < R * 2 * K; p += kThreads) {
+        const int r = p / (2 * K);
+        const Seg& h = tab.seg[seg_of(tab, r0 + r, so)];
+        h.out[z * h.out_fs + (r0 + r - h.start) * 2 * K + p % (2 * K)] =
+            one_at<K, true>(s, s2, p);
+      }
+    }
+    // leading rows of co-resident shards (the row before their first),
+    // and on tile 0 the zero rows
+    if (threadIdx.x < 2 * K) {
+      for (int q = 0; q < tab.nseg; ++q) {
+        const Seg& h = tab.seg[q];
+        if (h.lead == nullptr) continue;
+        const long long lr = h.start - 1 - r0;
+        if (lr >= 0 && lr < R)
+          h.lead[z * h.out_fs + threadIdx.x] =
+              one_at<K, true>(s, s2, (int)lr * 2 * K + threadIdx.x);
+        else if (h.start == 0 && b == 0)
+          h.lead[z * h.out_fs + threadIdx.x] = 0.f;
+      }
+    }
+    __syncthreads();  // s and s2 read before the next copies and scan
+  }
+}
+
+// stage_rows for the wide path: rows [r0, r0 + R), columns [c0, c0 + kv)
+// of frame z into the staged column block (wide_word), element by element;
+// rows past R and columns past kv as 0.
+__device__ void wide_stage_rows(const Table& tab, int s, long long z,
+                                long long r0, int R, int ncol, int c0, int kv,
+                                float* st) {
+  for (int e = threadIdx.x; e < kWide * kTile; e += kThreads) {
+    const int r = e / kWide, c = e % kWide;
+    float v = 0.f;
+    if (r < R && c < kv) {
+      const Seg& g = tab.seg[seg_of(tab, r0 + r, s)];
+      v = g.in[z * g.in_fs + (r0 + r - g.start) * ncol + c0 + c];
+    }
+    st[wide_word(true, r, c)] = v;
+  }
+}
+
+// The wide block of blockIdx.x on a device's table: its owner segment s,
+// global tile b (rows r0 ..), R rows, first column c0, kv columns.
+struct ShardWide {
+  long long b, r0;
+  int s, R, c0, kv;
+};
+
+__device__ __forceinline__ ShardWide shard_wide(const Table& tab, int ncol) {
+  const unsigned ncb = (ncol + kWide - 1) / kWide;
+  const long long i = blockIdx.x / ncb;
+  ShardWide w;
+  w.s = owner_seg(tab, i);
+  w.b = tab.seg[w.s].tile0 + (i - tab.seg[w.s].local0);
+  w.r0 = w.b * kTile;
+  w.R = (int)min((long long)kTile, tab.n - w.r0);
+  w.c0 = (int)(blockIdx.x % ncb) * kWide;
+  w.kv = min(kWide, ncol - w.c0);
+  return w;
+}
+
+// Whether the block's tile lies in its owner segment.
+__device__ __forceinline__ bool wide_whole(const Table& tab,
+                                           const ShardWide& w) {
+  return w.r0 + w.R <= tab.seg[w.s].start + tab.seg[w.s].rows;
+}
+
+// Issues (whole) or makes (a boundary tile) the staged column block.
+__device__ __forceinline__ void shard_wide_in(const Table& tab,
+                                              const ShardWide& w, long long z,
+                                              int ncol, bool whole, float* s) {
+  const Seg& g = tab.seg[w.s];
+  if (whole)
+    wide_stage_in(g.in + z * g.in_fs + (w.r0 - g.start) * ncol + w.c0, true,
+                  ncol, 1, w.R, w.kv, s);
+  else
+    wide_stage_rows(tab, w.s, z, w.r0, w.R, ncol, w.c0, w.kv, s);
+}
+
+// Writes the staged column block (hi, or with off = ncol lo) to the pack
+// rows of the segments holding the tile's rows, and to each leading row
+// whose row before lies in the tile.
+__device__ void shard_wide_out(const Table& tab, const ShardWide& w,
+                               long long z, int ncol, int off, bool whole,
+                               const float* s) {
+  const Seg& g = tab.seg[w.s];
+  if (whole) {
+    float* o = g.out + z * g.out_fs + (w.r0 - g.start) * 2 * ncol + off;
+    wide_stage_out(s, true, o + w.c0, 2 * ncol, 1, w.R, w.kv);
+  } else {
+    for (int e = threadIdx.x; e < w.R * w.kv; e += kThreads) {
+      const int r = e / w.kv, c = e % w.kv;
+      const Seg& h = tab.seg[seg_of(tab, w.r0 + r, w.s)];
+      h.out[z * h.out_fs + (w.r0 + r - h.start) * 2 * ncol + off + w.c0 + c] =
+          s[wide_word(true, r, c)];
+    }
+  }
+  if (threadIdx.x < w.kv) {
+    for (int q = 0; q < tab.nseg; ++q) {
+      const Seg& h = tab.seg[q];
+      const long long lr = h.start - 1 - w.r0;
+      if (h.lead != nullptr && lr >= 0 && lr < w.R)
+        h.lead[z * h.out_fs + off + w.c0 + threadIdx.x] =
+            s[wide_word(true, (int)lr, threadIdx.x)];
+    }
+  }
+}
+
+// Pass 1 for K > 8: ds_wide_total's body on the device's table, block (i *
+// ncb + column block, z); totals at tot + z * tot_fs, (T, ncol) hi then lo.
+__global__ void __launch_bounds__(kThreads, 3)
+    ds_shard_wide_total(const __grid_constant__ Table tab, int ncol,
+                        float* __restrict__ tot, long long tot_fs) {
+  extern __shared__ __align__(16) float s_wide[];
+  const long long z = blockIdx.z;
+  const ShardWide w = shard_wide(tab, ncol);
+  shard_wide_in(tab, w, z, ncol, wide_whole(tab, w), s_wide);
+  cp_async_wait_all();
+  __syncthreads();
+  float hi[kWide], lo[kWide], ph[kWide], pl[kWide], th[kWide], tl[kWide];
+  wide_row_sums<false>(s_wide, nullptr, true, hi, lo);
+  block_scan<kWide>(hi, lo, ph, pl, th, tl);
+  if (threadIdx.x == 0) {
+    float* t = tot + z * tot_fs;
+#pragma unroll
+    for (int k = 0; k < kWide; ++k)
+      if (k < w.kv) {
+        t[w.b * ncol + w.c0 + k] = th[k];
+        t[tab.tiles * ncol + w.b * ncol + w.c0 + k] = tl[k];
+      }
+  }
+}
+
+// Pass 2 for K > 8: ds_wide_scan's body on the device's table; carry as in
+// ds_shard_scan over (T, ncol) totals.
+__global__ void __launch_bounds__(kThreads, 2)
+    ds_shard_wide_scan(const __grid_constant__ Table tab, int ncol,
+                       const float* __restrict__ carry_hi,
+                       const float* __restrict__ carry_lo, int carry,
+                       long long tot_fs) {
+  extern __shared__ __align__(16) float s_wide[];
+  const long long z = blockIdx.z;
+  const ShardWide w = shard_wide(tab, ncol);
+  const bool whole = wide_whole(tab, w);
+  if (whole) shard_wide_in(tab, w, z, ncol, true, s_wide);
+  float run_h[kWide], run_l[kWide];
+  carry_at<kWide>((int)w.b, carry, carry_hi ? carry_hi + z * tot_fs : nullptr,
+                  carry_lo ? carry_lo + z * tot_fs : nullptr, ncol, w.c0, w.kv,
+                  run_h, run_l);
+  if (whole)
+    cp_async_wait_all();
+  else
+    shard_wide_in(tab, w, z, ncol, false, s_wide);
+  __syncthreads();
+  {
+    float hi[kWide], lo[kWide], ph[kWide], pl[kWide], th[kWide], tl[kWide];
+    wide_row_sums<false>(s_wide, nullptr, true, hi, lo);
+    block_scan<kWide>(hi, lo, ph, pl, th, tl);
+#pragma unroll
+    for (int k = 0; k < kWide; ++k) ds_add(run_h[k], run_l[k], ph[k], pl[k]);
+  }
+  if (w.b == 0 && threadIdx.x < w.kv) {
+    for (int q = 0; q < tab.nseg; ++q) {
+      const Seg& h = tab.seg[q];
+      if (h.lead != nullptr && h.start == 0) {
+        h.lead[z * h.out_fs + w.c0 + threadIdx.x] = 0.f;
+        h.lead[z * h.out_fs + ncol + w.c0 + threadIdx.x] = 0.f;
+      }
+    }
+  }
+  float lo_out[kItems][kWide];
+  wide_scan_rows<false>(s_wide, nullptr, true, run_h, run_l, lo_out);
+  __syncthreads();
+  shard_wide_out(tab, w, z, ncol, 0, whole, s_wide);
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < kItems; ++i)
+    store_line(s_wide, wide_line(true, i), lo_out[i]);
+  __syncthreads();
+  shard_wide_out(tab, w, z, ncol, ncol, whole, s_wide);
+}
+
 // Whether the current device still lacks the opt-in that `done` records,
 // one bit a device: cudaFuncSetAttribute binds a kernel's attributes on the
 // current device only, so each device opts in on its first launch there.
@@ -1478,20 +1950,6 @@ void one_pass_scan(const float* x, long long n, long long t, bool pack,
       x, n, (int)t, out, pack, rec, flags, flags + nb * t, fs);
 }
 
-// The passes one scan_level call runs: the whole scan (kWholeScan), or a
-// shard's pass 1 or pass 2 (kShardTotals, kShardScan). tiles: the whole
-// matrix's tile count (-1: the grid's own). A shard's pass 1 writes the
-// totals of its grid's tiles, (t, K) hi then lo; its pass 2 finds the
-// whole matrix's (tiles, K) totals at the front of the scratch, as the
-// whole scan's pass 1 leaves them.
-enum Passes { kTotalsPass = 1, kScanPass = 2 };
-struct Part {
-  Shard sh;
-  long long tiles;
-  int passes;
-};
-constexpr Part kWholeScan{kWhole, -1, kTotalsPass | kScanPass};
-
 // cs: the input's column stride (1: row layout, rows K floats apart;
 // otherwise rows are 1 apart). Scratch layout per level: tile totals hi,
 // lo (T * K each), and beyond kMaxCarryTiles their scan hi, lo and the
@@ -1501,38 +1959,31 @@ constexpr Part kWholeScan{kWhole, -1, kTotalsPass | kScanPass};
 template <int K, bool kPair, bool kBatch>
 void scan_level(const float* in_hi, const float* in_lo, long long n,
                 long long cs, float* out, bool pack, float* scratch,
-                cudaStream_t st, int nb, Frames fs,
-                const Part& part = kWholeScan) {
+                cudaStream_t st, int nb, Frames fs) {
   const size_t smem = stage_bytes<K, kPair, kBatch>();
   const long long t = (n + kTile - 1) / kTile;
-  const long long tiles = part.tiles < 0 ? t : part.tiles;
   const dim3 grid((unsigned)t, 1, (unsigned)nb);
-  float* tot_hi = scratch;
-  if ((part.passes & kTotalsPass) && tiles > 1)
-    ds_tile_total<K, kPair, kBatch><<<grid, kThreads, smem, st>>>(
-        in_hi, in_lo, n, cs, tot_hi, tot_hi + t * K, fs, part.sh);
-  if (!(part.passes & kScanPass)) return;
-  if (tiles <= 1) {
+  if (t <= 1) {
     ds_tile_scan<K, kPair, kBatch><<<grid, kThreads, smem, st>>>(
-        in_hi, in_lo, n, cs, nullptr, nullptr, kCarryNone, out, pack, fs,
-        part.sh);
+        in_hi, in_lo, n, cs, nullptr, nullptr, kCarryNone, out, pack, fs);
     return;
   }
-  float* tot_lo = tot_hi + tiles * K;
-  if (tiles <= kMaxCarryTiles) {
+  float* tot_hi = scratch;
+  float* tot_lo = tot_hi + t * K;
+  ds_tile_total<K, kPair, kBatch><<<grid, kThreads, smem, st>>>(
+      in_hi, in_lo, n, cs, tot_hi, tot_lo, fs);
+  if (t <= kMaxCarryTiles) {
     ds_tile_scan<K, kPair, kBatch><<<grid, kThreads, smem, st>>>(
-        in_hi, in_lo, n, cs, tot_hi, tot_lo, kCarryTotals, out, pack, fs,
-        part.sh);
+        in_hi, in_lo, n, cs, tot_hi, tot_lo, kCarryTotals, out, pack, fs);
     return;
   }
   // the totals' inclusive scan: hi, then lo, then the next level's scratch
-  float* inc = tot_lo + tiles * K;
-  scan_level<K, true, kBatch>(tot_hi, tot_lo, tiles, 1, inc, false,
-                              inc + 2 * tiles * K, st, nb,
+  float* inc = tot_lo + t * K;
+  scan_level<K, true, kBatch>(tot_hi, tot_lo, t, 1, inc, false,
+                              inc + 2 * t * K, st, nb,
                               Frames{fs.tot, fs.tot, fs.tot});
   ds_tile_scan<K, kPair, kBatch><<<grid, kThreads, smem, st>>>(
-      in_hi, in_lo, n, cs, inc, inc + tiles * K, kCarryScanned, out, pack,
-      fs, part.sh);
+      in_hi, in_lo, n, cs, inc, inc + t * K, kCarryScanned, out, pack, fs);
 }
 
 // Shared memory of a wide block: one staged column block a staged input.
@@ -1565,40 +2016,35 @@ template <bool kPair, bool kBatch>
 void wide_level(const float* in_hi, const float* in_lo, long long n, int ncol,
                 long long rs, long long cs, float* out_hi, float* out_lo,
                 long long ors, long long ocs, float* zero_row, float* scratch,
-                cudaStream_t st, int nb, Frames fs,
-                const Part& part = kWholeScan) {
+                cudaStream_t st, int nb, Frames fs) {
   const size_t smem = wide_stage_bytes<kPair, kBatch>();
   const long long t = (n + kTile - 1) / kTile;
-  const long long tiles = part.tiles < 0 ? t : part.tiles;
   const dim3 grid((unsigned)(t * ((ncol + kWide - 1) / kWide)), 1,
                   (unsigned)nb);
-  float* tot_hi = scratch;
-  if ((part.passes & kTotalsPass) && tiles > 1)
-    ds_wide_total<kPair, kBatch><<<grid, kThreads, smem, st>>>(
-        in_hi, in_lo, n, ncol, rs, cs, tot_hi, tot_hi + t * ncol, fs,
-        part.sh);
-  if (!(part.passes & kScanPass)) return;
-  if (tiles <= 1) {
+  if (t <= 1) {
     ds_wide_scan<kPair, kBatch><<<grid, kThreads, smem, st>>>(
         in_hi, in_lo, n, ncol, rs, cs, nullptr, nullptr, kCarryNone, out_hi,
-        out_lo, ors, ocs, zero_row, fs, part.sh);
+        out_lo, ors, ocs, zero_row, fs);
     return;
   }
-  float* tot_lo = tot_hi + tiles * ncol;
-  if (tiles <= kMaxCarryTiles) {
+  float* tot_hi = scratch;
+  float* tot_lo = tot_hi + t * ncol;
+  ds_wide_total<kPair, kBatch><<<grid, kThreads, smem, st>>>(
+      in_hi, in_lo, n, ncol, rs, cs, tot_hi, tot_lo, fs);
+  if (t <= kMaxCarryTiles) {
     ds_wide_scan<kPair, kBatch><<<grid, kThreads, smem, st>>>(
         in_hi, in_lo, n, ncol, rs, cs, tot_hi, tot_lo, kCarryTotals, out_hi,
-        out_lo, ors, ocs, zero_row, fs, part.sh);
+        out_lo, ors, ocs, zero_row, fs);
     return;
   }
-  float* inc = tot_lo + tiles * ncol;
-  wide_level<true, kBatch>(tot_hi, tot_lo, tiles, ncol, ncol, 1, inc,
-                           inc + tiles * ncol, ncol, 1, nullptr,
-                           inc + 2 * tiles * ncol, st, nb,
+  float* inc = tot_lo + t * ncol;
+  wide_level<true, kBatch>(tot_hi, tot_lo, t, ncol, ncol, 1, inc,
+                           inc + t * ncol, ncol, 1, nullptr,
+                           inc + 2 * t * ncol, st, nb,
                            Frames{fs.tot, fs.tot, fs.tot});
   ds_wide_scan<kPair, kBatch><<<grid, kThreads, smem, st>>>(
-      in_hi, in_lo, n, ncol, rs, cs, inc, inc + tiles * ncol, kCarryScanned,
-      out_hi, out_lo, ors, ocs, zero_row, fs, part.sh);
+      in_hi, in_lo, n, ncol, rs, cs, inc, inc + t * ncol, kCarryScanned,
+      out_hi, out_lo, ors, ocs, zero_row, fs);
 }
 
 // The launches of one scan over nb frames of n rows and k columns (element
@@ -1607,23 +2053,22 @@ void wide_level(const float* in_hi, const float* in_lo, long long n, int ncol,
 template <bool kBatch>
 int launch_scan(const float* x, long long n, int k, long long rs,
                 long long cs, bool pack, float* out, float* scratch,
-                cudaStream_t st, int nb, Frames fs,
-                const Part& part = kWholeScan) {
+                cudaStream_t st, int nb, Frames fs) {
   if (k > kWide) {
     // hi keeps x's strides; the pack's hi starts at row 1, its lo k after
     if (pack)
       wide_level<false, kBatch>(x, nullptr, n, k, rs, cs, out + 2 * k,
                                 out + 3 * k, 2 * k, 1, out, scratch, st, nb,
-                                fs, part);
+                                fs);
     else
       wide_level<false, kBatch>(x, nullptr, n, k, rs, cs, out, out + n * k,
-                                rs, cs, nullptr, scratch, st, nb, fs, part);
+                                rs, cs, nullptr, scratch, st, nb, fs);
     return static_cast<int>(cudaGetLastError());
   }
 #define DS_SCAN_CASE(K)                                                   \
   case K:                                                                 \
     scan_level<K, false, kBatch>(x, nullptr, n, cs, out, pack, scratch, st, \
-                                 nb, fs, part);                           \
+                                 nb, fs);                                 \
     break;
   switch (k) {
     DS_SCAN_CASE(1)
@@ -1637,6 +2082,136 @@ int launch_scan(const float* x, long long n, int k, long long rs,
   }
 #undef DS_SCAN_CASE
   return static_cast<int>(cudaGetLastError());
+}
+
+
+// Shared memory of the sharded entry's blocks, the opt-in made on each
+// device's first launch there.
+template <int K>
+size_t shard_total_bytes() {
+  const size_t bytes = sizeof(float) * stage_floats(K);
+  static std::atomic<uint64_t> raised{0};
+  int dev = -1;
+  if (bytes > 48 * 1024 && needs_raise(raised, &dev)) {
+    cudaFuncSetAttribute(ds_shard_total<K>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)bytes);
+    mark_raised(raised, dev);
+  }
+  return bytes;
+}
+
+template <int K>
+size_t shard_scan_bytes() {
+  const size_t bytes = sizeof(float) * shard_scan_floats<K>();
+  static std::atomic<uint64_t> raised{0};
+  int dev = -1;
+  if (needs_raise(raised, &dev)) {
+    cudaFuncSetAttribute(ds_shard_scan<K>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)bytes);
+    cudaFuncSetAttribute(ds_shard_scan<K>,
+                         cudaFuncAttributePreferredSharedMemoryCarveout,
+                         cudaSharedmemCarveoutMaxShared);
+    mark_raised(raised, dev);
+  }
+  return bytes;
+}
+
+size_t shard_wide_bytes() {
+  const size_t bytes = sizeof(float) * kWideStage;
+  static std::atomic<uint64_t> raised{0};
+  int dev = -1;
+  if (needs_raise(raised, &dev)) {
+    for (const void* f : {(const void*)ds_shard_wide_total,
+                          (const void*)ds_shard_wide_scan}) {
+      cudaFuncSetAttribute(f, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)bytes);
+      cudaFuncSetAttribute(f, cudaFuncAttributePreferredSharedMemoryCarveout,
+                           cudaSharedmemCarveoutMaxShared);
+    }
+    mark_raised(raised, dev);
+  }
+  return bytes;
+}
+
+// A persistent kernel's grid on the current device: as many blocks of
+// `kernel` as its SMs hold at once (kept per kernel and device, up to 64).
+template <class F>
+long long persistent_grid(F kernel, size_t smem, std::atomic<int> (&grid)[64]) {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) dev = 64;
+  if (dev < 64 && grid[dev].load() > 0) return grid[dev].load();
+  int sms = 0, per = 0;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                         dev < 64 ? dev : 0);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kernel, kThreads, smem);
+  const int g = max(1, sms) * max(1, per);
+  if (dev < 64) grid[dev].store(g);
+  return g;
+}
+
+// The carries' source for pass 2 over the whole's T tiles, frames fs apart
+// in the scratch (the totals at its front): none for one tile, the totals
+// up to kMaxCarryTiles, else their inclusive scan, made here once for the
+// device as the whole scan makes it.
+struct Carries {
+  const float *hi, *lo;
+  int carry;
+};
+
+template <int K>
+Carries shard_carries(float* scratch, long long T, int ncol, long long nb,
+                      long long fs, cudaStream_t st) {
+  if (T <= 1) return {nullptr, nullptr, kCarryNone};
+  float* tot_hi = scratch;
+  float* tot_lo = scratch + T * ncol;
+  if (T <= kMaxCarryTiles) return {tot_hi, tot_lo, kCarryTotals};
+  float* inc = tot_lo + T * ncol;
+  if constexpr (K > kWide)
+    wide_level<true, true>(tot_hi, tot_lo, T, ncol, ncol, 1, inc,
+                           inc + T * ncol, ncol, 1, nullptr,
+                           inc + 2 * T * ncol, st, (int)nb, Frames{fs, fs, fs});
+  else
+    scan_level<K, true, true>(tot_hi, tot_lo, T, 1, inc, false,
+                              inc + 2 * T * ncol, st, (int)nb,
+                              Frames{fs, fs, fs});
+  return {inc, inc + T * ncol, kCarryScanned};
+}
+
+// One pass of the sharded entry on a device's table: pass 1 (totals into
+// the scratch) or pass 2 (the carries, then the scan).
+template <int K>
+void shard_pass(int pass, const Table& tab, long long nb, float* scratch,
+                long long fs, cudaStream_t st) {
+  if (pass == 1) {
+    const dim3 grid((unsigned)tab.local, 1, (unsigned)nb);
+    const size_t smem = shard_total_bytes<K>();
+    ds_shard_total<K><<<grid, kThreads, smem, st>>>(tab, scratch, fs);
+    return;
+  }
+  static std::atomic<int> grids[64];
+  const Carries c = shard_carries<K>(scratch, tab.tiles, K, nb, fs, st);
+  const size_t smem = shard_scan_bytes<K>();
+  const long long grid =
+      min(nb * tab.local, persistent_grid(ds_shard_scan<K>, smem, grids));
+  ds_shard_scan<K><<<(unsigned)grid, kThreads, smem, st>>>(tab, c.hi, c.lo,
+                                                           c.carry, fs, nb);
+}
+
+void shard_wide_pass(int pass, const Table& tab, int ncol, long long nb,
+                     float* scratch, long long fs, cudaStream_t st) {
+  const size_t smem = shard_wide_bytes();
+  const dim3 grid((unsigned)(tab.local * ((ncol + kWide - 1) / kWide)), 1,
+                  (unsigned)nb);
+  if (pass == 1) {
+    ds_shard_wide_total<<<grid, kThreads, smem, st>>>(tab, ncol, scratch, fs);
+    return;
+  }
+  const Carries c =
+      shard_carries<kWide + 1>(scratch, tab.tiles, ncol, nb, fs, st);
+  ds_shard_wide_scan<<<grid, kThreads, smem, st>>>(tab, ncol, c.hi, c.lo,
+                                                    c.carry, fs);
 }
 
 }  // namespace
@@ -1720,71 +2295,59 @@ int ds_cumsum_batched_f32(const float* x, long long b, long long n, int k,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The sharded entry: one matrix (or a stack of b frames of one shape)
-// whose rows lie in shards, scanned shard by shard to the bits of the
-// single (batched) entry on the whole. Tile t of the whole is owned by the
-// shard that holds its first row, 2048 * t. A shard runs pass 1 on the
-// tiles it owns (ds_shard_totals_f32); the caller gathers every shard's
-// totals into the whole's (T, k) totals, in tile order, at the front of each
-// shard's scratch; the shard's pass 2 (ds_shard_scan_f32) then combines for
-// its global tile tile0 + i exactly the totals that block of the whole scan
-// combines (or, past 2048 tiles, scans them by the same recursive
-// procedure first), so its rows come out bitwise. A shard's last owned tile
-// may run into the following shards: its rows (the shard's own, then the
-// halo of fewer than 2048 rows from the next shards) come in a tail buffer,
-// and its pack rows go out to a tail buffer, from which the caller returns
-// the halo's rows to the shards that hold them. Rows before a shard's first
-// owned tile, and its pack's leading row (the inclusive prefix at the row
-// before its first, zeros for the first shard), come from the shards
-// before it. Pack output only.
-//
-// Bound on the card, per shard: bytes, 4 n k read and 8 n k written for its
-// n rows, plus the halo's rows twice (in the tail, out of it) and the
-// (T, k) totals; the recursion over the totals past 2048 tiles is
-// repeated on every shard.
-//
-// x: the shard's first owned row, frames x_fs floats apart; n: the rows of
-// its owned tiles (own rows from x and the tail's rows); tail: the last
-// tile's rows, frames tail_fs apart, or null where that tile ends inside
-// the shard. tiles: the whole matrix's tile count. ds_shard_totals_f32
-// writes frame z's (t, k) totals hi, then lo, at tot + 2 * z * t * k.
-// ds_shard_scan_f32 writes frame z's pack rows from out + z * out_fs (out:
-// the shard pack's leading row, shifted by the rows before the first owned
-// tile, where the pack's zero row goes for global tile 0) and the tail's
-// rows at tail_out + z * tail_out_fs; its scratch holds scratch_fs >=
-// scratch_tiles(tiles, k) floats a frame. Both launch on `stream`, do not
-// synchronise, and return cudaGetLastError() after the launches, or without
-// launching -1 for k < 1, -3 for too little scratch, -4 for a frame count
-// outside [1, 65535].
-int ds_shard_totals_f32(const float* x, long long b, long long x_fs,
-                        long long n, int k, long long tiles,
-                        const float* tail, long long tail_fs, float* tot,
-                        void* stream) {
-  if (k < 1) return -1;
-  if (b < 1 || b > 65535) return -4;
-  const long long t = (n + kTile - 1) / kTile;
-  return launch_scan<true>(x, n, k, k, 1, true, nullptr, tot,
-                           static_cast<cudaStream_t>(stream), (int)b,
-                           Frames{x_fs, 2 * t * k, 0},
-                           Part{Shard{0, tail, nullptr, tail_fs, 0}, tiles,
-                                kTotalsPass});
-}
-
-int ds_shard_scan_f32(const float* x, long long b, long long x_fs,
-                      long long n, int k, long long tile0, long long tiles,
-                      const float* tail, long long tail_fs, float* out,
-                      long long out_fs, float* tail_out,
-                      long long tail_out_fs, float* scratch,
+// The sharded entry (see "The sharded entry" above): one pass on one
+// device's table, for b frames of k columns. meta: 8 int64 a segment
+// (start, rows, in_fs, out_fs, tile0, tiles, local0, lead), ptrs: 3
+// pointers a segment (in, out, lead, null where the device does not write
+// the leading row); n rows and `tiles` tiles of the whole, `local` owned
+// here. Pass 1 writes the owned tiles' totals into scratch (scratch_fs >=
+// scratch_tiles(tiles, k) floats a frame, the totals at its front); pass 2,
+// once every total is there, scans the owned tiles (first scanning the
+// totals past kMaxCarryTiles tiles). Launches on `stream`, does not
+// synchronise, and returns cudaGetLastError() after the launches (none for
+// a device without owned tiles, nor pass 1 of a single tile), or without
+// launching -1 for k < 1, -2 for a pass other than 1 or 2, -3 for too
+// little scratch, -4 for a frame count outside [1, 65535], -5 for a table
+// outside [1, kMaxSegs] segments.
+int ds_shard_pass_f32(int pass, const long long* meta, void* const* ptrs,
+                      int nseg, long long n, long long tiles, long long local,
+                      int k, long long b, float* scratch,
                       long long scratch_fs, void* stream) {
   if (k < 1) return -1;
+  if (pass != 1 && pass != 2) return -2;
   if (b < 1 || b > 65535) return -4;
-  if (scratch_fs < scratch_tiles(tiles, k)) return -3;
-  return launch_scan<true>(x, n, k, k, 1, true, out, scratch,
-                           static_cast<cudaStream_t>(stream), (int)b,
-                           Frames{x_fs, scratch_fs, out_fs},
-                           Part{Shard{tile0, tail, tail_out, tail_fs,
-                                      tail_out_fs},
-                                tiles, kScanPass});
+  if (nseg < 1 || nseg > kMaxSegs) return -5;
+  if (local > 0 && scratch_fs < scratch_tiles(tiles, k)) return -3;
+  if (local == 0 || (pass == 1 && tiles <= 1)) return 0;
+  Table tab{n, tiles, local, nseg, {}};
+  for (int s = 0; s < nseg; ++s) {
+    const long long* m = meta + 8 * s;
+    tab.seg[s] = Seg{m[0], m[1], m[2], m[3], m[4], m[5], m[6],
+                     static_cast<const float*>(ptrs[3 * s]),
+                     static_cast<float*>(ptrs[3 * s + 1]),
+                     static_cast<float*>(ptrs[3 * s + 2])};
+  }
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (k > kWide) {
+    shard_wide_pass(pass, tab, k, b, scratch, scratch_fs, st);
+    return static_cast<int>(cudaGetLastError());
+  }
+#define DS_SHARD_CASE(K)                                  \
+  case K:                                                 \
+    shard_pass<K>(pass, tab, b, scratch, scratch_fs, st); \
+    break;
+  switch (k) {
+    DS_SHARD_CASE(1)
+    DS_SHARD_CASE(2)
+    DS_SHARD_CASE(3)
+    DS_SHARD_CASE(4)
+    DS_SHARD_CASE(5)
+    DS_SHARD_CASE(6)
+    DS_SHARD_CASE(7)
+    DS_SHARD_CASE(8)
+  }
+#undef DS_SHARD_CASE
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

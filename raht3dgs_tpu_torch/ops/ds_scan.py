@@ -24,11 +24,12 @@ for bit. Up to 8 columns and 2 to 2048 tiles a frame, that is one pass
 over the stack: each block takes its tile from a ticket counter, reads it
 once, publishes its total and combines the totals of the tiles before it
 in the single entry's fixed order. :func:`ds_prefix_pack_sharded`
-scans a matrix or a stack whose rows lie in shards on several devices
-(``parallel/sp_span.py``'s sp axis), each shard its own tiles, with only
-halos, tile totals and leading rows crossing; every shard's pack is its
-rows of the unsharded pack, bit for bit (the plain version's, of the plain
-pack).
+scans a matrix or a stack whose rows lie in shards on one device or
+several (``parallel/sp_span.py``'s sp axis): one launch a pass a device
+over all its shards' tiles, by a plan cached per layout
+(:func:`scan_plan`), with only halos, tile totals, returned rows and
+leading rows moving between devices; every shard's pack is its rows of the
+unsharded pack, bit for bit (the plain version's, of the plain pack).
 
 Both the kernel and :func:`ds_cumsum_reference` keep ~48 mantissa bits
 (error-free two-sum) and give exact results for integer-valued lanes whose
@@ -38,7 +39,10 @@ between the two, so float lanes agree to ~1e-12 relative, not bitwise.
 
 from __future__ import annotations
 
+import bisect
 import ctypes
+import functools
+import math
 import os
 from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -58,11 +62,8 @@ def _configure(lib: ctypes.CDLL) -> None:
     lib.ds_cumsum_f32.restype = i32
     lib.ds_cumsum_batched_f32.argtypes = [vp, ll, ll, i32, i32, vp, vp, ll, vp]
     lib.ds_cumsum_batched_f32.restype = i32
-    lib.ds_shard_totals_f32.argtypes = [vp, ll, ll, ll, i32, ll, vp, ll, vp, vp]
-    lib.ds_shard_totals_f32.restype = i32
-    lib.ds_shard_scan_f32.argtypes = [vp, ll, ll, ll, i32, ll, ll, vp, ll, vp, ll, vp, ll,
-                                      vp, ll, vp]
-    lib.ds_shard_scan_f32.restype = i32
+    lib.ds_shard_pass_f32.argtypes = [i32, vp, vp, i32, ll, ll, ll, i32, ll, vp, ll, vp]
+    lib.ds_shard_pass_f32.restype = i32
 
 
 KERNEL = NativeLib(_SRC, "libds_scan.so", _configure, nvcc_command)
@@ -363,17 +364,19 @@ def ds_prefix_pack_batched(x: torch.Tensor) -> torch.Tensor:
 
 # -- the sharded entry: a matrix (or stack) whose rows lie in shards ----------
 #
-# Shard j holds rows [a_j, a_j + n_j) of an N-row matrix, each shard on its
-# own device. Tile t (``tile`` rows: the kernel's TILE, the plain version's
-# PLAIN_BLOCK) is owned by the shard that holds its first row. A shard
-# receives the rows of its last owned tile that lie in the shards after it
-# (its halo, fewer than ``tile``), computes its owned tiles' totals, takes
-# every shard's totals (T x K x (hi, lo)), scans its tiles with the carries
-# of the whole scan, and sends the halo's scanned rows back. Only halos,
-# totals, returned rows and each shard's leading pack row cross; ``send``
-# moves them (and counts them, for a caller that tallies the exchange).
-# Both versions give, on every shard, the bits of the unsharded call on the
-# whole matrix.
+# Shard j holds rows [a_j, a_j + n_j) of an N-row matrix; several shards may
+# lie on one device. Tile t (``tile`` rows: the kernel's TILE, the plain
+# version's PLAIN_BLOCK) is owned by the shard that holds its first row; its
+# rows past that shard (the halo, fewer than ``tile``) are the first rows of
+# the shards after it. The unit of work is the device: each runs pass 1 (its
+# shards' owned tiles' totals, written at their global index into one
+# totals buffer) and pass 2 (those tiles scanned with the carries of the
+# whole scan, every row written into the pack of the shard that holds it,
+# and the leading row of each shard whose row before lies in one of them)
+# once per call, over all its shards. Between devices only received halos,
+# totals, returned rows and leading rows move (:func:`scan_plan`); between
+# co-resident shards nothing does. Both versions give, on every shard, the
+# bits of the unsharded call on the whole.
 
 
 class ShardPlan(NamedTuple):
@@ -415,92 +418,311 @@ def halo(xs: Sequence[torch.Tensor], plans: Sequence[ShardPlan], j: int,
     return parts
 
 
-def _sharded_pack(xs, tile: int, pass1, pass2, send) -> List[torch.Tensor]:
-    """The exchange and bookkeeping of both versions of the sharded pack.
-    ``xs`` are (B, n_j, K) float32. ``pass1(x, plan, grid_tail, T)`` gives
-    a shard's (B, 2, tiles, K) totals and a state; ``pass2(x, plan,
-    grid_tail, T, totals, state)`` its (B, n_j + 1, 2K) pack with the rows
-    of its owned tiles inside the shard written, and the scanned rows from
-    global row ``first`` on as (first, (B, r, 2K)), r covering the halo."""
-    plans = shard_plan([x.shape[1] for x in xs], tile)
-    N = sum(p.rows for p in plans)
+class Segment(NamedTuple):
+    """Rows [start, start + rows) of the whole as one device holds them:
+    its own shard's rows, or (``received``) the first rows of another
+    device's shard that one of its tiles runs into, read from and written to
+    buffers of their own."""
+    shard: int
+    start: int
+    rows: int
+    received: bool
+    tile0: int      # tiles [tile0, tile0 + tiles) of the whole that the shard owns
+    tiles: int
+    local0: int     # the device's index of the first of them
+    writes_lead: bool  # the device writes the shard's leading pack row in pass 2
+    in_fs: int      # floats between frames of the segment's input and of its pack rows
+    out_fs: int
+
+
+class DeviceGroup(NamedTuple):
+    """One device's part of a sharded scan: its shards, its segments in row
+    order, the tiles it owns (each pass's blocks), the totals of other
+    devices' tiles it receives, as (group, t0, t1) ranges, and its one
+    allocation: each shard's pack, each received segment's input and pack
+    rows, then the scratch (16-byte aligned offsets, in floats)."""
+    shards: Tuple[int, ...]
+    segments: Tuple[Segment, ...]
+    tiles: int
+    totals_in: Tuple[Tuple[int, int, int], ...]
+    pack_at: Tuple[int, ...]        # per shard of ``shards``
+    seg_in_at: Tuple[int, ...]      # per segment (received ones; -1 otherwise)
+    seg_out_at: Tuple[int, ...]
+    scratch_at: int
+    floats: int
+    table: object                   # the kernel's segment table, 8 int64 a segment
+
+
+class Crossing(NamedTuple):
+    """A piece counted as crossing from shard ``src`` to shard ``dst``:
+    "halo" (src's first ``size`` rows), "totals" (the totals of src's
+    ``size`` owned tiles), "back" (dst's first ``size`` rows scanned in
+    src's tile) or "lead" (dst's leading row, src's last pack row)."""
+    kind: str
+    src: int
+    dst: int
+    size: int
+
+
+class ScanPlan(NamedTuple):
+    """A sharded scan's plan (:func:`scan_plan`)."""
+    shards: Tuple[ShardPlan, ...]
+    n: int
+    T: int
+    frames: int
+    k: int
+    scratch: int                      # floats of scratch a frame on each device
+    group_of: Tuple[int, ...]         # each shard's device group
+    groups: Tuple[DeviceGroup, ...]
+    lead_copies: Tuple[int, ...]      # shards whose leading row is copied, in order
+    crossings: Tuple[Crossing, ...]
+    sent_bytes: int
+
+
+def _up4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+@functools.lru_cache(maxsize=256)
+def scan_plan(sizes: Tuple[int, ...], keys: Tuple, tile: int, frames: int, k: int,
+              scratch: int) -> ScanPlan:
+    """The plan of a sharded scan of ``frames`` frames of ``k`` columns
+    over shards of ``sizes`` rows whose devices have the keys ``keys``
+    (equal keys: one device), with ``scratch`` floats a frame of scratch
+    on each device that owns a tile: which device scans which tile, the
+    segments of rows each reads and writes, the totals and rows that move
+    between devices, which leading rows are copied, what is counted as
+    crossing between shards and its bytes. A pure function, cached."""
+    plans = shard_plan(sizes, tile)
+    N = sum(sizes)
     T = -(-N // tile)
-    # the last owned tile's rows, own then halo (the halo: the next shards'
-    # first rows)
-    tails = []
-    for j, (x, p) in enumerate(zip(xs, plans)):
-        last = (p.tile0 + p.tiles - 1) * tile - p.start
-        tails.append(torch.cat([x[:, last:]] + halo(xs, plans, j, send), dim=1).contiguous()
-                     if p.halo else None)
+    S = len(sizes)
+    index, group_of = {}, []
+    for key in keys:
+        group_of.append(index.setdefault(key, len(index)))
     owners = [j for j, p in enumerate(plans) if p.tiles]
-    states = {j: pass1(xs[j], plans[j], tails[j], T) for j in owners}
-    packs = [None] * len(xs)
-    spill = []
+    starts = [plans[j].tile0 for j in owners]
+
+    def owner(t: int) -> int:
+        return owners[bisect.bisect_right(starts, t) - 1]
+
+    # a shard's leading row is pass 2's where the tile of its row before
+    # (tile 0 for the first rows: the zero row) is scanned on its device
+    lead = [N > 0 and group_of[owner(max(p.start - 1, 0) // tile)] == group_of[j]
+            for j, p in enumerate(plans)]
+    groups = []
+    for gi in range(len(index)):
+        mine = tuple(j for j in range(S) if group_of[j] == gi)
+        segs = [(plans[j].start, plans[j].rows, j, False) for j in mine]
+        for j in mine:
+            need, q = plans[j].halo, j + 1
+            while need:
+                take = min(need, plans[q].rows)
+                if take and group_of[q] != gi:
+                    segs.append((plans[q].start, take, q, True))
+                need, q = need - take, q + 1
+        segs.sort(key=lambda s: (s[0], s[1] > 0, s[2]))
+        segments, local = [], 0
+        for start, rows, j, received in segs:
+            p = plans[j]
+            tiles = 0 if received else p.tiles
+            segments.append(Segment(j, start, rows, received, p.tile0 if tiles else 0, tiles,
+                                    local, lead[j] and not received,
+                                    rows * k if received else p.rows * k,
+                                    rows * 2 * k if received else (p.rows + 1) * 2 * k))
+            local += tiles
+        totals_in = []
+        if T > 1 and local:
+            for j in owners:
+                e, p = group_of[j], plans[j]
+                if e == gi:
+                    continue
+                if totals_in and totals_in[-1][0] == e and totals_in[-1][2] == p.tile0:
+                    totals_in[-1] = (e, totals_in[-1][1], p.tile0 + p.tiles)
+                else:
+                    totals_in.append((e, p.tile0, p.tile0 + p.tiles))
+        at = 0
+        pack_at = []
+        for j in mine:
+            pack_at.append(at)
+            at += _up4(frames * (plans[j].rows + 1) * 2 * k)
+        seg_in_at, seg_out_at = [], []
+        for s in segments:
+            if s.received:
+                seg_in_at.append(at)
+                at += _up4(frames * s.rows * k)
+                seg_out_at.append(at)
+                at += _up4(frames * s.rows * 2 * k)
+            else:
+                seg_in_at.append(-1)
+                seg_out_at.append(-1)
+        scratch_at = at
+        at += frames * scratch if local else 0
+        table = [v for s in segments for v in (s.start, s.rows, s.in_fs, s.out_fs, s.tile0,
+                                                s.tiles, s.local0, int(s.writes_lead))]
+        groups.append(DeviceGroup(mine, tuple(segments), local, tuple(totals_in),
+                                  tuple(pack_at), tuple(seg_in_at), tuple(seg_out_at),
+                                  scratch_at, at, (ctypes.c_longlong * len(table))(*table)))
+
+    crossings = []
     for j in owners:
-        x = xs[j]
-        totals = None
-        if T > 1:
-            totals = torch.cat([states[k][0] if k == j else send(states[k][0], x.device)
-                                for k in owners], dim=2)
-        packs[j], extra = pass2(x, plans[j], tails[j], T, totals, states[j][1])
-        spill.append((j,) + extra)
+        need, q = plans[j].halo, j + 1
+        while need:
+            take = min(need, plans[q].rows)
+            if take:
+                crossings.append(Crossing("halo", q, j, take))
+                crossings.append(Crossing("back", j, q, take))
+            need, q = need - take, q + 1
+    if T > 1:
+        crossings += [Crossing("totals", q, j, plans[q].tiles)
+                      for j in owners for q in owners if q != j]
+    crossings += [Crossing("lead", j - 1, j, 1) for j in range(1, S)]
+    per = {"halo": 1, "back": 2, "totals": 2, "lead": 2}
+    sent = sum(4 * frames * k * per[c.kind] * c.size for c in crossings)
+    return ScanPlan(tuple(plans), N, T, frames, k, scratch, tuple(group_of), tuple(groups),
+                    tuple(j for j in range(S) if not lead[j]), tuple(crossings), sent)
+
+
+class _Bufs(NamedTuple):
+    """One device's tensors in a call: per segment its input, its pack rows
+    (from the segment's first row) and its leading row (or None), and the
+    (frames, scratch) scratch."""
+    ins: list
+    outs: list
+    leads: list
+    scratch: torch.Tensor
+
+
+def _totals(plan: ScanPlan, scratch: torch.Tensor) -> torch.Tensor:
+    """The (frames, 2, T, K) tile totals at the front of a device's scratch."""
+    T, K = plan.T, plan.k
+    return scratch[:, :2 * T * K].view(plan.frames, 2, T, K)
+
+
+def _sharded_pack(xs, keys, tile: int, scratch: int, pass1, pass2, send) -> List[torch.Tensor]:
+    """The bookkeeping of both versions of the sharded pack, by
+    :func:`scan_plan`: ``xs`` are (B, n_j, K) float32, ``keys`` their
+    devices' keys. ``pass1(plan, g, bufs)`` writes the totals of device
+    group g's owned tiles into its scratch (and may return a state);
+    ``pass2(plan, g, bufs, state)`` writes the pack rows of its tiles into
+    the segments' outputs and the leading rows it owns. What moves between
+    devices is copied here; ``send(t, device)``, if given, is called with
+    every piece counted as crossing between shards."""
     B, K = xs[0].shape[0], xs[0].shape[2]
-    for j, (x, p) in enumerate(zip(xs, plans)):
-        if packs[j] is None:
-            packs[j] = x.new_empty((B, p.rows + 1, 2 * K))
-    # scanned rows of a tile that runs past its owner: back to their shards
-    for j, first, rows in spill:
-        for k, p in enumerate(plans):
-            lo, hi = max(first, p.start), min(first + rows.shape[1], p.start + p.rows)
-            if lo < hi:
-                part = rows[:, lo - first:hi - first]
-                packs[k][:, 1 + lo - p.start:1 + hi - p.start] = \
-                    part if k == j else send(part, packs[k].device)
-    # the leading rows: the inclusive prefix at the row before each shard
-    packs[0][:, 0] = 0.0
-    for j in range(1, len(packs)):
-        packs[j][:, 0] = send(packs[j - 1][:, -1], packs[j].device)
+    sizes = tuple(x.shape[1] for x in xs)
+    plan = scan_plan(sizes, tuple(keys), tile, B, K, scratch)
+    packs: List[Optional[torch.Tensor]] = [None] * len(xs)
+    bufs = []
+    for g in plan.groups:
+        x0 = xs[g.shards[0]]
+        buf = x0.new_empty(g.floats)
+
+        def view(at, *shape):
+            return buf[at:at + math.prod(shape)].view(*shape)
+
+        for j, at in zip(g.shards, g.pack_at):
+            packs[j] = view(at, B, sizes[j] + 1, 2 * K)
+        ins, outs, leads = [], [], []
+        for s, i_at, o_at in zip(g.segments, g.seg_in_at, g.seg_out_at):
+            if s.received:
+                ins.append(view(i_at, B, s.rows, K))
+                outs.append(view(o_at, B, s.rows, 2 * K))
+                leads.append(None)
+            else:
+                ins.append(xs[s.shard])
+                outs.append(packs[s.shard][:, 1:])
+                leads.append(packs[s.shard][:, 0] if s.writes_lead else None)
+        bufs.append(_Bufs(ins, outs, leads, view(g.scratch_at, B, scratch if g.tiles else 0)))
+    # rows that a device's tiles run into, from the shards' devices
+    for g, b in zip(plan.groups, bufs):
+        for s, t in zip(g.segments, b.ins):
+            if s.received:
+                t.copy_(xs[s.shard][:, :s.rows])
+    states = [pass1(plan, g, b) if g.tiles else None for g, b in zip(plan.groups, bufs)]
+    # every device's missing totals, one copy a contiguous range of tiles
+    for g, b in zip(plan.groups, bufs):
+        for e, t0, t1 in g.totals_in:
+            _totals(plan, b.scratch)[:, :, t0:t1].copy_(
+                _totals(plan, bufs[e].scratch)[:, :, t0:t1])
+    for g, b, st in zip(plan.groups, bufs, states):
+        if g.tiles:
+            pass2(plan, g, b, st)
+    # scanned rows back to the shards that hold them, then the leading rows
+    # that no pass 2 wrote, in shard order (an empty shard's is its only row)
+    for g, b in zip(plan.groups, bufs):
+        for s, t in zip(g.segments, b.outs):
+            if s.received:
+                packs[s.shard][:, 1:1 + s.rows].copy_(t)
+    for j in plan.lead_copies:
+        if j == 0:
+            packs[j][:, 0] = 0.0
+        else:
+            packs[j][:, 0].copy_(packs[j - 1][:, -1])
+    if send is not None:
+        for c in plan.crossings:
+            if c.kind == "halo":
+                t = xs[c.src][:, :c.size]
+            elif c.kind == "back":
+                t = packs[c.dst][:, 1:1 + c.size]
+            elif c.kind == "totals":
+                t0 = plan.shards[c.src].tile0
+                t = _totals(plan, bufs[plan.group_of[c.src]].scratch)[:, :, t0:t0 + c.size]
+            else:
+                t = packs[c.src][:, -1]
+            send(t, xs[c.dst].device)
     return packs
 
 
-def _plain_pass1(x, p: ShardPlan, tail, T: int):
-    B, _, K = x.shape
-    grid = x[:, p.lead:] if tail is None else torch.cat(
-        [x[:, p.lead:(p.tile0 + p.tiles - 1) * PLAIN_BLOCK - p.start], tail], dim=1)
-    m = grid.shape[1]
-    cols = grid.permute(1, 0, 2).reshape(m, B * K)
-    oh, ol = _block_scans(cols, torch.zeros_like(cols), PLAIN_BLOCK, T > 1)
-    tot = torch.stack([oh[:, -1], ol[:, -1]]).reshape(2, p.tiles, B, K).permute(2, 0, 1, 3)
-    return tot.contiguous(), (oh, ol, m)
+def _plain_rows(plan: ScanPlan, g: DeviceGroup, ins, s: Segment, tile: int):
+    """Owner segment s's tiles' rows, (B, m, K), read through the
+    segments that hold them, and their first row."""
+    lo = s.tile0 * tile
+    hi = min((s.tile0 + s.tiles) * tile, plan.n)
+    parts = [x[:, max(lo, t.start) - t.start:min(hi, t.start + t.rows) - t.start]
+             for t, x in zip(g.segments, ins)
+             if t.rows and t.start < hi and t.start + t.rows > lo]
+    return (parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)), lo
 
 
-def _plain_pass2(x, p: ShardPlan, tail, T: int, totals, state):
-    B, n, K = x.shape
-    oh, ol, m = state
+def _plain_pass1(plan: ScanPlan, g: DeviceGroup, b: _Bufs):
+    B, K, T = plan.frames, plan.k, plan.T
+    state = []
+    for s in g.segments:
+        if not s.tiles:
+            continue
+        grid, lo = _plain_rows(plan, g, b.ins, s, PLAIN_BLOCK)
+        m = grid.shape[1]
+        cols = grid.permute(1, 0, 2).reshape(m, B * K)
+        oh, ol = _block_scans(cols, torch.zeros_like(cols), PLAIN_BLOCK, T > 1)
+        if T > 1:
+            tot = torch.stack([oh[:, -1], ol[:, -1]]).reshape(2, s.tiles, B, K)
+            _totals(plan, b.scratch)[:, :, s.tile0:s.tile0 + s.tiles] = tot.permute(2, 0, 1, 3)
+        state.append((s, oh, ol, m, lo))
+    return state
+
+
+def _plain_pass2(plan: ScanPlan, g: DeviceGroup, b: _Bufs, state):
+    B, K, T = plan.frames, plan.k, plan.T
     if T > 1:
-        th = totals[:, 0].permute(1, 0, 2).reshape(T, B * K)
-        tl = totals[:, 1].permute(1, 0, 2).reshape(T, B * K)
-        ch, cl = _block_carries(th, tl, PLAIN_BLOCK)
-        sl = slice(p.tile0, p.tile0 + p.tiles)
-        oh, ol = _ds_add(ch[sl], cl[sl], oh, ol)
-    rows = [t.reshape(-1, B, K)[:m].permute(1, 0, 2) for t in (oh, ol)]
-    rows = torch.cat(rows, dim=2)                       # (B, m, 2K)
-    pack = x.new_empty((B, n + 1, 2 * K))
-    own = n - p.lead
-    pack[:, 1 + p.lead:] = rows[:, :own]
-    return pack, (p.start + n, rows[:, own:])
-
-
-def ds_prefix_pack_sharded_reference(xs: Sequence[torch.Tensor],
-                                     send: Optional[Callable] = None) -> List[torch.Tensor]:
-    """Plain PyTorch version of :func:`ds_prefix_pack_sharded` on any
-    device: the plain version's 256-row blocks owned and carried as the
-    kernel's tiles are, so each shard's pack is bitwise its rows of
-    :func:`ds_prefix_pack_reference` (:func:`ds_prefix_pack_batched_reference`)
-    on the whole."""
-    xs3, single = _as_stack(xs)
-    packs = _sharded_pack(xs3, PLAIN_BLOCK, _plain_pass1, _plain_pass2, send or _plain_send)
-    return [q[0] for q in packs] if single else packs
+        tot = _totals(plan, b.scratch)
+        th = tot[:, 0].permute(1, 0, 2).reshape(T, B * K)
+        tl = tot[:, 1].permute(1, 0, 2).reshape(T, B * K)
+        ch, cl = _block_carries(th, tl, PLAIN_BLOCK)    # once a device
+    for s, oh, ol, m, lo in state:
+        if T > 1:
+            sl = slice(s.tile0, s.tile0 + s.tiles)
+            oh, ol = _ds_add(ch[sl], cl[sl], oh, ol)
+        rows = torch.cat([t.reshape(-1, B, K)[:m].permute(1, 0, 2) for t in (oh, ol)], dim=2)
+        hi = lo + m
+        for t, out, lead in zip(g.segments, b.outs, b.leads):
+            a, e = max(lo, t.start), min(hi, t.start + t.rows)
+            if a < e:
+                out[:, a - t.start:e - t.start] = rows[:, a - lo:e - lo]
+            if lead is not None:
+                if t.start == 0 and s.tile0 == 0:
+                    lead.zero_()
+                elif lo <= t.start - 1 < hi:
+                    lead.copy_(rows[:, t.start - 1 - lo])
 
 
 def _as_stack(xs):
@@ -517,76 +739,78 @@ def _as_stack(xs):
     return xs3, single
 
 
-def _kernel_pass1(x, p: ShardPlan, tail, T: int):
-    B, n, K = x.shape
-    m = n - p.lead + p.halo
-    tot = x.new_empty((B, 2, p.tiles, K))
-    lib = KERNEL.load()
-    stream = torch._C._cuda_getCurrentRawStream(x.get_device())
-    rc = lib.ds_shard_totals_f32(x.data_ptr() + 4 * p.lead * K, B, n * K, m, K, T,
-                                 None if tail is None else tail.data_ptr(),
-                                 0 if tail is None else tail.shape[1] * K,
-                                 tot.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"ds_shard_totals_f32 launch failed (code {rc})")
-    return tot, None
+def ds_prefix_pack_sharded_reference(xs: Sequence[torch.Tensor],
+                                     send: Optional[Callable] = None,
+                                     keys: Optional[Sequence] = None) -> List[torch.Tensor]:
+    """Plain PyTorch version of :func:`ds_prefix_pack_sharded` on any
+    device: the plain version's 256-row blocks owned, carried and moved as
+    the kernel's tiles are, so each shard's pack is bitwise its rows of
+    :func:`ds_prefix_pack_reference` (:func:`ds_prefix_pack_batched_reference`)
+    on the whole. ``keys`` group the shards by device (default: their
+    devices); distinct keys on one device run the moves between devices as
+    copies there."""
+    xs3, single = _as_stack(xs)
+    keys = [x.device for x in xs3] if keys is None else list(keys)
+    if len(keys) != len(xs3):
+        raise ValueError(f"{len(keys)} device keys for {len(xs3)} shards")
+    B, N, K = xs3[0].shape[0], sum(x.shape[1] for x in xs3), xs3[0].shape[2]
+    T = -(-N // PLAIN_BLOCK)
+    packs = _sharded_pack(xs3, keys, PLAIN_BLOCK, 2 * T * K if T > 1 else 0,
+                          _plain_pass1, _plain_pass2, send)
+    return [q[0] for q in packs] if single else packs
 
 
-def _kernel_pass2(x, p: ShardPlan, tail, T: int, totals, state):
-    B, n, K = x.shape
-    m = n - p.lead + p.halo
-    need = scratch_floats(T * TILE, K)
-    scratch = x.new_empty((B, max(need, 1)))
-    if totals is not None:
-        scratch[:, :2 * T * K] = totals.reshape(B, 2 * T * K)
-    pack = x.new_empty((B, n + 1, 2 * K))
-    tail_out = None if tail is None else x.new_empty((B, tail.shape[1], 2 * K))
-    lib = KERNEL.load()
-    stream = torch._C._cuda_getCurrentRawStream(x.get_device())
-    rc = lib.ds_shard_scan_f32(
-        x.data_ptr() + 4 * p.lead * K, B, n * K, m, K, p.tile0, T,
-        None if tail is None else tail.data_ptr(), 0 if tail is None else tail.shape[1] * K,
-        pack.data_ptr() + 4 * p.lead * 2 * K, (n + 1) * 2 * K,
-        None if tail is None else tail_out.data_ptr(),
-        0 if tail is None else tail.shape[1] * 2 * K,
-        scratch.data_ptr(), scratch.shape[1], stream)
-    if rc != 0:
-        raise RuntimeError(f"ds_shard_scan_f32 launch failed (code {rc})")
-    LAUNCHES["ds_cumsum_sharded"] += 1
-    if tail is None:
-        return pack, (p.start + n, pack[:, :0])
-    return pack, ((p.tile0 + p.tiles - 1) * TILE, tail_out)
-
-
-def _kernel_pass(fn):
-    """``fn`` with the shard's device current (the kernels' shared-memory
-    opt-in binds to the current device)."""
-    def run(x, *args):
-        with torch.cuda.device(x.device):
-            return fn(x, *args)
+def _kernel_pass(which: int):
+    """Pass ``which`` (1: totals, 2: scan) of the kernel's sharded entry on
+    one device group: its shards' tiles in one launch (pass 2 of more than
+    MAX_CARRY_TILES tiles first scans the totals), on its device's current
+    stream with that device current."""
+    def run(plan: ScanPlan, g: DeviceGroup, b: _Bufs, state=None):
+        x = b.ins[0]
+        if x.get_device() != torch.cuda.current_device():
+            with torch.cuda.device(x.device):
+                return run(plan, g, b, state)
+        lib = KERNEL.load()
+        n = len(g.segments)
+        ptrs = []
+        for i, o, lead in zip(b.ins, b.outs, b.leads):
+            ptrs += [i.data_ptr(), o.data_ptr(), None if lead is None else lead.data_ptr()]
+        stream = torch._C._cuda_getCurrentRawStream(x.get_device())
+        rc = lib.ds_shard_pass_f32(which, g.table, (ctypes.c_void_p * (3 * n))(*ptrs), n,
+                                   plan.n, plan.T, g.tiles, plan.k, plan.frames,
+                                   b.scratch.data_ptr(), plan.scratch, stream)
+        if rc != 0:
+            raise RuntimeError(f"ds_shard_pass_f32 pass {which} launch failed (code {rc})")
+        if which == 2:
+            LAUNCHES["ds_cumsum_sharded"] += 1
     return run
 
 
 def ds_prefix_pack_sharded(xs: Sequence[torch.Tensor],
                            send: Optional[Callable] = None) -> List[torch.Tensor]:
     """The prefix pack of a matrix (or a stack of frames) whose rows lie in
-    shards, each shard on its own device: ``xs`` the shards in row order,
-    each (n_j, K) or (B, n_j, K) float32 and contiguous. Returns each
-    shard's (n_j + 1, 2K) or (B, n_j + 1, 2K) pack: the inclusive prefix at
-    the row before its first (zeros for the first shard), then its rows
-    ``[hi | lo]``, bitwise rows a_j .. a_j + n_j of :func:`ds_prefix_pack`
-    (:func:`ds_prefix_pack_batched`) on the whole. ``send(t, device)`` moves
-    what crosses between shards (``t.to(device)`` by default): for F frames
-    of K columns over S shards, 4FK (3H + 2(O - 1)T + 2(S - 1)) bytes, H the
-    halo rows (in, and their [hi | lo] rows back), O the shards that own a
-    tile and T the tiles (every owner takes the others' (hi, lo) totals;
-    nothing for one tile), and each shard's leading row. Tiles are TILE rows
-    on the card, PLAIN_BLOCK in the plain version.
+    shards: ``xs`` the shards in row order, each (n_j, K) or (B, n_j, K)
+    float32 and contiguous, on one device or several (any order; a device
+    may hold several shards). Returns each shard's (n_j + 1, 2K) or (B,
+    n_j + 1, 2K) pack: the inclusive prefix at the row before its first
+    (zeros for the first shard), then its rows ``[hi | lo]``, bitwise rows
+    a_j .. a_j + n_j of :func:`ds_prefix_pack` (:func:`ds_prefix_pack_batched`)
+    on the whole. ``send(t, device)``, if given, is called with every piece
+    that crosses between two shards, whether or not they share a device,
+    and the destination shard's device (its result is not used): for F
+    frames of K columns over S shards, 4FK (3H + 2(O - 1)T + 2(S - 1))
+    bytes, H the halo rows (in, and their [hi | lo] rows back), O the
+    shards that own a tile and T the tiles (every owner takes the others'
+    (hi, lo) totals; nothing for one tile), and each shard's leading row.
+    Tiles are TILE rows on the card, PLAIN_BLOCK in the plain version.
 
-    CUDA shards run the kernel's sharded entry (pass 1 and pass 2 of
-    ``csrc/ds_scan.cu`` a shard, each shard's launches on its device's
-    current stream; a shard's two passes count as one launch); CPU shards
-    the plain version. A mix of the two raises."""
+    CUDA shards run the kernel's sharded entry: per device, one launch of
+    pass 1 and one of pass 2 over all its shards' tiles (counted as one
+    launch), on that device's current stream, for at most 32 segments a
+    device (its shards and the halos it receives); between devices, one
+    copy per received halo, contiguous range of totals, returned halo and
+    leading row, each stream-ordered by PyTorch's copy between devices.
+    CPU shards run the plain version. A mix of the two raises."""
     xs3, single = _as_stack(xs)
     kinds = {x.device.type for x in xs3}
     if kinds == {"cpu"}:
@@ -599,8 +823,10 @@ def ds_prefix_pack_sharded(xs: Sequence[torch.Tensor],
         if x.shape[0] > MAX_FRAMES:
             raise ValueError(f"batched ds scan takes at most {MAX_FRAMES} frames, got "
                              f"{x.shape[0]}")
-    if xs3[0].shape[2] < 1:
+    B, K = xs3[0].shape[0], xs3[0].shape[2]
+    if K < 1:
         raise ValueError("ds scan kernel takes at least one column, got 0")
-    packs = _sharded_pack(xs3, TILE, _kernel_pass(_kernel_pass1),
-                          _kernel_pass(_kernel_pass2), send or _plain_send)
+    N = sum(x.shape[1] for x in xs3)
+    packs = _sharded_pack(xs3, [x.device for x in xs3], TILE, scratch_floats(N, K),
+                          _kernel_pass(1), _kernel_pass(2), send)
     return [q[0] for q in packs] if single else packs

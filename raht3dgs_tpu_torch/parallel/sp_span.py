@@ -86,9 +86,14 @@ class SpGroup:
 
     def send(self, t: torch.Tensor, dev: torch.device) -> torch.Tensor:
         """``t`` moved to ``dev``, its bytes counted as crossing."""
+        return self.count(t, dev).to(dev)
+
+    def count(self, t: torch.Tensor, dev: torch.device) -> torch.Tensor:
+        """``t``'s bytes counted as crossing to ``dev``, for a piece that
+        its receiver moves itself (the sharded scan's)."""
         self.counts["sp_exchange_bytes"] = (self.counts.get("sp_exchange_bytes", 0)
                                             + t.numel() * t.element_size())
-        return t.to(dev)
+        return t
 
     def on(self, j: int):
         """Shard j's device made current."""
@@ -274,7 +279,7 @@ def packs(grp: SpGroup, bodies: list, use_ds: bool) -> list:
     n_j] (float32 [hi | lo] through the sharded scan, or float64)."""
     if use_ds:
         return ds_prefix_pack_sharded([b.to(torch.float32).contiguous() for b in bodies],
-                                      send=grp.send)
+                                      send=grp.count)
     return _cumsum_carry(grp, [b.to(torch.float64) for b in bodies])
 
 

@@ -19,7 +19,12 @@ at (2^19, 4), ``ds_cumsum_t`` at (1, 2^19); and the wide path's (K > 8):
 weight lane last) and (2e6, 60) (the Gaussian merge's prefix segment
 sums), ``ds_cumsum_t`` at (57, 2^19); and the batched entry at the
 dataset path's shapes: ``ds_prefix_pack_batched`` at (4, 2^20, 4) and
-``ds_cumsum_batched`` at (4, 2^20, 1). For each: the wrapper's time (CUDA
+``ds_cumsum_batched`` at (4, 2^20, 1); and the sharded entry
+``ds_prefix_pack_sharded`` at (2^21, 4) and (2^21, 1) in 4 row shards on
+``cuda:0`` (the J=21 frame's pack and weight scans over sp=4), whose
+device time counts the copies too (a layout that moves rows between
+shards copies them; in both trees alike); then the card's own rates on
+those bytes (``card_rates``). For each: the wrapper's time (CUDA
 events around one call; 10 x ``--reps`` rounds of 20 calls, each round's
 median and their median, taken before any profiler session) and the
 device's own time and kernel launches per call (profiler, 50 back-to-back
@@ -122,8 +127,19 @@ def scan_inputs(torch) -> list:
              # the dataset path's batched pack and weight scans (4 frames
              # padded to 2^20 rows)
              ("ds_prefix_pack_batched", torch.rand(4, 2 * n, 4, generator=g)),
-             ("ds_cumsum_batched", torch.rand(4, 2 * n, 1, generator=g))]
-    return [(name, x.cuda()) for name, x in cases]
+             ("ds_cumsum_batched", torch.rand(4, 2 * n, 1, generator=g)),
+             # the J=21 frame's (2^21, 4) pack and (2^21, 1) weights over sp=4
+             ("ds_prefix_pack_sharded", torch.rand(4 * n, 4, generator=g).split(n)),
+             ("ds_prefix_pack_sharded", torch.rand(4 * n, 1, generator=g).split(n))]
+    return [(name, [c.contiguous().cuda() for c in x] if isinstance(x, tuple) else x.cuda())
+            for name, x in cases]
+
+
+def _shape(x) -> str:
+    """A case's shape: the tensor's, or the whole's over its row shards."""
+    if isinstance(x, list):
+        return f"{(sum(c.shape[0] for c in x),) + tuple(x[0].shape[1:])} over sp={len(x)}"
+    return str(tuple(x.shape))
 
 
 def scan_times(torch, modules: dict, reps: int) -> dict:
@@ -134,7 +150,7 @@ def scan_times(torch, modules: dict, reps: int) -> dict:
     after a session ends."""
     from chip_smoke import cuda_ms, device_ms
 
-    inputs = {f"{name} {tuple(x.shape)}": (name, x) for name, x in scan_inputs(torch)}
+    inputs = {f"{name} {_shape(x)}": (name, x) for name, x in scan_inputs(torch)}
     cases = {label: {key: (getattr(ds, name), x) for key, (name, x) in inputs.items()
                      if hasattr(ds, name)}
              for label, ds in modules.items()}
@@ -154,7 +170,8 @@ def scan_times(torch, modules: dict, reps: int) -> dict:
                 cuda_ms(torch, lambda: fn(x), reps=20, warm=1))
     for label in turns(reps):
         for key, (fn, x) in cases[label].items():
-            ms, launches, split = device_ms(torch, lambda: fn(x))
+            ms, launches, split = device_ms(torch, lambda: fn(x),
+                                            copies=key.startswith("ds_prefix_pack_sharded"))
             row = out[label][key]
             row["device_ms"].append(ms)
             row["launches_per_call"].append(launches)
@@ -165,6 +182,24 @@ def scan_times(torch, modules: dict, reps: int) -> dict:
         row["device_ms_median"] = statistics.median(row["device_ms"])
         row["device_ms_range"] = [min(row["device_ms"]), max(row["device_ms"])]
     return out
+
+
+def card_rates(torch, reps: int) -> dict:
+    """What the card reaches on plain PyTorch kernels that move the bytes
+    of the sharded (2^21, 4) case: a read of its 33.6 MB input
+    (``x.sum()``), a read and a write of it (``torch.mul(x, 1, out=y)``)
+    and a write of its 67.1 MB pack (``fill_``); device ms for each of
+    ``reps`` rounds (the yardstick of the scan's passes)."""
+    from chip_smoke import device_ms
+
+    x = torch.rand(1 << 21, 4, device="cuda")
+    y = torch.empty_like(x)
+    pack = torch.empty(((1 << 21) + 4) * 8, device="cuda")
+    cases = {"read_33.6MB": lambda: x.sum(),
+             "read_write_2x33.6MB": lambda: torch.mul(x, 1.0, out=y),
+             "write_67.1MB": lambda: pack.fill_(1.0)}
+    return {name: [device_ms(torch, fn)[0] for _ in range(reps)]
+            for name, fn in cases.items()}
 
 
 def gs_profile(torch, args) -> dict:
@@ -327,7 +362,8 @@ def main() -> int:
             m.KERNEL.load()  # raises here if its build failed
         ptxas = {label: ptxas_summary(m.KERNEL.build_log) for label, m in modules.items()}
         print(json.dumps({"card": card, "ptxas": ptxas,
-                          "scan": scan_times(torch, modules, args.reps)}))
+                          "scan": scan_times(torch, modules, args.reps),
+                          "card_rates": card_rates(torch, args.reps)}))
         return 0
     if args.gs:
         print(json.dumps({"card": card, "gs": gs_profile(torch, args)}))
