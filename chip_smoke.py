@@ -233,7 +233,17 @@ Phases, each printed on its own line, any failure exits nonzero:
    with the current device set to the slot's and to the first device; (f)
    (a) and (d) over the real cards when there are two or more, else a line
    that says the leg was not run. Walls sharded and unsharded beside the
-   card's name and power limit (one card: recorded, not a gain).
+   card's name and power limit (one card: recorded, not a gain);
+17. the port's tools: ``examples/end_to_end_torch.py --device cuda``, its
+   lines held against the port's pinned CPU lines
+   (``examples/end_to_end_torch_cpu.txt``: integers, bpp, bytes, masks and
+   cell counts as printed, PSNRs and RMSEs within the example's
+   ``PSNR_TOL``), then ``scripts/torch_rd_parity_check.py`` (N=30000) and
+   ``torch_rd_parity_3dgs.py`` (N=20000, 7 steps) at their documents'
+   configurations ``--against`` ``docs/rd_parity.md`` /
+   ``rd_parity_3dgs.md`` (every step's bpp equal at 6 decimals, every
+   PSNR within ``TOOLS_PSNR_TOL`` of the document's 4-decimal value), the
+   scan launches read around each run.
 
 Needs one CUDA card; imports nothing of JAX or of the JAX package.
 """
@@ -4280,6 +4290,77 @@ def phase_mesh(torch, ds, keep, j21, j21_body):
     return out, row
 
 
+TOOLS_PSNR_TOL = 1e-4      # phase 17 (b): a PSNR against its doc's 4-decimal value
+TOOLS_PARITY = (           # phase 17 (b): the parity tools at their docs' configurations
+    ("rd_parity", "torch_rd_parity_check", ["--n", "30000"]),
+    ("rd_parity_3dgs", "torch_rd_parity_3dgs",
+     ["--n", "20000", "--steps", "1", "2", "4", "8", "16", "32", "64"]),
+)
+
+
+def load_path(name: str, path: str):
+    """The module at ``path`` (a script or example of the checkout)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_tools(torch, ds):
+    """Phase 17: the port's walkthrough and RD tools on the card. (a)
+    ``examples/end_to_end_torch.py --device cuda``, its lines held against
+    the port's pinned CPU lines (``end_to_end_torch_cpu.txt``) by the
+    example's own ``compare_lines`` (integers, bpp, bytes, masks and cell
+    counts as printed, PSNRs / RMSEs within its ``PSNR_TOL``); (b)
+    ``scripts/torch_rd_parity_check.py`` and ``torch_rd_parity_3dgs.py`` at
+    their docs' configurations with ``--against`` the JAX package's
+    ``docs/rd_parity.md`` / ``rd_parity_3dgs.md``: every step's bpp equal at
+    6 decimals, every PSNR within ``TOOLS_PSNR_TOL`` of the doc's 4-decimal
+    value. The scan launches are read around each run (the example's
+    float32 codec and serving launch the pack and the strided scan; the
+    float64 parity codecs sum in float64 and launch none)."""
+    import os
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    launches = {p: {name: 0 for name in ds.LAUNCHES}
+                for p in ("tools_example", *[f"tools_{n}" for n, _, _ in TOOLS_PARITY])}
+    out = {"launches": launches, "walls": {}}
+
+    ex = load_path("end_to_end_torch", os.path.join(root, "examples", "end_to_end_torch.py"))
+    rc, wall, text = run_counted(torch, ds, launches["tools_example"], ex.main,
+                                 ["--device", "cuda"])
+    lines = text.splitlines()
+    diffs = ex.compare_lines(lines, ex.PINNED.read_text().splitlines())
+    check(rc == 0 and not diffs, f"the example on the card against its CPU lines: {diffs}")
+    out["walls"]["example"] = round(wall, 2)
+
+    with tempfile.TemporaryDirectory() as td:
+        for name, script, argv in TOOLS_PARITY:
+            mod = load_path(script, os.path.join(root, "scripts", f"{script}.py"))
+            doc = os.path.join(root, "docs", f"{name}.md")
+            rc, wall, text = run_counted(
+                torch, ds, launches[f"tools_{name}"], mod.main,
+                [*argv, "--device", "cuda", "--out", os.path.join(td, f"{name}.md"),
+                 "--against", doc, "--psnr-tol", str(TOOLS_PSNR_TOL)])
+            verdict = [ln for ln in text.splitlines() if "max |Δbpp|" in ln or "VERDICT" in ln]
+            check(rc == 0, f"{script} against {doc}: {verdict}\n{text[-3000:]}")
+            out["walls"][name] = round(wall, 2)
+            out[name] = verdict
+    # the example's float32 3DGS codec and serving launch the pack and the
+    # strided scan; the float64 parity codecs sum in float64 (no scan kernel)
+    counts = launches["tools_example"]
+    check(counts["ds_cumsum"] >= 1 and counts["ds_cumsum_t"] >= 1,
+          f"the example launched the pack and the strided scan: {counts}")
+    out["seconds"] = time.perf_counter() - t_phase
+    say("tools", example_lines=len(lines), walls=json.dumps(out["walls"]),
+        rd_parity=json.dumps(out["rd_parity"]), rd_parity_3dgs=json.dumps(out["rd_parity_3dgs"]),
+        launches=json.dumps(launches), seconds=round(out["seconds"], 1))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4324,6 +4405,7 @@ def main() -> int:
         transforms, j21_body, j21_weights, j21_frame = phase_transforms(torch, ds, keep)
         mesh, sharded_row = phase_mesh(torch, ds, keep, j21_frame, j21_body)
         del j21_frame
+        tools = phase_tools(torch, ds)
     finally:
         shutil.rmtree(keep, ignore_errors=True)
     add_device_ms(torch, ds, vox["pack"], vox_vals)
@@ -4343,7 +4425,8 @@ def main() -> int:
              "entropy_cli": entropy["colour"]["launches"],
              "entropy_gs_cli": entropy["gs"]["launches"],
              **predict["launches"], **rate["launches"], **seq["launches"],
-             **serving["launches"], **transforms["launches"], **mesh["launches"]}
+             **serving["launches"], **transforms["launches"], **mesh["launches"],
+             **tools["launches"]}
     rows.append(data["row"])
     sharded_row["ptxas"] = shard_ptxas
     rows.append(sharded_row)
@@ -4369,7 +4452,8 @@ def main() -> int:
         sequence_phase_seconds=round(seq["seconds"], 1),
         serving_phase_seconds=round(serving["seconds"], 1),
         transforms_phase_seconds=round(transforms["seconds"], 1),
-        mesh_phase_seconds=round(mesh["seconds"], 1))
+        mesh_phase_seconds=round(mesh["seconds"], 1),
+        tools_phase_seconds=round(tools["seconds"], 1))
 
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from raht3dgs_tpu_torch.ops.morton import morton_decode, morton_encode
+from raht3dgs_tpu_torch.ops.raht_span import _two_sum
 from raht3dgs_tpu_torch.ops.segment import sorted_segment_sums
 
 # probe sets: offsets ordered by squared distance (ties in a fixed order)
@@ -182,21 +183,50 @@ def refine_block_motion(codes_t, weights_t, codes_prev, weights_prev, depth: int
     return torch.as_tensor(motion, device=dev).to(torch.int32).expand(extra.shape) - extra
 
 
+def _two_prod(a, b):
+    """(p, e) with p + e == a * b exactly (Veltkamp split, no overflow)."""
+    p = a * b
+    t = a * 134217729.0
+    ah = t - (t - a)
+    al = a - ah
+    t = b * 134217729.0
+    bh = t - (t - b)
+    bl = b - bh
+    return p, ((ah * bh - p) + ah * bl + al * bh) + al * bl
+
+
+def _fma(a, b, c):
+    """a * b + c rounded once, in float64 on any device: Boldo and
+    Melquiond's emulation (the exact product and sum, their tail added
+    with rounding to odd, then one rounding to nearest)."""
+    uh, ul = _two_prod(a, b)
+    th, tl = _two_sum(c, uh)
+    v, e = _two_sum(tl, ul)
+    bits = v.contiguous().view(torch.int64)
+    # rounding to odd: an inexact sum whose last bit is even moves one ulp
+    # toward the exact value (v is never 0 while e is not)
+    step = torch.where((e > 0) == (v > 0), 1, -1)
+    bits = torch.where((e != 0) & ((bits & 1) == 0), bits + step, bits)
+    return th + bits.view(torch.float64)
+
+
 def _witness_offsets(P_rows, at_rows, occ_rows, mv_rows, codes_prev, attrs_prev, occ_p,
                      lim: int, depth: int, join: str):
     """Each row's displacement witness: among the hit 27-shell probes of
     the compensated position, the one whose previous-frame attributes are
-    nearest the row's (squared error over the channels in float64, summed
-    in channel order; the first on a tie). Returns (woff (N, 3) float64,
-    zero on invalid rows; valid (N,) bool)."""
+    nearest the row's (the first on a tie). The squared error over the
+    channels is formed in float64 as the JAX package's XLA:CPU program forms
+    it, a chain of fused multiply-adds in channel order: blocks that
+    reconstruct to one value tie exactly, and the last bits of the error
+    break those ties. Returns (woff (N, 3) float64, zero on invalid rows;
+    valid (N,) bool)."""
     dev = P_rows.device
     cp = _probe_codes(P_rows - mv_rows, _SHELL27, lim, depth, codes_prev.dtype)
     hit, idx = _probe_match(cp, codes_prev, occ_p, join)
     d = attrs_prev[idx].to(torch.float64) - at_rows[:, None, :]           # (N, 27, D)
-    sq = d * d
-    err = sq[..., 0]
-    for c in range(1, sq.shape[2]):
-        err = err + sq[..., c]
+    err = d[..., 0] * d[..., 0]
+    for c in range(1, d.shape[2]):
+        err = _fma(d[..., c], d[..., c], err)
     err = torch.where(hit, err, torch.full_like(err, float("inf")))
     win = torch.argmin(err, dim=1)                                        # first min
     valid = hit.any(1) & occ_rows

@@ -28,11 +28,52 @@ def _port_modules():
     )
 
 
+def _port_tools():
+    """The port's scripts and walkthrough: ``scripts/torch_*.py`` and
+    ``examples/end_to_end_torch.py``."""
+    scripts = os.path.join(REPO, "scripts")
+    return [os.path.join(scripts, f) for f in os.listdir(scripts)
+            if f.startswith("torch_") and f.endswith(".py")] + [
+        os.path.join(REPO, "examples", "end_to_end_torch.py")]
+
+
 def _port_sources():
-    out = [os.path.join(REPO, "chip_smoke.py")]
+    out = [os.path.join(REPO, "chip_smoke.py"), *_port_tools()]
     for root, _, files in os.walk(os.path.join(REPO, "raht3dgs_tpu_torch")):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)
+
+
+def test_port_tools_exist():
+    names = {os.path.basename(p) for p in _port_tools()}
+    for tool in ("check_morton", "compare_mat", "rd_deadzone", "rd_against",
+                 "rd_parity_check", "rd_parity_3dgs", "rd_parity_j18",
+                 "rd_parity_3dgs_full", "rd_attr_entropy", "rd_predict", "rd_temporal",
+                 "rd_ratecontrol", "rd_tiling"):
+        assert f"torch_{tool}.py" in names
+    assert "end_to_end_torch.py" in names
+
+
+def test_port_tools_import_without_jax():
+    """Importing every port tool loads neither JAX nor the JAX package."""
+    code = (
+        "import importlib.util, sys\n"
+        f"sys.path.insert(0, {os.path.join(REPO, 'scripts')!r})\n"
+        f"for p in {sorted(_port_tools())!r}:\n"
+        "    spec = importlib.util.spec_from_file_location('m' + str(abs(hash(p))), p)\n"
+        "    mod = importlib.util.module_from_spec(spec)\n"
+        "    sys.modules[spec.name] = mod\n"
+        "    spec.loader.exec_module(mod)\n"
+        "tops = {m.split('.')[0] for m in sys.modules}\n"
+        f"bad = sorted(tops & set({sorted(FORBIDDEN)!r}))\n"
+        "print('BAD', bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
 def test_every_module_imports_without_jax():

@@ -5,9 +5,9 @@ Inputs: a few thousand voxels of a seeded shell translating one voxel a
 frame along x (a few percent of voxels dropped a frame, non-integer smooth
 colours with noise), padded to one bucket, at J = 7 (int32 codes) and
 J = 12 (int64 codes). The motion search, the block map and the prediction
-are integer work (the witness errors float64 sums in channel order), so
-every output must equal the JAX package's bitwise, through both of the
-port's joins.
+are integer work (the witness errors float64, formed as XLA:CPU forms
+them, a chain of fused multiply-adds in channel order), so every output
+must equal the JAX package's bitwise, through both of the port's joins.
 
 The sequence codec is held to the gate of ROADMAP queue A item 6: float64
 streams byte-identical except symbols within 1e-9 of a quantization tie
@@ -28,6 +28,7 @@ from raht3dgs_tpu.ops.prelude import morton_codes_np
 from raht3dgs_tpu_torch.codec.bitstream import FrameStream
 from raht3dgs_tpu_torch.models import pipeline as tp, temporal as ttm
 from raht3dgs_tpu_torch.ops import temporal as tt
+from raht3dgs_tpu_torch.ops.morton import morton_encode
 
 _TORCH = {jnp.float64: torch.float64, jnp.float32: torch.float32}
 BUCKET = 4096
@@ -379,3 +380,65 @@ def test_guards_match_jax(j7):
                        (dict(search_iters=0), "search_iters")):
         with pytest.raises(ValueError, match=match):
             ttm.SequenceCodec(7, device="cpu", **bad)
+
+
+def _exact_fma(a, b, c):
+    from fractions import Fraction
+
+    return float(Fraction(a) * Fraction(b) + Fraction(c))
+
+
+def test_fma_rounds_once():
+    """``_fma`` against exact rational arithmetic, rounded once: random
+    operands over many scales, cancellations and products whose low half
+    decides the rounding."""
+    rng = np.random.default_rng(11)
+    a = rng.standard_normal(3000) * 10.0 ** rng.integers(-6, 6, 3000)
+    b = rng.standard_normal(3000) * 10.0 ** rng.integers(-6, 6, 3000)
+    c = rng.standard_normal(3000) * 10.0 ** rng.integers(-8, 8, 3000)
+    c[:500] = -(a[:500] * b[:500])          # the product's rounding error alone
+    one = 1.0 + 2.0 ** -27
+    a = np.concatenate([a, [one, one, 0.0, 3.0, -one]])
+    b = np.concatenate([b, [one, one, 5.0, 0.0, one]])
+    c = np.concatenate([c, [-1.0, 2.0 ** 53, 1.5, -2.0, 1.0]])
+    got = tt._fma(*(torch.as_tensor(x) for x in (a, b, c))).numpy()
+    want = np.array([_exact_fma(x, y, z) for x, y, z in zip(a, b, c)])
+    assert np.array_equal(got, want)
+
+
+def test_witness_tie_broken_as_jax_breaks_it():
+    """Two witnesses whose squared errors tie in exact arithmetic (the
+    same channel offsets, permuted) but not in float64: the plain
+    channel-order sum and XLA's fused multiply-add chain rank them apart,
+    and the port's witness is the JAX package's."""
+    import jax
+
+    rng = np.random.default_rng(5)
+    for _ in range(20000):
+        at = np.round(rng.uniform(0, 255, 3), 3)
+        off = rng.uniform(-30, 30, 3)
+        pa, pb = at + off, at + off[[2, 1, 0]]
+        da, db = pa - at, pb - at
+        plain = [(d[0] * d[0] + d[1] * d[1]) + d[2] * d[2] for d in (da, db)]
+        fused = [_exact_fma(d[2], d[2], _exact_fma(d[1], d[1], d[0] * d[0]))
+                 for d in (da, db)]
+        if (plain[0] <= plain[1]) != (fused[0] <= fused[1]):
+            break
+    else:
+        pytest.fail("no discriminating pair found")
+    depth = 4
+    prev_V = torch.tensor([[5, 5, 5], [4, 5, 5], [6, 5, 5]])
+    prev_codes, order = torch.sort(morton_encode(prev_V, depth))
+    attrs_prev = torch.as_tensor(np.stack([at + 99.0, pa, pb]))[order]
+    P = torch.tensor([[5, 5, 5]])
+    args = (P, torch.as_tensor(at[None, :]), torch.ones(1, dtype=torch.bool),
+            torch.zeros_like(P), prev_codes, attrs_prev, torch.ones(3, dtype=torch.bool),
+            (1 << depth) - 1, depth, "search")
+    woff, valid = tt._witness_offsets(*args)
+    jw = jax.jit(jt._witness_offsets, static_argnames=("lim", "depth", "join"))
+    jwoff, jvalid = jw(*(jnp.asarray(a.numpy()) for a in args[:7]), lim=args[7],
+                       depth=depth, join="search")
+    assert bool(valid[0]) and bool(np.asarray(jvalid)[0])
+    assert woff[0].tolist() == np.asarray(jwoff)[0].tolist()
+    # the winner is (4,5,5), offset (-1,0,0), exactly where the fused errors rank it
+    assert (woff[0].tolist() == [-1.0, 0.0, 0.0]) == (fused[0] <= fused[1])
