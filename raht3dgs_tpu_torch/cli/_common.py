@@ -35,7 +35,10 @@ def add_runtime_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--csv", default=None, help="CSV log path (default: results/...)")
     p.add_argument(
         "--profile", default=None, metavar="DIR",
-        help="write a torch.profiler chrome trace of the run into DIR",
+        help="write a torch.profiler chrome trace of the run into DIR: the "
+        "kernels and copies, and the program's own spans (r3:prelude, "
+        "r3:encode_sweep, r3:rlgr_encode, r3:decode, ...) with the request id "
+        "of each entry call among their arguments",
     )
 
 
@@ -100,7 +103,10 @@ def torch_dtype(name: str) -> torch.dtype:
 @contextlib.contextmanager
 def maybe_profile(args, device: torch.device):
     """With ``--profile DIR``: a torch.profiler session around the run,
-    written to ``DIR/trace.json`` (chrome trace format) when it ends."""
+    written to ``DIR/trace.json`` (chrome trace format) when it ends. The
+    program's spans (``utils/timing.py``) record inside it as ``r3:``
+    ranges; shapes are recorded so that each range carries its request
+    id."""
     if not args.profile:
         yield
         return
@@ -109,7 +115,7 @@ def maybe_profile(args, device: torch.device):
     acts = [ProfilerActivity.CPU]
     if device.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
-    with profile(activities=acts) as prof:
+    with profile(activities=acts, record_shapes=True) as prof:
         yield
     os.makedirs(args.profile, exist_ok=True)
     prof.export_chrome_trace(os.path.join(args.profile, "trace.json"))

@@ -2,16 +2,22 @@
 
 Counterpart of ``raht3dgs_tpu/codec/rlgr.py``. The coder is the port's own
 byte-identical copy of ``native/rlgr.cpp`` (the stream format is frozen),
-built with g++ into ``_build/`` and called through ctypes on contiguous
-numpy buffers. A failed build raises; ``codec/_rlgr_py.py`` is the plain
-reference the tests hold the library against.
+built with g++ into ``_build/`` through ``native/rlgr_batch.cpp`` (the
+copy, and batch entries that can time their jobs) and called through
+ctypes on contiguous numpy buffers. A failed build raises;
+``codec/_rlgr_py.py`` is the plain reference the tests hold the library
+against.
 
 Layouts: sequential streams (one adaptive automaton per channel) and the
 chunked layout ``u32 chunk | u32 n_chunks | u32 len[i]... | payloads`` of
 self-contained chunks. An int32 C-contiguous (D, N) channel matrix goes
 through one native batch call (C++ thread pool); other inputs are coded
-stream by stream, with the same bytes. ``MemBuf`` is the reference
-bindings' ``rlgr.membuf`` interface over these coders.
+stream by stream, with the same bytes. While tracing is on
+(``utils/timing.py``) a batch call is the span ``rlgr_encode`` or
+``rlgr_decode`` and counts its jobs' own nanoseconds (each worker times
+its jobs) and its thread slots (the call's wall nanoseconds x the pool's
+threads). ``MemBuf`` is the reference bindings' ``rlgr.membuf``
+interface over these coders.
 """
 
 from __future__ import annotations
@@ -26,16 +32,17 @@ import numpy as np
 
 from raht3dgs_tpu_torch.codec import _rlgr_py
 from raht3dgs_tpu_torch.codec._native import NativeLib, gxx_command
+from raht3dgs_tpu_torch.utils import timing
 
-_SRC = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    "native", "rlgr.cpp",
-)
+_NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                           "native")
+_SRC = os.path.join(_NATIVE_DIR, "rlgr_batch.cpp")
 
 
 def _configure(lib: ctypes.CDLL) -> None:
     pu8 = ctypes.POINTER(ctypes.c_uint8)
     psz = ctypes.POINTER(ctypes.c_size_t)
+    pu64 = ctypes.POINTER(ctypes.c_uint64)
     lib.rlgr_encode.argtypes = [
         ctypes.POINTER(ctypes.c_int64), ctypes.c_size_t, ctypes.c_int,
         ctypes.POINTER(pu8), psz,
@@ -58,20 +65,23 @@ def _configure(lib: ctypes.CDLL) -> None:
         ctypes.POINTER(ctypes.c_int32), ctypes.c_size_t,
     ]
     lib.rlgr_decode32.restype = ctypes.c_int
-    lib.rlgr_encode_batch32.argtypes = [
+    lib.rlgr_encode_batch32_timed.argtypes = [
         ctypes.POINTER(ctypes.c_int32), psz, psz, ctypes.c_size_t,
-        ctypes.c_int, ctypes.c_int, ctypes.POINTER(pu8), psz,
+        ctypes.c_int, ctypes.c_int, ctypes.POINTER(pu8), psz, pu64,
     ]
-    lib.rlgr_encode_batch32.restype = ctypes.c_int
-    lib.rlgr_decode_batch32.argtypes = [
+    lib.rlgr_encode_batch32_timed.restype = ctypes.c_int
+    lib.rlgr_decode_batch32_timed.argtypes = [
         pu8, psz, psz, psz, psz, ctypes.c_size_t, ctypes.c_int,
-        ctypes.c_int, ctypes.POINTER(ctypes.c_int32),
+        ctypes.c_int, ctypes.POINTER(ctypes.c_int32), pu64,
     ]
-    lib.rlgr_decode_batch32.restype = ctypes.c_int
+    lib.rlgr_decode_batch32_timed.restype = ctypes.c_int
+    lib.rlgr_pool_size.argtypes = [ctypes.c_size_t, ctypes.c_int]
+    lib.rlgr_pool_size.restype = ctypes.c_size_t
 
 
 NATIVE = NativeLib(_SRC, "librlgr.so", _configure,
-                   lambda src, out: gxx_command(src, out, ("-pthread",)))
+                   lambda src, out: gxx_command(src, out, ("-pthread",)),
+                   deps=(os.path.join(_NATIVE_DIR, "rlgr.cpp"),))
 
 
 def _sz_array(values) -> np.ndarray:
@@ -86,6 +96,22 @@ def _as_u8(stream: bytes):
     return ctypes.cast(ctypes.c_char_p(stream), ctypes.POINTER(ctypes.c_uint8))
 
 
+def _traced_batch(name: str, lib, count: int, threads: int, call) -> int:
+    """``call(job_ns)`` of a native batch entry: ``job_ns`` None while
+    tracing is off, else a ``count``-long uint64 array the workers fill,
+    inside the span ``name``, with the coder's counters."""
+    if not timing.enabled():
+        return call(None)
+    job_ns = np.zeros(count, dtype=np.uint64)
+    with timing.span(name):
+        t0 = time.perf_counter_ns()
+        rc = call(job_ns.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)))
+        wall = time.perf_counter_ns() - t0
+    timing.count("rlgr_job_ns", int(job_ns.sum()))
+    timing.count("rlgr_thread_slots", wall * int(lib.rlgr_pool_size(count, threads)))
+    return rc
+
+
 def _encode_batch32(flat: np.ndarray, offsets, ns, signed: bool,
                     threads: int = 0) -> List[bytes]:
     """Encode independent int32 jobs through ONE native call; job j covers
@@ -98,13 +124,13 @@ def _encode_batch32(flat: np.ndarray, offsets, ns, signed: bool,
     nss = _sz_array(ns)
     outs = (ctypes.POINTER(ctypes.c_uint8) * count)()
     lens = np.zeros(count, dtype=np.uintp)
-    rc = lib.rlgr_encode_batch32(
-        flat.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-        _sz_ptr(offs), _sz_ptr(nss), count, int(signed), int(threads),
-        outs, _sz_ptr(lens),
-    )
+    rc = _traced_batch("rlgr_encode", lib, count, threads,
+                       lambda job_ns: lib.rlgr_encode_batch32_timed(
+                           flat.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+                           _sz_ptr(offs), _sz_ptr(nss), count, int(signed), int(threads),
+                           outs, _sz_ptr(lens), job_ns))
     if rc != 0:
-        raise RuntimeError(f"rlgr_encode_batch32 failed (rc={rc})")
+        raise RuntimeError(f"rlgr_encode_batch32_timed failed (rc={rc})")
     streams = []
     for j in range(count):
         streams.append(ctypes.string_at(outs[j], int(lens[j])))
@@ -123,13 +149,13 @@ def _decode_batch32(buf: bytes, buf_offsets, buf_lens, ns, out_offsets,
     blens = _sz_array(buf_lens)
     nss = _sz_array(ns)
     ooffs = _sz_array(out_offsets)
-    rc = lib.rlgr_decode_batch32(
-        _as_u8(buf), _sz_ptr(boffs), _sz_ptr(blens), _sz_ptr(nss),
-        _sz_ptr(ooffs), len(ns), int(signed), int(threads),
-        out_flat.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-    )
+    rc = _traced_batch("rlgr_decode", lib, len(ns), threads,
+                       lambda job_ns: lib.rlgr_decode_batch32_timed(
+                           _as_u8(buf), _sz_ptr(boffs), _sz_ptr(blens), _sz_ptr(nss),
+                           _sz_ptr(ooffs), len(ns), int(signed), int(threads),
+                           out_flat.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), job_ns))
     if rc != 0:
-        raise RuntimeError(f"rlgr_decode_batch32 failed (rc={rc})")
+        raise RuntimeError(f"rlgr_decode_batch32_timed failed (rc={rc})")
 
 
 def rlgr_encode(values: np.ndarray, signed: bool = True) -> Tuple[bytes, int]:

@@ -12,6 +12,7 @@ from typing import Dict, Mapping, Optional, Tuple
 import numpy as np
 
 from raht3dgs_tpu_torch.ops.quantize import gs_attribute_groups
+from raht3dgs_tpu_torch.utils.timing import spanned
 
 
 def compute_attribute_metrics(
@@ -52,6 +53,7 @@ def compute_attribute_metrics(
     return out
 
 
+@spanned("psnr")
 def gs_group_psnr(
     original: np.ndarray,
     reconstructed: np.ndarray,

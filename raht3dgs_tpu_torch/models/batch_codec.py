@@ -48,11 +48,12 @@ from raht3dgs_tpu_torch.parallel.sharding import (
     batched_reorder_T,
     shard_batch,
 )
-from raht3dgs_tpu_torch.utils.device import DeviceLike, resolve_device
+from raht3dgs_tpu_torch.utils.device import DeviceLike, resolve_device, to_device, to_host
 from raht3dgs_tpu_torch.utils.padding import round_up_bucket
-from raht3dgs_tpu_torch.utils.timing import StageTimer
+from raht3dgs_tpu_torch.utils.timing import StageTimer, count, spanned
 
 
+@spanned("prepare_frame_batch")
 def prepare_frame_batch(
     positions_list: Sequence[np.ndarray],
     attributes_list: Sequence[np.ndarray],
@@ -121,12 +122,12 @@ class BatchAttributeCodec:
         return stack if self.mesh is None else shard_batch(self.mesh, *stack)
 
     def _nvox(self, frames: Sequence[VoxelFrame]) -> torch.Tensor:
-        return torch.tensor([f.n_voxels for f in frames], dtype=torch.int32,
-                            device=self.device)
+        return to_device([f.n_voxels for f in frames], self.device, torch.int32)
 
     def _steps(self, steps) -> torch.Tensor:
         return torch.atleast_1d(self._codec._scalar(np.asarray(steps, dtype=np.float64)))
 
+    @spanned("transform")
     def transform(self, frames: Sequence[VoxelFrame],
                   timer: Optional[StageTimer] = None):
         """Step-independent half of the encode (forward RAHT + stream
@@ -149,9 +150,9 @@ class BatchAttributeCodec:
             return streams, timer
         if coeffs is None or orderp is None:
             coeffs, orderp, timer = self.transform(frames, timer)
-        q_np = timer.time("Quant_time", lambda: batched_quant_reorder(
+        q_np = timer.time("Quant_time", lambda: to_host(batched_quant_reorder(
             coeffs, self._steps(steps), orderp, self._codec.quant_mode,
-            self._codec._scalar(self._codec.quant_f)).cpu().numpy())
+            self._codec._scalar(self._codec.quant_f))))
         streams, enc_ns = self._entropy_streams(q_np, frames, steps)
         timer.add("Entropy_enc_time", enc_ns / 1e9)
         return streams, timer
@@ -172,6 +173,7 @@ class BatchAttributeCodec:
             streams.append(stream)
         return streams, enc_ns
 
+    @spanned("encode_sweep")
     def encode_sweep(self, frames: Sequence[VoxelFrame], steps_list: Sequence,
                      coeffs=None, orderp=None
                      ) -> List[Tuple[List[FrameStream], StageTimer]]:
@@ -197,6 +199,7 @@ class BatchAttributeCodec:
                         timer.add(name, sec)
                 out.append(([encs[si].stream for encs in per_frame], timer))
             return out
+        count("voxel_steps", sum(f.n_voxels for f in frames) * len(steps_list))
         if coeffs is None or orderp is None:
             coeffs, orderp, _ = self.transform(frames)
         coeffs_T = batched_reorder_T(coeffs, orderp)
@@ -221,6 +224,7 @@ class BatchAttributeCodec:
         return batched_inverse_order(codes, weights, self._nvox(frames), self.depth,
                                      order_mode or self.order_mode)
 
+    @spanned("decode")
     def decode(self, streams: Sequence[FrameStream], frames: Sequence[VoxelFrame],
                timer: Optional[StageTimer] = None, inv=None
                ) -> Tuple[List[np.ndarray], StageTimer]:
@@ -281,8 +285,8 @@ class BatchAttributeCodec:
         s0 = streams[0]
         steps = self._codec._scalar(s0.steps if s0.steps.shape[0] > 1 else s0.steps[0])
         rec = timer.time(
-            "iRAHT_time", lambda: batched_decode_step(
-                codes, weights, torch.from_numpy(qfull).to(self.device), inv, steps,
+            "iRAHT_time", lambda: to_host(batched_decode_step(
+                codes, weights, to_device(qfull, self.device), inv, steps,
                 self.depth, self.dtype, s0.quant_mode,
-                self._codec._scalar(s0.rec_delta)).cpu().numpy())
+                self._codec._scalar(s0.rec_delta))))
         return [rec[i][: f.n_voxels] for i, f in enumerate(frames)], timer

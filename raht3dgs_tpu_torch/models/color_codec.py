@@ -31,7 +31,7 @@ from raht3dgs_tpu_torch.models.pipeline import (
 )
 from raht3dgs_tpu_torch.ops.color import rgb_to_yuv, rgb_to_yuv_parity
 from raht3dgs_tpu_torch.utils.device import DeviceLike, resolve_device, same_device
-from raht3dgs_tpu_torch.utils.timing import StageTimer
+from raht3dgs_tpu_torch.utils.timing import StageTimer, spanned
 
 DEFAULT_DEPTH = _CCC.depth
 DEFAULT_STEPS = _CCC.steps
@@ -72,6 +72,7 @@ class RDPoint:
         )
 
 
+@spanned("psnr")
 def y_psnr_db(y_ref: np.ndarray, y_rec: np.ndarray) -> float:
     """Y-channel PSNR against the 255 peak."""
     mse = float(np.mean((np.asarray(y_ref) - np.asarray(y_rec)) ** 2)) / 255.0**2

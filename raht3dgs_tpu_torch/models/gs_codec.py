@@ -27,8 +27,8 @@ from raht3dgs_tpu_torch.models.pipeline import (
     prepare_voxel_frame,
 )
 from raht3dgs_tpu_torch.ops.quantize import channel_steps
-from raht3dgs_tpu_torch.utils.device import DeviceLike, resolve_device, same_device
-from raht3dgs_tpu_torch.utils.timing import StageTimer
+from raht3dgs_tpu_torch.utils.device import DeviceLike, resolve_device, same_device, to_host
+from raht3dgs_tpu_torch.utils.timing import StageTimer, spanned
 
 DEFAULT_DEPTH = _GCC.depth
 DEFAULT_STEPS = _GCC.steps
@@ -81,6 +81,7 @@ class GsRDPoint:
         )
 
 
+@spanned("encode_gs_frame")
 def encode_gs_frame(
     V_int: np.ndarray,
     attributes: np.ndarray,
@@ -120,7 +121,7 @@ def encode_gs_frame(
         coeffs = order = None
     else:
         coeffs, order, _, timer = codec.transform(frame, timer)
-    ref_sorted = frame.attributes[:frame.n_voxels].cpu().numpy()
+    ref_sorted = to_host(frame.attributes[:frame.n_voxels])
     D = attributes.shape[1]
     step_vecs = [
         channel_steps(D, float(s), {k: float(s) * m for k, m in group_step_scales.items()})

@@ -25,8 +25,8 @@ from raht3dgs_tpu_torch.io.ply import save_ply_3dgs
 from raht3dgs_tpu_torch.models.gs_merge import merged_attributes, weighted_rows
 from raht3dgs_tpu_torch.ops.segment import sorted_segment_sums
 from raht3dgs_tpu_torch.ops.voxelize import voxelize
-from raht3dgs_tpu_torch.utils.device import DeviceLike, resolve_device
-from raht3dgs_tpu_torch.utils.timing import StageTimer
+from raht3dgs_tpu_torch.utils.device import DeviceLike, resolve_device, to_device, to_host
+from raht3dgs_tpu_torch.utils.timing import StageTimer, span
 
 GS_KEYS = ("means", "quats", "scales", "opacities", "colors")
 
@@ -102,11 +102,13 @@ def compress_to_nvox(
     the file that ``encode_3dgs`` reads."""
     dev = resolve_device(device)
     timer = StageTimer()
-    args = [torch.as_tensor(np.asarray(params[k], dtype=np.float32), device=dev)
-            for k in GS_KEYS]
-    out = timer.time("voxelize_merge", voxelize_merge, *args, depth, weight_by_opacity)
-    (pos, quats, scales, opac, colors, means_w, nvox, voxel_size, vmin,
-     width, cluster) = [t.cpu().numpy() for t in out]
+    with span("merge"):
+        with span("upload"):
+            args = [to_device(np.asarray(params[k], dtype=np.float32), dev) for k in GS_KEYS]
+        out = timer.time("voxelize_merge", voxelize_merge, *args, depth, weight_by_opacity)
+        with span("download"):
+            (pos, quats, scales, opac, colors, means_w, nvox, voxel_size, vmin,
+             width, cluster) = [to_host(t) for t in out]
     nvox = int(nvox)
 
     result = CompressedGaussians(

@@ -91,9 +91,15 @@ from raht3dgs_tpu_torch.ops.prelude import (
 from raht3dgs_tpu_torch.ops.raht import get_forward_impl, ieee_sqrt
 from raht3dgs_tpu_torch.ops.raht_span import raht_inverse_span, raht_structure_span
 from raht3dgs_tpu_torch.ops.reorder import ORDER_MODES, coefficient_order
-from raht3dgs_tpu_torch.utils.device import DeviceLike, resolve_device
+from raht3dgs_tpu_torch.utils.device import (
+    DeviceLike,
+    count_copy,
+    resolve_device,
+    to_device,
+    to_host,
+)
 from raht3dgs_tpu_torch.utils.padding import pad_rows, round_up_bucket
-from raht3dgs_tpu_torch.utils.timing import StageTimer
+from raht3dgs_tpu_torch.utils.timing import StageTimer, count, span, spanned
 
 _NP_CODE = {torch.int32: np.int32, torch.int64: np.int64}
 
@@ -118,6 +124,7 @@ class EncodedFrame:
     timer: StageTimer
 
 
+@spanned("prelude")
 def prepare_voxel_frame(
     positions: np.ndarray,
     attributes: np.ndarray,
@@ -134,35 +141,36 @@ def prepare_voxel_frame(
     in ``[0, 2**depth)`` and their attributes; rows are Morton-sorted here.
     Runs on CUDA unless ``device="cpu"``."""
     dev = resolve_device(device)
+    count("frames_prepared")
     positions = np.asarray(positions)
     attributes = np.asarray(attributes)
     n = positions.shape[0]
-    codes = morton_encode(
-        torch.as_tensor(positions.astype(np.int64), device=dev), depth
-    ).cpu().numpy()
-    order = np.argsort(codes, kind="stable")
-    codes = codes[order]
-    if np.any(np.diff(codes) == 0):
-        raise ValueError(
-            "duplicate voxel positions — voxelize/deduplicate before encoding"
-        )
-    attributes = attributes[order]
-    w = np.ones(n) if weights is None else np.asarray(weights, dtype=float)[order]
+    with span("host_sort"):
+        codes = to_host(morton_encode(to_device(positions.astype(np.int64), dev), depth))
+        order = np.argsort(codes, kind="stable")
+        codes = codes[order]
+        if np.any(np.diff(codes) == 0):
+            raise ValueError(
+                "duplicate voxel positions — voxelize/deduplicate before encoding"
+            )
+        attributes = attributes[order]
+        w = np.ones(n) if weights is None else np.asarray(weights, dtype=float)[order]
 
     n_padded = round_up_bucket(n, bucket)
     cdt = _NP_CODE[code_dtype(depth, n_padded)]
     pads = pad_code(depth, n_padded, torch.arange(n, n_padded)).numpy()
     codes_p = np.concatenate([codes.astype(cdt), pads.astype(cdt)])
-    return VoxelFrame(
-        codes=torch.as_tensor(codes_p, device=dev),
-        attributes=torch.as_tensor(pad_rows(attributes.astype(np.float64), n_padded),
-                                   device=dev).to(dtype),
-        weights=torch.as_tensor(pad_rows(w, n_padded), device=dev).to(dtype),
-        n_voxels=n,
-        depth=depth,
-        vmin=np.zeros(3) if vmin is None else np.asarray(vmin, dtype=float),
-        width=float(2**depth) if width is None else float(width),
-    )
+    with span("upload"):
+        return VoxelFrame(
+            codes=to_device(codes_p, dev),
+            attributes=to_device(pad_rows(attributes.astype(np.float64), n_padded),
+                                 dev).to(dtype),
+            weights=to_device(pad_rows(w, n_padded), dev).to(dtype),
+            n_voxels=n,
+            depth=depth,
+            vmin=np.zeros(3) if vmin is None else np.asarray(vmin, dtype=float),
+            width=float(2**depth) if width is None else float(width),
+        )
 
 
 def voxel_frame_from_arrays(codes, attributes, weights, n_voxels: int,
@@ -569,6 +577,8 @@ def _fetched_symbols(qs: List[torch.Tensor], window: int = 2):
             buf = ready.get()
             if buf is STOP:
                 break
+            if cuda:
+                count_copy("d2h", buf)
             yield buf.numpy(), time.perf_counter() - t0
             free.put(buf)
     finally:
@@ -679,7 +689,7 @@ class AttributeCodec:
         return t
 
     def _scalar(self, value) -> torch.Tensor:
-        return torch.as_tensor(value, dtype=self.dtype, device=self.device)
+        return to_device(value, self.device, self.dtype)
 
     # -- encoding ---------------------------------------------------------
 
@@ -776,10 +786,11 @@ class AttributeCodec:
             return self._praht_encode(frame, steps, timer)
         if coeffs is None or order is None:
             coeffs, order, _, timer = self.transform(frame, timer)
-        q_np = timer.time("Quant_time", lambda: self._quantize(
-            _reorder_T_device(coeffs, order, frame.n_voxels), steps).cpu().numpy())
+        q_np = timer.time("Quant_time", lambda: to_host(self._quantize(
+            _reorder_T_device(coeffs, order, frame.n_voxels), steps)))
         return self._entropy_frame(q_np, frame, steps, timer)
 
+    @spanned("encode_sweep")
     def encode_sweep(self, frame: VoxelFrame, steps_list, coeffs=None,
                      order=None) -> List[EncodedFrame]:
         """Pipelined quantization-step sweep, byte-identical to
@@ -796,6 +807,7 @@ class AttributeCodec:
         steps_list = list(steps_list)
         if not steps_list:
             return []
+        count("voxel_steps", frame.n_voxels * len(steps_list))
         if self.predict:
             if self._predict_on_device():
                 return self._praht_sweep_device(frame, steps_list)
@@ -954,6 +966,7 @@ class AttributeCodec:
 
     # -- decoding ---------------------------------------------------------
 
+    @spanned("decode")
     def decode(self, stream: FrameStream, codes, weights,
                timer: Optional[StageTimer] = None) -> Tuple[np.ndarray, StageTimer]:
         """Decode a stream given the (losslessly known) padded voxel codes and
@@ -995,12 +1008,12 @@ class AttributeCodec:
         coeffs = timer.time(
             "Dequant_time",
             lambda: _dequant_gather_device(
-                torch.from_numpy(vals_T).to(self.device), inv, steps, self.dtype,
+                to_device(vals_T, self.device), inv, steps, self.dtype,
                 stream.quant_mode, self._scalar(stream.rec_delta)),
         )
         attrs = timer.time("iRAHT_time", _inverse_device, coeffs, codes, weights,
                            self.depth)
-        return attrs.cpu().numpy()[:nvox], timer
+        return to_host(attrs)[:nvox], timer
 
     def _praht_decode(self, stream: FrameStream, codes, weights, k: int,
                       timer: StageTimer, lod_depth: Optional[int] = None):

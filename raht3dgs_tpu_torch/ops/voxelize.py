@@ -30,7 +30,7 @@ import torch
 from raht3dgs_tpu_torch.ops.morton import code_dtype, morton_encode, pad_code
 from raht3dgs_tpu_torch.ops.raht import _code_lanes, _lanes_code
 from raht3dgs_tpu_torch.ops.segment import sorted_segment_sums
-from raht3dgs_tpu_torch.utils.device import DeviceLike, device_of
+from raht3dgs_tpu_torch.utils.device import DeviceLike, device_of, to_device
 
 
 class VoxelizeResult(NamedTuple):
@@ -113,7 +113,7 @@ def voxelize(
     # and the floor comes before the clamp and the cast, as in the JAX package.
     # A cloud of zero extent has voxel_size 0 and NaN coordinates here; XLA
     # casts NaN to the integer 0, PyTorch to INT_MIN, so NaN maps to 0 first
-    voxel_size = width / torch.tensor(2 ** depth, dtype=fdtype, device=dev)
+    voxel_size = width / to_device(2 ** depth, dev, fdtype)
     Vint = torch.clamp(torch.floor(V0 / voxel_size).nan_to_num(nan=0.0), 0, lim) \
         .to(torch.int32)
     cdt = code_dtype(depth, N)
