@@ -36,14 +36,16 @@ Spans, by layer (the request roots first):
   ``iRAHT_time``, ``voxelize_merge``);
 - host entropy coder: ``rlgr_encode``, ``rlgr_decode`` (the native batch
   calls of ``codec/rlgr.py``);
-- quality scoring: ``psnr`` (``y_psnr_db``, ``gs_group_psnr``).
+- quality scoring: ``psnr`` (``y_psnr_db``; ``gs_group_psnr``, numpy or, on a
+  float32 pair, the fused native pass of ``native/sq_diff.cpp``).
 
 Counters (:data:`COUNTS`): ``h2d_bytes_pageable``, ``h2d_bytes_pinned``,
 ``d2h_bytes_pageable``, ``d2h_bytes_pinned`` (``utils/device.py``'s copy
 helpers), ``voxel_steps`` (voxels x steps of each ``encode_sweep``),
 ``frames_prepared``, ``rlgr_job_ns`` (the sum of the native jobs' own
-nanoseconds) and ``rlgr_thread_slots`` (each batch call's wall ns x the
-pool's threads).
+nanoseconds), ``rlgr_thread_slots`` (each batch call's wall ns x the
+pool's threads) and ``psnr_fused`` (``gs_group_psnr`` calls that took the
+fused pass).
 :func:`snapshot` reads them, :func:`reset` clears them.
 """
 

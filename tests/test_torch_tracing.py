@@ -1,8 +1,8 @@
 """The port's spans and counters (``utils/timing.py``): off without a
 profiler, on the profiler's clock under one, nested by request, with the
-same bytes and reconstructions either way; the copy helper's byte rule
-and the native coder's per-job nanoseconds. No test here needs JAX; the
-last needs a card."""
+same bytes and reconstructions either way; the copy helper's byte rule,
+the native coder's per-job nanoseconds and the fused group PSNR's
+counter. No test here needs JAX; the last needs a card."""
 
 import ctypes
 import json
@@ -14,6 +14,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from raht3dgs_tpu_torch.codec import rlgr
+from raht3dgs_tpu_torch.eval.metrics import gs_group_psnr
 from raht3dgs_tpu_torch.models.batch_codec import BatchAttributeCodec, prepare_frame_batch
 from raht3dgs_tpu_torch.models.color_codec import y_psnr_db
 from raht3dgs_tpu_torch.models.gs_codec import encode_gs_frame
@@ -288,6 +289,19 @@ def test_worker_thread_records_nothing():
             t.join()
     assert seen == [False]
     assert [r.name for r in timing.SPANS] == ["decode"] and timing.COUNTS == {}
+
+
+@pytest.mark.parametrize("dtype,fused", [(np.float32, 1), (np.float64, 0)])
+def test_group_psnr_counts_its_fused_pass(dtype, fused):
+    """A float32 pair takes the fused pass and counts it once; a float64
+    pair keeps numpy and counts nothing; either opens one ``psnr`` span."""
+    rng = np.random.default_rng(9)
+    a, b = rng.normal(size=(2, 300, 56)).astype(dtype)
+    with profile(activities=[ProfilerActivity.CPU]):
+        gs_group_psnr(a, b)
+    snap = timing.snapshot()
+    assert snap["counts"].get("psnr_fused", 0) == fused
+    assert snap["spans"]["psnr"]["calls"] == 1 and snap["spans"]["psnr"]["roots"] == 1
 
 
 def test_reset_forgets_everything():
