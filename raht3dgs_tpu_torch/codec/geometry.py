@@ -40,7 +40,7 @@ from raht3dgs_tpu_torch.ops.octree import (
     octree_levels,
     octree_serialize,
 )
-from raht3dgs_tpu_torch.utils.device import DeviceLike, resolve_device
+from raht3dgs_tpu_torch.utils.device import DeviceLike, resolve_device, to_device, to_host
 
 _NATIVE_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "native"
@@ -545,8 +545,7 @@ def positions_from_geometry(
 
 def _positions(codes: np.ndarray, depth: int, device: DeviceLike) -> np.ndarray:
     dev = resolve_device(device)
-    return morton_decode(torch.as_tensor(codes, device=dev), depth).cpu().numpy() \
-        .astype(np.int64)
+    return to_host(morton_decode(to_device(codes, dev), depth)).astype(np.int64)
 
 
 def decode_geometry(

@@ -38,6 +38,12 @@ rounding. Float-to-int casts of tile and pixel indices clamp in float
 first and map NaN to 0, XLA's conversion, so a Gaussian of infinite
 radius or a NaN mean bins as in the JAX package on every device.
 
+Under a profiler (``utils/timing.py``) a view records the spans
+``project`` (projection, SH, depth order), ``bin`` (boxes, cull, keys,
+windows, the occupancy read) and ``blend``, and every increment of
+:data:`COUNTS` also adds to the program counter ``raster_<name>``
+(:func:`count`), from values the host already holds.
+
 ``RAHT3DGS_RASTER_CULL=0`` turns the cull off and
 ``RAHT3DGS_RASTER_COMPACT=0`` the compaction (both on by default), read at
 each call.
@@ -52,7 +58,8 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from raht3dgs_tpu_torch.utils.device import DeviceLike, device_of
+from raht3dgs_tpu_torch.utils import timing
+from raht3dgs_tpu_torch.utils.device import DeviceLike, device_of, to_host
 
 # 3DGS spherical-harmonics basis constants (degrees 0-3).
 _SH_C0 = 0.28209479177387814
@@ -79,14 +86,22 @@ _ALPHA_MAX = 0.999         # alpha clamp (gsplat parity)
 _NEAR_PLANE = 0.01         # near-plane cull (gsplat default)
 
 # What the rasterizer did since the last reset_counts(): views rendered by
-# _rasterize_tiled, blend chunks executed, and host reads of device values
-# (one per chunk condition, per capacity probe and per image copy).
-COUNTS = {"views": 0, "chunks": 0, "syncs": 0}
+# _rasterize_tiled, blend chunks executed, host reads of device values (one
+# per chunk condition, per capacity probe and per image copy) and entries
+# binned (after the cull, each tile's up to max_per_tile).
+COUNTS = {"views": 0, "chunks": 0, "syncs": 0, "entries": 0}
 
 
 def reset_counts() -> None:
     for name in COUNTS:
         COUNTS[name] = 0
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to ``COUNTS[name]`` and, while tracing, to the program's
+    counter ``raster_<name>`` (``utils/timing.py``)."""
+    COUNTS[name] += n
+    timing.count("raster_" + name, n)
 
 
 class RasterMeta(NamedTuple):
@@ -328,7 +343,7 @@ def _env_on(name: str) -> bool:
 def _any_transmittance(trans: torch.Tensor) -> bool:
     """Whether a pixel of these tiles has transmittance left: one host read
     of a device value."""
-    COUNTS["syncs"] += 1
+    count("syncs")
     return bool((trans > 0.0).any())
 
 
@@ -381,125 +396,129 @@ def _rasterize_tiled(means, quats, scales, opacities, sh_colors, viewmat, Kmat, 
     (image tensor (H, W, 3), :class:`RasterMeta`). ``early_exit=False``
     runs every chunk of the blend (the same bits, slower: the check that
     the exit is exact)."""
-    COUNTS["views"] += 1
+    count("views")
     N = means.shape[0]
     dev = means.device
     f32 = torch.float32
     opac = opacities.to(f32).reshape(-1)
-    means2d, conic, depths, radii, alive, vd, lam1 = project_gaussians(
-        means.to(f32), quats.to(f32), scales.to(f32), opac, viewmat.to(f32), Kmat.to(f32),
-        width, height)
-    rgb = eval_sh(sh_colors.to(f32), vd, sh_degree)
+    with timing.span("project"):
+        means2d, conic, depths, radii, alive, vd, lam1 = project_gaussians(
+            means.to(f32), quats.to(f32), scales.to(f32), opac, viewmat.to(f32), Kmat.to(f32),
+            width, height)
+        rgb = eval_sh(sh_colors.to(f32), vd, sh_degree)
 
-    # depth order: one stable sort (ties keep the index order)
-    inf = torch.full_like(depths, float("inf"))
-    order = torch.sort(torch.where(alive, depths, inf), stable=True).indices
-    # per-Gaussian render table in depth order, one wide row gather
-    table = torch.cat([means2d, conic, rgb, opac[:, None], alive.to(f32)[:, None]],
-                      dim=1)[order]
-    g_alive = table[:, 9] > 0
+        # depth order: one stable sort (ties keep the index order)
+        inf = torch.full_like(depths, float("inf"))
+        order = torch.sort(torch.where(alive, depths, inf), stable=True).indices
+        # per-Gaussian render table in depth order, one wide row gather
+        table = torch.cat([means2d, conic, rgb, opac[:, None], alive.to(f32)[:, None]],
+                          dim=1)[order]
+        g_alive = table[:, 9] > 0
 
-    # tile footprint bounding boxes (depth order)
-    tiles_x = (width + tile - 1) // tile
-    tiles_y = (height + tile - 1) // tile
-    n_tiles = tiles_x * tiles_y
-    mx, my, r = table[:, 0], table[:, 1], radii[order]
-    tx0, tx1, ty0, ty1 = _tile_bbox(mx, my, r, tile, tiles_x, tiles_y)
-    tw = tx1 - tx0 + 1
-    th = ty1 - ty0 + 1
-    n_cover = torch.where(g_alive, tw * th, torch.zeros_like(tw))
-    dup_clipped = torch.clamp(n_cover - max_tiles_per_gauss, min=0).sum()
+    with timing.span("bin"):
+        # tile footprint bounding boxes (depth order)
+        tiles_x = (width + tile - 1) // tile
+        tiles_y = (height + tile - 1) // tile
+        n_tiles = tiles_x * tiles_y
+        mx, my, r = table[:, 0], table[:, 1], radii[order]
+        tx0, tx1, ty0, ty1 = _tile_bbox(mx, my, r, tile, tiles_x, tiles_y)
+        tw = tx1 - tx0 + 1
+        th = ty1 - ty0 + 1
+        n_cover = torch.where(g_alive, tw * th, torch.zeros_like(tw))
+        dup_clipped = torch.clamp(n_cover - max_tiles_per_gauss, min=0).sum()
 
-    # static (N, M) duplication grid: entry j of Gaussian i covers tile
-    # (ty0 + j // tw, tx0 + j % tw); invalid entries get the sentinel tile
-    j = torch.arange(max_tiles_per_gauss, dtype=torch.int32, device=dev)[None, :]
-    tw_s = torch.clamp(tw, min=1)[:, None]
-    ety = ty0[:, None] + j // tw_s
-    etx = tx0[:, None] + j % tw_s
-    e_valid = (j < n_cover[:, None]) & g_alive[:, None]
+        # static (N, M) duplication grid: entry j of Gaussian i covers tile
+        # (ty0 + j // tw, tx0 + j % tw); invalid entries get the sentinel tile
+        j = torch.arange(max_tiles_per_gauss, dtype=torch.int32, device=dev)[None, :]
+        tw_s = torch.clamp(tw, min=1)[:, None]
+        ety = ty0[:, None] + j // tw_s
+        etx = tx0[:, None] + j % tw_s
+        e_valid = (j < n_cover[:, None]) & g_alive[:, None]
 
-    # exact-zero per-entry tile cull (only f32 grouping of the blend changes)
-    if _env_on("RAHT3DGS_RASTER_CULL"):
-        e_valid &= _cull_mask(mx, my, table[:, 2], table[:, 3], table[:, 4], table[:, 8],
-                              etx, ety, tile)
+        # exact-zero per-entry tile cull (only f32 grouping of the blend changes)
+        if _env_on("RAHT3DGS_RASTER_CULL"):
+            e_valid &= _cull_mask(mx, my, table[:, 2], table[:, 3], table[:, 4], table[:, 8],
+                                  etx, ety, tile)
 
-    # compaction to the post-cull width: valid entries keep their slot
-    # order, so the (tile, depth-rank) keys, and the image, are unchanged
-    if compact_tiles is not None and compact_tiles < max_tiles_per_gauss:
-        jkey = torch.where(e_valid, j.expand_as(e_valid), max_tiles_per_gauss)
-        js = torch.sort(jkey, dim=1).values[:, :compact_tiles]
-        n_valid = e_valid.sum(dim=1)
-        dup_clipped = dup_clipped + torch.clamp(n_valid - compact_tiles, min=0).sum()
-        e_valid = js < max_tiles_per_gauss
-        ety = ty0[:, None] + js // tw_s
-        etx = tx0[:, None] + js % tw_s
+        # compaction to the post-cull width: valid entries keep their slot
+        # order, so the (tile, depth-rank) keys, and the image, are unchanged
+        if compact_tiles is not None and compact_tiles < max_tiles_per_gauss:
+            jkey = torch.where(e_valid, j.expand_as(e_valid), max_tiles_per_gauss)
+            js = torch.sort(jkey, dim=1).values[:, :compact_tiles]
+            n_valid = e_valid.sum(dim=1)
+            dup_clipped = dup_clipped + torch.clamp(n_valid - compact_tiles, min=0).sum()
+            e_valid = js < max_tiles_per_gauss
+            ety = ty0[:, None] + js // tw_s
+            etx = tx0[:, None] + js % tw_s
 
-    e_tile = torch.where(e_valid, ety * tiles_x + etx, n_tiles).to(torch.int64)
+        e_tile = torch.where(e_valid, ety * tiles_x + etx, n_tiles).to(torch.int64)
 
-    # binning: one sort of unique int64 keys (tile << rank_bits) | depth rank
-    # (the grid's row index is the depth rank), then per-tile windows
-    rank_bits = max(1, int(N - 1).bit_length())
-    ranks = torch.arange(N, dtype=torch.int64, device=dev)[:, None]
-    packed_s = torch.sort(((e_tile << rank_bits) | ranks).reshape(-1)).values
-    del e_tile, e_valid, ety, etx
-    e_gauss_s = packed_s & ((1 << rank_bits) - 1)
-    tid = torch.arange(n_tiles, dtype=torch.int64, device=dev)
-    bounds = tid << rank_bits
-    starts = torch.searchsorted(packed_s, bounds, side="left")
-    ends = torch.searchsorted(packed_s, bounds + (1 << rank_bits), side="left")
-    del packed_s
-    seg_len = ends - starts
-    tile_clipped = torch.clamp(seg_len - max_per_tile, min=0).sum()
-    seg_capped = torch.clamp(seg_len, max=max_per_tile)
+        # binning: one sort of unique int64 keys (tile << rank_bits) | depth rank
+        # (the grid's row index is the depth rank), then per-tile windows
+        rank_bits = max(1, int(N - 1).bit_length())
+        ranks = torch.arange(N, dtype=torch.int64, device=dev)[:, None]
+        packed_s = torch.sort(((e_tile << rank_bits) | ranks).reshape(-1)).values
+        del e_tile, e_valid, ety, etx
+        e_gauss_s = packed_s & ((1 << rank_bits) - 1)
+        tid = torch.arange(n_tiles, dtype=torch.int64, device=dev)
+        bounds = tid << rank_bits
+        starts = torch.searchsorted(packed_s, bounds, side="left")
+        ends = torch.searchsorted(packed_s, bounds + (1 << rank_bits), side="left")
+        del packed_s
+        seg_len = ends - starts
+        tile_clipped = torch.clamp(seg_len - max_per_tile, min=0).sum()
+        seg_capped = torch.clamp(seg_len, max=max_per_tile)
 
-    # per-tile pixel grid (pixel centers, gsplat convention)
-    tpx = (tid % tiles_x) * tile
-    tpy = (tid // tiles_x) * tile
-    p = torch.arange(tile * tile, dtype=torch.int64, device=dev)
-    pxf = (tpx[:, None] + (p % tile)[None, :]).to(f32) + 0.5
-    pyf = (tpy[:, None] + (p // tile)[None, :]).to(f32) + 0.5
+        # per-tile pixel grid (pixel centers, gsplat convention)
+        tpx = (tid % tiles_x) * tile
+        tpy = (tid // tiles_x) * tile
+        p = torch.arange(tile * tile, dtype=torch.int64, device=dev)
+        pxf = (tpx[:, None] + (p % tile)[None, :]).to(f32) + 0.5
+        pyf = (tpy[:, None] + (p // tile)[None, :]).to(f32) + 0.5
 
-    # front-to-back blend: tiles by occupancy, descending, in bands of
-    # shrinking width; each band runs until every tile outside the next
-    # band is exhausted or saturated (the chunk counter carries across).
-    # The occupancies come to the host once: the tiles with entries left at
-    # chunk i are a prefix of the order, and only that prefix is blended (a
-    # tile past its entries would add exactly 0.0 and keep its
-    # transmittance), so only the saturation test reads the device.
-    P = tile * tile
-    n_chunks = (max_per_tile + chunk - 1) // chunk
-    occ_perm = torch.sort(-seg_capped, stable=True).indices
-    starts_o, seg_o = starts[occ_perm], seg_capped[occ_perm]
-    pxf_o, pyf_o = pxf[occ_perm], pyf[occ_perm]
-    COUNTS["syncs"] += 1
-    neg_seg = (-seg_o).tolist()   # ascending
+        # front-to-back blend: tiles by occupancy, descending, in bands of
+        # shrinking width; each band runs until every tile outside the next
+        # band is exhausted or saturated (the chunk counter carries across).
+        # The occupancies come to the host once: the tiles with entries left at
+        # chunk i are a prefix of the order, and only that prefix is blended (a
+        # tile past its entries would add exactly 0.0 and keep its
+        # transmittance), so only the saturation test reads the device.
+        P = tile * tile
+        n_chunks = (max_per_tile + chunk - 1) // chunk
+        occ_perm = torch.sort(-seg_capped, stable=True).indices
+        starts_o, seg_o = starts[occ_perm], seg_capped[occ_perm]
+        pxf_o, pyf_o = pxf[occ_perm], pyf[occ_perm]
+        count("syncs")
+        neg_seg = to_host(-seg_o).tolist()   # ascending
+        count("entries", -sum(neg_seg))
 
-    widths = [n_tiles]
-    while widths[-1] > 8:
-        widths.append(-(-widths[-1] // 4))
+    with timing.span("blend"):
+        widths = [n_tiles]
+        while widths[-1] > 8:
+            widths.append(-(-widths[-1] // 4))
 
-    i = 0
-    acc = torch.zeros((n_tiles, P, 3), dtype=f32, device=dev)
-    trans = torch.ones((n_tiles, P), dtype=f32, device=dev)
-    for si, Ws in enumerate(widths):
-        Wn = widths[si + 1] if si + 1 < len(widths) else 0
-        while i < n_chunks:
-            k = min(Ws, bisect.bisect_left(neg_seg, -i * chunk))  # entries left
-            if early_exit and (k <= Wn or not _any_transmittance(trans[Wn:k])):
-                break
-            if k:
-                n_slots = min(chunk, -neg_seg[0] - i * chunk)
-                _blend_chunk(i, acc[:k], trans[:k], starts_o[:k], seg_o[:k], pxf_o[:k],
-                             pyf_o[:k], table, e_gauss_s, chunk, n_slots)
-                COUNTS["chunks"] += 1
-            i += 1
+        i = 0
+        acc = torch.zeros((n_tiles, P, 3), dtype=f32, device=dev)
+        trans = torch.ones((n_tiles, P), dtype=f32, device=dev)
+        for si, Ws in enumerate(widths):
+            Wn = widths[si + 1] if si + 1 < len(widths) else 0
+            while i < n_chunks:
+                k = min(Ws, bisect.bisect_left(neg_seg, -i * chunk))  # entries left
+                if early_exit and (k <= Wn or not _any_transmittance(trans[Wn:k])):
+                    break
+                if k:
+                    n_slots = min(chunk, -neg_seg[0] - i * chunk)
+                    _blend_chunk(i, acc[:k], trans[:k], starts_o[:k], seg_o[:k], pxf_o[:k],
+                                 pyf_o[:k], table, e_gauss_s, chunk, n_slots)
+                    count("chunks")
+                i += 1
 
-    inv_perm = torch.argsort(occ_perm)
-    acc, trans = acc[inv_perm], trans[inv_perm]
-    img_tiles = acc + trans[:, :, None] * background[None, None, :]
-    img = (img_tiles.reshape(tiles_y, tiles_x, tile, tile, 3)
-           .permute(0, 2, 1, 3, 4)
-           .reshape(tiles_y * tile, tiles_x * tile, 3))[:height, :width]
+        inv_perm = torch.argsort(occ_perm)
+        acc, trans = acc[inv_perm], trans[inv_perm]
+        img_tiles = acc + trans[:, :, None] * background[None, None, :]
+        img = (img_tiles.reshape(tiles_y, tiles_x, tile, tile, 3)
+               .permute(0, 2, 1, 3, 4)
+               .reshape(tiles_y * tile, tiles_x * tile, 3))[:height, :width]
     return img, RasterMeta(dup_clipped, tile_clipped)
 
 
@@ -601,7 +620,7 @@ def _tensors(dev, *arrays):
 
 
 def _read_int(x: torch.Tensor) -> int:
-    COUNTS["syncs"] += 1
+    count("syncs")
     return int(x)
 
 
@@ -675,7 +694,7 @@ def rasterize_gaussians(means, quats, scales, opacities, colors, viewmat, Kmat, 
         t_means, t_quats, t_scales, t_opac, sh, t_view, t_K, bg, width=width, height=height,
         sh_degree=sh_degree, tile=tile, max_tiles_per_gauss=max_tiles_per_gauss,
         max_per_tile=max_per_tile, chunk=chunk, compact_tiles=compact_tiles)
-    COUNTS["syncs"] += 1
+    count("syncs")
     return img.cpu().numpy(), meta
 
 

@@ -103,7 +103,7 @@ def volumetric_render(params: Dict[str, np.ndarray], viewmats, Ks, width, height
             img, meta = rasterize.rasterize_gaussians(
                 scene["means"], scene["quats"], scene["scales"], opac, scene["colors"],
                 viewmats[i], Ks[i], width, height, **caps)
-            rasterize.COUNTS["syncs"] += 1
+            rasterize.count("syncs")
             dup, tile = torch.stack([meta.dup_clipped, meta.tile_clipped]).tolist()
             if (not dup and not tile) or attempt == max_retries:
                 break

@@ -479,15 +479,15 @@ def upload_quantized(up: QuantizedUpload, *, device: DeviceLike = None) -> torch
     own index and value, so the order of duplicate writes is immaterial."""
     dev = resolve_device(device)
     if up.shape is not None:
-        val = torch.as_tensor(up.vals).to(dev)
+        val = to_device(up.vals, dev)
         flat = torch.zeros(int(np.prod(up.shape)), dtype=val.dtype, device=dev)
-        flat[torch.as_tensor(up.patch_idx).to(dev).long()] = val
+        flat[to_device(up.patch_idx, dev).long()] = val
         return flat.reshape(up.shape)
-    vals = torch.as_tensor(up.vals).to(dev)
+    vals = to_device(up.vals, dev)
     if up.patch_idx.size == 0:
         return vals
     flat = vals.to(torch.int32).reshape(-1)
-    flat[torch.as_tensor(up.patch_idx).to(dev).long()] = torch.as_tensor(up.patch_val).to(dev)
+    flat[to_device(up.patch_idx, dev).long()] = to_device(up.patch_val, dev)
     return flat.reshape(vals.shape)
 
 

@@ -30,6 +30,15 @@ as the JAX package's replicated program does; ``serve_tiled_frame`` and
 ``serve_sequence`` with ``mesh=`` decode on the first device and copy the
 scene to the others. Images are bitwise the unsharded call's when the
 devices are of one kind.
+
+Under a profiler (``utils/timing.py``) every frame that ``serve_frame``,
+``serve_frame_predicted``, ``serve_tiled_frame`` or ``serve_sequence``
+serves is a request root ``serve``, with the children ``geometry``
+(positions from the stream's geometry section and the padded frame),
+``rlgr_decode`` (the host entropy decode), ``upload`` (the narrowing
+pack and the upload), ``inverse`` (inverse order, dequantization, the
+inverse RAHT and the scene build) and ``render`` (one a view, with the
+rasterizer's ``project``, ``bin`` and ``blend`` under it).
 """
 
 from __future__ import annotations
@@ -59,7 +68,13 @@ from raht3dgs_tpu_torch.ops.praht_device import praht_device_decode, praht_devic
 from raht3dgs_tpu_torch.ops.raht_span import raht_inverse_span, raht_structure_span
 from raht3dgs_tpu_torch.parallel.render import render_sharded
 from raht3dgs_tpu_torch.parallel.render import render_views as _render_views
-from raht3dgs_tpu_torch.utils.device import DeviceLike, device_of, resolve_device
+from raht3dgs_tpu_torch.utils import timing
+from raht3dgs_tpu_torch.utils.device import (
+    DeviceLike,
+    device_of,
+    resolve_device,
+    to_device,
+)
 
 __all__ = [
     "decode_scene_device",
@@ -182,6 +197,7 @@ def _render_on(devices, scene, viewmats, Ks, bg, **kw):
                           np.ones(3) if bg is None else bg, **kw)
 
 
+@timing.spanned("serve")
 def serve_frame(vals_T, inv, steps, codes, weights, voxel_size, vmin, viewmats, Ks, bg=None,
                 *, depth: int, width: int, height: int, sh_degree: int = 3, tile: int = 16,
                 max_tiles_per_gauss: int = 16, max_per_tile: int = 8192, chunk: int = 128,
@@ -193,15 +209,17 @@ def serve_frame(vals_T, inv, steps, codes, weights, voxel_size, vmin, viewmats, 
     ``image_dtype=torch.uint8`` quantizes the images on the device
     (``clip(img, 0, 1) * 255``) so a fetch moves a quarter of the bytes;
     keep float32 for evaluation (PSNR is defined on the float render)."""
-    scene = decode_scene_device(vals_T, inv, steps, codes, weights, voxel_size, vmin,
-                                depth=depth, quant_mode=quant_mode, rec_delta=rec_delta,
-                                device=device)
+    with timing.span("inverse"):
+        scene = decode_scene_device(vals_T, inv, steps, codes, weights, voxel_size, vmin,
+                                    depth=depth, quant_mode=quant_mode, rec_delta=rec_delta,
+                                    device=device)
     return _render_scene_views(
         scene, viewmats, Ks, bg, width=width, height=height, sh_degree=sh_degree,
         tile=tile, max_tiles_per_gauss=max_tiles_per_gauss, max_per_tile=max_per_tile,
         chunk=chunk, image_dtype=image_dtype)
 
 
+@timing.spanned("serve")
 def serve_frame_predicted(vals_T, inv, plan, predict_mask, steps, codes, weights, voxel_size,
                           vmin, viewmats, Ks, bg=None, *, depth: int, width: int,
                           height: int, sh_degree: int = 3, tile: int = 16,
@@ -212,9 +230,10 @@ def serve_frame_predicted(vals_T, inv, plan, predict_mask, steps, codes, weights
     """:func:`serve_frame` for predicted-RAHT streams: the closed-loop decode
     runs on the device (non-normative, serving only; see
     :func:`decode_scene_device_predicted`)."""
-    scene = decode_scene_device_predicted(
-        vals_T, inv, plan, predict_mask, steps, codes, weights, voxel_size, vmin,
-        depth=depth, quant_mode=quant_mode, rec_delta=rec_delta, device=device)
+    with timing.span("inverse"):
+        scene = decode_scene_device_predicted(
+            vals_T, inv, plan, predict_mask, steps, codes, weights, voxel_size, vmin,
+            depth=depth, quant_mode=quant_mode, rec_delta=rec_delta, device=device)
     return _render_scene_views(
         scene, viewmats, Ks, bg, width=width, height=height, sh_degree=sh_degree,
         tile=tile, max_tiles_per_gauss=max_tiles_per_gauss, max_per_tile=max_per_tile,
@@ -351,6 +370,7 @@ def _decode_bricks_device(vals_flat, codes_flat, weights_flat, nvox_K, steps, vo
     return tuple(torch.cat([p[f] for p in outs], dim=0) for f in range(5))
 
 
+@timing.spanned("serve")
 def serve_tiled_frame(data, viewmats, Ks, bg=None, *, width, height, positions=None,
                       bricks=None, bucket=1 << 10, margin=0.0, mesh=None, axis="dp",
                       sh_degree=3, tile=16, max_tiles_per_gauss=16, max_per_tile=8192,
@@ -387,26 +407,28 @@ def serve_tiled_frame(data, viewmats, Ks, bg=None, *, width, height, positions=N
         raise ValueError("no brick is visible from the requested views")
 
     by_brick = None
-    if positions is None and reader.geometry is not None:
-        positions = positions_from_geometry(reader.geometry, depth, reader.n_voxels,
-                                            device=dev)
-    if positions is not None:
-        by_brick = positions_by_brick(positions, depth, reader.brick_depth)
+    with timing.span("geometry"):
+        if positions is None and reader.geometry is not None:
+            positions = positions_from_geometry(reader.geometry, depth, reader.n_voxels,
+                                                device=dev)
+        if positions is not None:
+            by_brick = positions_by_brick(positions, depth, reader.brick_depth)
 
-    # host pass: each selected brick's stream and positions
-    host = []
-    for i in sorted(sel):
-        stream = reader.tile(i)
-        if stream.geometry is not None:
-            Vt = positions_from_geometry(stream.geometry, depth, stream.n_voxels, device=dev)
-        elif by_brick is not None:
-            Vt = by_brick[int(reader.keys[i])]
-        else:
-            raise ValueError("tiles carry no geometry; pass the frame's positions")
-        if len(Vt) != stream.n_voxels:
-            raise ValueError(
-                f"brick {i}: {len(Vt)} positions != {stream.n_voxels} coded voxels")
-        host.append((stream, np.asarray(Vt, dtype=np.int64)))
+        # host pass: each selected brick's stream and positions
+        host = []
+        for i in sorted(sel):
+            stream = reader.tile(i)
+            if stream.geometry is not None:
+                Vt = positions_from_geometry(stream.geometry, depth, stream.n_voxels,
+                                             device=dev)
+            elif by_brick is not None:
+                Vt = by_brick[int(reader.keys[i])]
+            else:
+                raise ValueError("tiles carry no geometry; pass the frame's positions")
+            if len(Vt) != stream.n_voxels:
+                raise ValueError(
+                    f"brick {i}: {len(Vt)} positions != {stream.n_voxels} coded voxels")
+            host.append((stream, np.asarray(Vt, dtype=np.int64)))
 
     stream0 = host[0][0]
     D = stream0.n_channels
@@ -424,22 +446,27 @@ def serve_tiled_frame(data, viewmats, Ks, bg=None, *, width, height, positions=N
     parts = tuple(-((-max(len(v), 1)) // bucket) * bucket for _, v in host)
     codes_K, weights_K, vals_K = [], [], []
     for (stream, Vt), Pk in zip(host, parts):
-        codes_p, w_p = _padded_frame_np(Vt, depth, Pk)
+        with timing.span("geometry"):
+            codes_p, w_p = _padded_frame_np(Vt, depth, Pk)
         vals_T = np.zeros((D, Pk), dtype=np.int32)
         decode_entropy_channels(stream, stream.n_voxels, vals_T)
         codes_K.append(codes_p.astype(np.int64))
         weights_K.append(w_p)
         vals_K.append(vals_T)
     cdt_all = _NP_CODE[code_dtype(depth, max(parts))]
-    scene = _decode_bricks_device(
-        upload_quantized(pack_quantized_upload(np.concatenate(vals_K, axis=1)), device=dev),
-        torch.as_tensor(np.concatenate(codes_K).astype(cdt_all), device=dev),
-        torch.as_tensor(np.concatenate(weights_K), device=dev),
-        [st.n_voxels for st, _ in host], _steps_f32(stream0.steps, dev), voxel_size, vmin,
-        [st.predict_mask or 0 for st, _ in host], depth=depth, parts=parts,
-        predicted=tuple(bool(st.predict) for st, _ in host),
-        order_mode=stream0.order_mode, quant_mode=stream0.quant_mode,
-        rec_delta=stream0.rec_delta)
+    with timing.span("upload"):
+        vals_dev = upload_quantized(pack_quantized_upload(np.concatenate(vals_K, axis=1)),
+                                    device=dev)
+        codes_dev = to_device(np.concatenate(codes_K).astype(cdt_all), dev)
+        weights_dev = to_device(np.concatenate(weights_K), dev)
+    with timing.span("inverse"):
+        scene = _decode_bricks_device(
+            vals_dev, codes_dev, weights_dev, [st.n_voxels for st, _ in host],
+            _steps_f32(stream0.steps, dev), voxel_size, vmin,
+            [st.predict_mask or 0 for st, _ in host], depth=depth, parts=parts,
+            predicted=tuple(bool(st.predict) for st, _ in host),
+            order_mode=stream0.order_mode, quant_mode=stream0.quant_mode,
+            rec_delta=stream0.rec_delta)
     imgs, dups, tiles = _render_on(
         devices, scene, viewmats, Ks, bg, width=width, height=height, sh_degree=sh_degree,
         tile=tile, max_tiles_per_gauss=max_tiles_per_gauss, max_per_tile=max_per_tile,
@@ -462,19 +489,21 @@ def _seq_step_body(vals_T, codes, weights, nvox, steps, mv, prev_codes, prev_att
     ``devices`` the views are sharded over them."""
     from raht3dgs_tpu_torch.ops.temporal import predict_from_previous
 
-    inv = _inverse_order_device(codes, weights, nvox, depth, order_mode)
-    if predict_mask is not None:
-        attrs = _predicted_attrs(_plan_of(codes, weights, depth), vals_T, inv, predict_mask,
-                                 steps, codes, weights, depth, quant_mode, rec_delta)
-    else:
-        attrs = _dequant_inverse(vals_T, inv, steps, codes, weights, depth, quant_mode,
-                                 rec_delta)
-    if mv is not None:
-        pred, _ = predict_from_previous(codes, prev_codes, prev_attrs, prev_weights, depth,
-                                        probes, mv)
-        attrs = attrs + pred
-    attrs = attrs * (weights > 0)[:, None]
-    scene = _scene_from_attrs(attrs, codes, weights, voxel_size, vmin, depth)
+    with timing.span("inverse"):
+        inv = _inverse_order_device(codes, weights, nvox, depth, order_mode)
+        if predict_mask is not None:
+            attrs = _predicted_attrs(_plan_of(codes, weights, depth), vals_T, inv,
+                                     predict_mask, steps, codes, weights, depth, quant_mode,
+                                     rec_delta)
+        else:
+            attrs = _dequant_inverse(vals_T, inv, steps, codes, weights, depth, quant_mode,
+                                     rec_delta)
+        if mv is not None:
+            pred, _ = predict_from_previous(codes, prev_codes, prev_attrs, prev_weights,
+                                            depth, probes, mv)
+            attrs = attrs + pred
+        attrs = attrs * (weights > 0)[:, None]
+        scene = _scene_from_attrs(attrs, codes, weights, voxel_size, vmin, depth)
     imgs, dups, tiles = _render_on(
         devices, scene, viewmats, Ks, bg, width=width, height=height, sh_degree=sh_degree,
         tile=tile, max_tiles_per_gauss=max_tiles_per_gauss, max_per_tile=max_per_tile,
@@ -541,49 +570,56 @@ def _serve_sequence(streams, viewmats, Ks, bg, dev, devices, *, width, height, p
 
     prev = None  # (codes, attrs, weights) of the previous frame, on the device
     for i, stream in enumerate(streams):
-        if not isinstance(stream, FrameStream):
-            stream = FrameStream.from_bytes(stream)
-        if stream.inter and prev is None:
-            raise ValueError(f"frame {i} is inter but no frame precedes")
-        if stream.inter and stream.motion is None:
-            raise NotImplementedError(
-                "serve_sequence: v2 derived-motion stream — decode "
-                "normatively with SequenceCodec.decode_sequence")
-        if positions is None:
-            if stream.geometry is None:
-                raise ValueError(f"frame {i} carries no geometry section; pass positions")
-            Vt = positions_from_geometry(stream.geometry, stream.depth, stream.n_voxels,
-                                         device=dev)
-        else:
-            Vt = positions(i) if callable(positions) else positions[i]
-        Vt = np.asarray(Vt, dtype=np.int64)
-        if len(Vt) != stream.n_voxels:
-            raise ValueError(
-                f"frame {i}: {len(Vt)} positions != {stream.n_voxels} coded voxels")
-        depth = stream.depth
-        P = -((-max(len(Vt), 1)) // bucket) * bucket
-        codes_p, w_p = _padded_frame_np(Vt, depth, P)
-        vals_T = np.zeros((stream.n_channels, P), dtype=np.int32)
-        k = stream.n_voxels
-        if progressive:
-            if stream.inter:
-                raise ValueError(
-                    "progressive serving needs an all-intra sequence — "
-                    "a truncated residual corrupts the prediction chain")
-            k = int(min(max(progressive, 1), stream.n_voxels))
-        decode_entropy_channels(stream, k, vals_T)
-        mv = (None if not stream.inter else torch.as_tensor(
-            _unpack_motion(stream.motion, codes_p, stream.n_voxels, P, depth), device=dev))
-        codes_dev = torch.as_tensor(codes_p, device=dev)
-        weights_dev = torch.as_tensor(w_p, device=dev)
-        pc, pa, pw = prev if stream.inter else (None, None, None)
-        imgs, dups, tiles, attrs = _seq_step_body(
-            upload_quantized(pack_quantized_upload(vals_T), device=dev), codes_dev,
-            weights_dev, stream.n_voxels, _steps_f32(stream.steps, dev), mv, pc, pa, pw,
-            stream.predict_mask if stream.predict else None,
-            float(stream.width) / (1 << depth), np.asarray(stream.vmin), vms, Kms, bg,
-            depth=depth, probes=stream.probes, order_mode=stream.order_mode,
-            quant_mode=stream.quant_mode, rec_delta=stream.rec_delta, width=width,
-            height=height, devices=devices, **raster)
-        prev = (codes_dev, attrs, weights_dev)
+        # the frame's span closes before the yield: the consumer's own spans
+        # are not the frame's children
+        with timing.span("serve"):
+            if not isinstance(stream, FrameStream):
+                stream = FrameStream.from_bytes(stream)
+            if stream.inter and prev is None:
+                raise ValueError(f"frame {i} is inter but no frame precedes")
+            if stream.inter and stream.motion is None:
+                raise NotImplementedError(
+                    "serve_sequence: v2 derived-motion stream — decode "
+                    "normatively with SequenceCodec.decode_sequence")
+            with timing.span("geometry"):
+                if positions is None:
+                    if stream.geometry is None:
+                        raise ValueError(
+                            f"frame {i} carries no geometry section; pass positions")
+                    Vt = positions_from_geometry(stream.geometry, stream.depth,
+                                                 stream.n_voxels, device=dev)
+                else:
+                    Vt = positions(i) if callable(positions) else positions[i]
+                Vt = np.asarray(Vt, dtype=np.int64)
+                if len(Vt) != stream.n_voxels:
+                    raise ValueError(
+                        f"frame {i}: {len(Vt)} positions != {stream.n_voxels} coded voxels")
+                depth = stream.depth
+                P = -((-max(len(Vt), 1)) // bucket) * bucket
+                codes_p, w_p = _padded_frame_np(Vt, depth, P)
+            vals_T = np.zeros((stream.n_channels, P), dtype=np.int32)
+            k = stream.n_voxels
+            if progressive:
+                if stream.inter:
+                    raise ValueError(
+                        "progressive serving needs an all-intra sequence — "
+                        "a truncated residual corrupts the prediction chain")
+                k = int(min(max(progressive, 1), stream.n_voxels))
+            decode_entropy_channels(stream, k, vals_T)
+            mv = (None if not stream.inter else torch.as_tensor(
+                _unpack_motion(stream.motion, codes_p, stream.n_voxels, P, depth), device=dev))
+            with timing.span("upload"):
+                vals_dev = upload_quantized(pack_quantized_upload(vals_T), device=dev)
+                codes_dev = to_device(codes_p, dev)
+                weights_dev = to_device(w_p, dev)
+            pc, pa, pw = prev if stream.inter else (None, None, None)
+            imgs, dups, tiles, attrs = _seq_step_body(
+                vals_dev, codes_dev, weights_dev, stream.n_voxels,
+                _steps_f32(stream.steps, dev), mv, pc, pa, pw,
+                stream.predict_mask if stream.predict else None,
+                float(stream.width) / (1 << depth), np.asarray(stream.vmin), vms, Kms, bg,
+                depth=depth, probes=stream.probes, order_mode=stream.order_mode,
+                quant_mode=stream.quant_mode, rec_delta=stream.rec_delta, width=width,
+                height=height, devices=devices, **raster)
+            prev = (codes_dev, attrs, weights_dev)
         yield imgs, dups, tiles

@@ -22,6 +22,7 @@ import torch
 
 from raht3dgs_tpu_torch.eval.rasterize import RasterMeta, _colors_to_sh, _rasterize_tiled
 from raht3dgs_tpu_torch.parallel.sharding import Mesh, _on, make_mesh
+from raht3dgs_tpu_torch.utils import timing
 
 F32 = torch.float32
 
@@ -29,16 +30,17 @@ F32 = torch.float32
 def render_views(scene, viewmats, Ks, bg, *, width, height, sh_degree, tile,
                  max_tiles_per_gauss, max_per_tile, chunk):
     """The single-view rasterizer over (V, 4, 4) cameras on the scene's
-    device, one view at a time: ``scene`` is (means, quats, scales,
-    opacities, SH colours (N, K, 3)). Returns (images (V, H, W, 3),
-    dup_clipped (V,), tile_clipped (V,))."""
+    device, one view at a time, each in the span ``render``: ``scene`` is
+    (means, quats, scales, opacities, SH colours (N, K, 3)). Returns
+    (images (V, H, W, 3), dup_clipped (V,), tile_clipped (V,))."""
     means, quats, scales, opac, colors = scene
     imgs, dups, tiles = [], [], []
     for vm, Km in zip(viewmats, Ks):
-        img, meta = _rasterize_tiled(
-            means, quats, scales, opac, colors, vm, Km, bg, width=width, height=height,
-            sh_degree=sh_degree, tile=tile, max_tiles_per_gauss=max_tiles_per_gauss,
-            max_per_tile=max_per_tile, chunk=chunk)
+        with timing.span("render"):
+            img, meta = _rasterize_tiled(
+                means, quats, scales, opac, colors, vm, Km, bg, width=width, height=height,
+                sh_degree=sh_degree, tile=tile, max_tiles_per_gauss=max_tiles_per_gauss,
+                max_per_tile=max_per_tile, chunk=chunk)
         imgs.append(img)
         dups.append(meta.dup_clipped)
         tiles.append(meta.tile_clipped)

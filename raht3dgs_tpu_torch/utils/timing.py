@@ -26,7 +26,7 @@ Spans, by layer (the request roots first):
 - roots: ``prepare_frame_batch``, ``prelude`` (``prepare_voxel_frame``),
   ``transform`` (``BatchAttributeCodec.transform``), ``encode_sweep`` and
   ``decode`` (both codecs), ``encode_gs_frame``, ``merge``
-  (``compress_to_nvox``);
+  (``compress_to_nvox``), ``serve`` (a frame of ``models/serving.py``);
 - frame preparation: ``prelude`` > ``host_sort``, ``upload``;
 - voxelizer and merge: ``merge`` > ``upload``, ``voxelize_merge``,
   ``download``;
@@ -37,15 +37,20 @@ Spans, by layer (the request roots first):
 - host entropy coder: ``rlgr_encode``, ``rlgr_decode`` (the native batch
   calls of ``codec/rlgr.py``);
 - quality scoring: ``psnr`` (``y_psnr_db``; ``gs_group_psnr``, numpy or, on a
-  float32 pair, the fused native pass of ``native/sq_diff.cpp``).
+  float32 pair, the fused native pass of ``native/sq_diff.cpp``);
+- serving: ``serve`` > ``geometry``, ``rlgr_decode``, ``upload``,
+  ``inverse``, ``render``;
+- rasterizer: ``render`` (a view of ``parallel/render.py:render_views``) >
+  ``project``, ``bin``, ``blend`` (``eval/rasterize.py``).
 
 Counters (:data:`COUNTS`): ``h2d_bytes_pageable``, ``h2d_bytes_pinned``,
 ``d2h_bytes_pageable``, ``d2h_bytes_pinned`` (``utils/device.py``'s copy
 helpers), ``voxel_steps`` (voxels x steps of each ``encode_sweep``),
 ``frames_prepared``, ``rlgr_job_ns`` (the sum of the native jobs' own
 nanoseconds), ``rlgr_thread_slots`` (each batch call's wall ns x the
-pool's threads) and ``psnr_fused`` (``gs_group_psnr`` calls that took the
-fused pass).
+pool's threads), ``psnr_fused`` (``gs_group_psnr`` calls that took the
+fused pass) and the rasterizer's ``raster_views``, ``raster_chunks``,
+``raster_syncs`` and ``raster_entries`` (``eval/rasterize.py:COUNTS``).
 :func:`snapshot` reads them, :func:`reset` clears them.
 """
 
