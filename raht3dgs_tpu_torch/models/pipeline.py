@@ -22,13 +22,19 @@ and inter-depth predicted RAHT (``predict=True``: the device encoder
 for every decode of a predicted stream). The codec's own decode uploads
 its symbols as int32; the serving path (``models/serving.py``) uploads
 them through the narrowing tiers ``pack_quantized_upload`` /
-``upload_quantized``.
+``upload_quantized``. The host pack of a C-contiguous int32 matrix is two
+threaded native passes (``native/upload_pack.cpp``, built with g++ into
+``_build/`` on first use and called through ctypes): one counts fixed
+blocks, one writes the tier picked from the counts, the JAX package's
+arrays on any pool size. An empty array, a strided view or one of 2^31 or
+more entries keeps the JAX package's numpy passes.
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import ctypes
 import hashlib
 import os
 import queue
@@ -40,6 +46,7 @@ from typing import List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from raht3dgs_tpu_torch.codec._native import NativeLib, gxx_command
 from raht3dgs_tpu_torch.codec.bitstream import FrameStream
 from raht3dgs_tpu_torch.codec.rac import (
     rac_decode,
@@ -389,6 +396,23 @@ def _upload_sparse_enabled() -> bool:
     return os.environ.get("RAHT3DGS_UPLOAD_SPARSE", "1") not in ("0", "false", "")
 
 
+def _bucket(n: int, lo: int) -> int:
+    """The power-of-two bucket, at least ``lo``, that ``n`` entries pad to."""
+    bucket = lo
+    while bucket < n:
+        bucket *= 2
+    return bucket
+
+
+def _value_dtype(vmax: int) -> np.dtype:
+    """The narrowest dtype that holds every value of magnitude <= ``vmax``."""
+    if vmax < 128:
+        return np.dtype(np.int8)
+    if vmax < (1 << 15):
+        return np.dtype(np.int16)
+    return np.dtype(np.int32)
+
+
 def _sparse_upload(vals_T: np.ndarray, nz: np.ndarray, dense_bytes: int):
     """The sparse tier when its (padded) indices and values beat the best
     dense tier, else ``None``. Values take the narrowest dtype holding every
@@ -396,17 +420,9 @@ def _sparse_upload(vals_T: np.ndarray, nz: np.ndarray, dense_bytes: int):
     entry 0 (the same index and value written again)."""
     val = vals_T.reshape(-1)[nz]
     a = np.abs(val, dtype=np.int64)
-    vmax = int(a.max()) if val.size else 0
-    if vmax < 128:
-        vdt = np.int8
-    elif vmax < (1 << 15):
-        vdt = np.int16
-    else:
-        vdt = np.int32
-    bucket = 64
-    while bucket < nz.size:
-        bucket *= 2
-    if bucket * (4 + np.dtype(vdt).itemsize) >= dense_bytes:
+    vdt = _value_dtype(int(a.max()) if val.size else 0)
+    bucket = _bucket(nz.size, 64)
+    if bucket * (4 + vdt.itemsize) >= dense_bytes:
         return None
     pad = bucket - nz.size
     if pad:
@@ -422,28 +438,113 @@ def _padded_patch(vals_narrow: np.ndarray, over: np.ndarray,
     """The overflow patch (index, exact value), padded to a power-of-two
     bucket with copies of entry 0 (identical writes)."""
     val = flat[over]
-    bucket = 8
-    while bucket < over.size:
-        bucket *= 2
-    pad = bucket - over.size
+    pad = _bucket(over.size, 8) - over.size
     idx = np.concatenate([over, np.full(pad, over[0], np.int32)])
     val = np.concatenate([val, np.full(pad, val[0], np.int32)])
     return QuantizedUpload(vals_narrow, idx, val)
 
 
-def pack_quantized_upload(vals_T: np.ndarray) -> QuantizedUpload:
-    """Narrow an int32 quantized matrix to int8/int16 even when a handful of
-    entries overflow, carrying the overflows as an exact patch; or, for a
-    mostly-zero matrix, its nonzeros alone.
+def _configure_pack(lib: ctypes.CDLL) -> None:
+    vp, size, i32 = ctypes.c_void_p, ctypes.c_size_t, ctypes.c_int
+    lib.upload_pack_block.argtypes = []
+    lib.upload_pack_block.restype = size
+    lib.upload_pack_count.argtypes = [vp, size, i32, vp]
+    lib.upload_pack_narrow.argtypes = [vp, size, i32, vp, i32, vp, vp, vp]
+    lib.upload_pack_sparse.argtypes = [vp, size, i32, vp, i32, vp, vp]
+    for f in (lib.upload_pack_count, lib.upload_pack_narrow, lib.upload_pack_sparse):
+        f.restype = i32
 
-    Patch policy: int16 + patch while the patch (8 bytes an entry) costs at
-    most half the 2 bytes an entry that int16 saves against int32 (``P <=
-    size // 8``); int8 + patch while it costs at most half the byte an entry
-    that int8 saves against int16 (``P <= size // 16``).
-    ``RAHT3DGS_UPLOAD_PATCH=0`` restores the all-or-nothing int16/int32
-    choice. The JAX package's choice, array for array."""
-    if vals_T.dtype != np.int32:
+
+UPLOAD_PACK = NativeLib(
+    os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "native",
+                 "upload_pack.cpp"),
+    "libuploadpack.so", _configure_pack, lambda src, out: gxx_command(src, out, ("-pthread",)))
+
+
+def _native_packable(vals_T: np.ndarray) -> bool:
+    """Whether the native pass reads an int32 matrix: C-contiguous and
+    aligned, with 1 to 2^31 - 1 entries (its flat indices are int32)."""
+    return (vals_T.flags.c_contiguous and vals_T.flags.aligned
+            and 0 < vals_T.size < (1 << 31))
+
+
+def _block_offsets(col: np.ndarray) -> np.ndarray:
+    """Each block's exclusive-prefix offset into a list the blocks write."""
+    off = np.zeros(col.size, np.int64)
+    np.cumsum(col[:-1], out=off[1:])
+    return off
+
+
+def _ptr(a: Optional[np.ndarray]):
+    return None if a is None else a.ctypes.data
+
+
+def _pad_entries(idx: np.ndarray, val: np.ndarray, k: int) -> None:
+    """Fill the bucket past the ``k`` written entries with copies of entry
+    0, or with zeros where none was written."""
+    idx[k:] = idx[0] if k else 0
+    val[k:] = val[0] if k else 0
+
+
+def pack_upload_native(vals_T: np.ndarray, threads: int = 0) -> QuantizedUpload:
+    """:func:`pack_quantized_upload` of a C-contiguous, aligned int32 matrix
+    with 1 to 2^31 - 1 entries in two threaded native passes
+    (``native/upload_pack.cpp``): one that counts each fixed block's
+    nonzeros, overflows of int8 and int16 and largest magnitude, then, with
+    the tier picked here from the totals, one that writes that tier alone at
+    each block's prefix offset. The same arrays as the numpy pack on any
+    pool size; ``threads`` <= 0 takes the hardware concurrency."""
+    if vals_T.dtype != np.int32 or not _native_packable(vals_T):
+        raise ValueError("pack_upload_native takes a C-contiguous, aligned int32 array "
+                         "with 1 to 2**31 - 1 entries")
+    lib = UPLOAD_PACK.load()
+    n = vals_T.size
+    src = vals_T.ctypes.data
+    counts = np.empty((-(-n // lib.upload_pack_block()), 4), np.int64)
+    if lib.upload_pack_count(src, n, threads, counts.ctypes.data) != 0:
+        raise RuntimeError("upload_pack_count failed")
+    nnz, over8, over16 = (int(t) for t in counts[:, :3].sum(axis=0))
+    patch_ok = _upload_patch_enabled()
+    if over8 == 0 or (patch_ok and over8 <= n // 16):
+        bits, n_over, col = 8, over8, 1
+    elif over16 == 0 or (patch_ok and over16 <= n // 8):
+        bits, n_over, col = 16, over16, 2
+    else:
+        bits, n_over, col = 32, 0, None
+    dense_bytes = n * bits // 8 + (8 * _bucket(n_over, 8) if n_over else 0)
+    if _upload_sparse_enabled() and nnz * 5 < dense_bytes:
+        vdt = _value_dtype(int(counts[:, 3].max()))
+        bucket = _bucket(nnz, 64)
+        if bucket * (4 + vdt.itemsize) < dense_bytes:
+            idx = np.empty(bucket, np.int32)
+            val = np.empty(bucket, vdt)
+            off = _block_offsets(counts[:, 0])
+            if lib.upload_pack_sparse(src, n, vdt.itemsize, off.ctypes.data, threads,
+                                      idx.ctypes.data, val.ctypes.data) != 0:
+                raise RuntimeError("upload_pack_sparse failed")
+            _pad_entries(idx, val, nnz)
+            return QuantizedUpload(val, idx, _EMPTY_I32, tuple(vals_T.shape))
+    if bits == 32:
         return QuantizedUpload(vals_T, _EMPTY_I32, _EMPTY_I32)
+    out = np.empty(vals_T.shape, np.int8 if bits == 8 else np.int16)
+    idx = val = off = None
+    if n_over:
+        idx = np.empty(_bucket(n_over, 8), np.int32)
+        val = np.empty(idx.size, np.int32)
+        off = _block_offsets(counts[:, col])
+    if lib.upload_pack_narrow(src, n, bits, _ptr(off), threads, out.ctypes.data, _ptr(idx),
+                              _ptr(val)) != 0:
+        raise RuntimeError("upload_pack_narrow failed")
+    if not n_over:
+        return QuantizedUpload(out, _EMPTY_I32, _EMPTY_I32)
+    _pad_entries(idx, val, n_over)
+    return QuantizedUpload(out, idx, val)
+
+
+def _numpy_pack_upload(vals_T: np.ndarray) -> QuantizedUpload:
+    """The JAX package's numpy pack of an int32 matrix, for the inputs the
+    native pass does not read (no entries, a strided view, 2^31 or more
+    entries)."""
     flat = vals_T.reshape(-1)
     a = np.abs(flat, dtype=np.int64)
     over8 = np.flatnonzero(a >= 128).astype(np.int32)
@@ -468,6 +569,31 @@ def pack_quantized_upload(vals_T: np.ndarray) -> QuantizedUpload:
             if sp is not None:
                 return sp
     return dense
+
+
+def pack_quantized_upload(vals_T: np.ndarray) -> QuantizedUpload:
+    """Narrow an int32 quantized matrix to int8/int16 even when a handful of
+    entries overflow, carrying the overflows as an exact patch; or, for a
+    mostly-zero matrix, its nonzeros alone.
+
+    Patch policy: int16 + patch while the patch (8 bytes an entry) costs at
+    most half the 2 bytes an entry that int16 saves against int32 (``P <=
+    size // 8``); int8 + patch while it costs at most half the byte an entry
+    that int8 saves against int16 (``P <= size // 16``).
+    ``RAHT3DGS_UPLOAD_PATCH=0`` restores the all-or-nothing int16/int32
+    choice. The JAX package's choice, array for array.
+
+    A C-contiguous, aligned int32 matrix with 1 to 2^31 - 1 entries, at
+    any shape, takes the two threaded native passes of
+    :func:`pack_upload_native` (counted as ``upload_pack_native`` while
+    tracing is on); any other int32 array keeps the numpy passes, and
+    other dtypes return as they are."""
+    if vals_T.dtype != np.int32:
+        return QuantizedUpload(vals_T, _EMPTY_I32, _EMPTY_I32)
+    if _native_packable(vals_T):
+        count("upload_pack_native")
+        return pack_upload_native(vals_T)
+    return _numpy_pack_upload(vals_T)
 
 
 def upload_quantized(up: QuantizedUpload, *, device: DeviceLike = None) -> torch.Tensor:

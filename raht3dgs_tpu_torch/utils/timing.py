@@ -49,8 +49,10 @@ helpers), ``voxel_steps`` (voxels x steps of each ``encode_sweep``),
 ``frames_prepared``, ``rlgr_job_ns`` (the sum of the native jobs' own
 nanoseconds), ``rlgr_thread_slots`` (each batch call's wall ns x the
 pool's threads), ``psnr_fused`` (``gs_group_psnr`` calls that took the
-fused pass) and the rasterizer's ``raster_views``, ``raster_chunks``,
-``raster_syncs`` and ``raster_entries`` (``eval/rasterize.py:COUNTS``).
+fused pass), ``upload_pack_native`` (``pack_quantized_upload`` calls that
+took the native pass of ``native/upload_pack.cpp``) and the rasterizer's
+``raster_views``, ``raster_chunks``, ``raster_syncs`` and
+``raster_entries`` (``eval/rasterize.py:COUNTS``).
 :func:`snapshot` reads them, :func:`reset` clears them.
 """
 
